@@ -1,0 +1,128 @@
+"""Build the CUDA kernel library at first use and bind it with ctypes.
+
+All of `ransacflow_tpu_torch/csrc/*.cu` is compiled by `nvcc` for the H100
+(`sm_90a`) into one shared library with a plain C interface, under
+`build/ransacflow_tpu_torch/` at the root of the checkout. The library's file
+name carries a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded as is. Nothing here includes PyTorch's
+headers, which keeps a build to seconds.
+
+Each entry point takes pointers and the stream as `ctypes.c_void_p`, launches
+on that stream, allocates nothing, and returns `cudaGetLastError()`;
+`Kernel.__call__` raises when that is not 0 and counts the launches that
+succeeded.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ransacflow_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_library = None
+BUILD_LOG = {"seconds": None, "built": False, "ptxas": ""}
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(cuda_home) / "bin" / "nvcc"
+        path = str(candidate) if candidate.exists() else None
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library():
+    """The loaded kernel library, compiled first if its sources changed."""
+    global _library
+    if _library is not None:
+        return _library
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"librfkernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+             *map(str, sources)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build loses nothing
+        BUILD_LOG["built"] = True
+        BUILD_LOG["ptxas"] = proc.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    lib.rf_error_string.argtypes = [ctypes.c_int]
+    lib.rf_error_string.restype = ctypes.c_char_p
+    BUILD_LOG["seconds"] = time.perf_counter() - t0
+    _library = lib
+    return lib
+
+
+class Kernel:
+    """One C entry point of the library and the count of its launches."""
+
+    def __init__(self, symbol, argtypes):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def __call__(self, device, *args):
+        """Launch on `device` (its current stream is among `args`)."""
+        lib = library()
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):  # the context the launch goes to
+            err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
+                               f"{lib.rf_error_string(err).decode()}")
+        self.launches += 1
+
+
+def check(t, name, dtype, shape=None, ndim=None, device=None):
+    """Raise unless `t` is a contiguous CUDA tensor of this dtype and shape
+    with at least one element."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.numel() == 0:
+        raise ValueError(f"{name}: is empty")
+
+
+def ptr(t):
+    """Device pointer of a tensor, as ctypes wants it."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t):
+    """PyTorch's current stream on the tensor's device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
