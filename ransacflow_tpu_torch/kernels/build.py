@@ -1,7 +1,8 @@
 """Build the CUDA kernel library at first use and bind it with ctypes.
 
-All of `ransacflow_tpu_torch/csrc/*.cu` is compiled by `nvcc` for the H100
-(`sm_90a`) into one shared library with a plain C interface, under
+Each of `ransacflow_tpu_torch/csrc/*.cu` is compiled by its own `nvcc`
+process for the H100 (`sm_90a`), all started together, and the objects are
+linked into one shared library with a plain C interface, under
 `build/ransacflow_tpu_torch/` at the root of the checkout. The library's file
 name carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as is. Nothing here includes PyTorch's
@@ -26,7 +27,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ransacflow_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _library = None
 BUILD_LOG = {"seconds": None, "built": False, "ptxas": ""}
@@ -57,18 +58,33 @@ def library():
     lib_path = BUILD_DIR / f"librfkernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp_dir = BUILD_DIR / f"objects.{os.getpid()}"
+        tmp_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        objects = [tmp_dir / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c",
+                                   "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(sources, objects)]
+        outputs = []
+        for src, proc in zip(sources, procs):  # waits for every process
+            out, err = proc.communicate()
+            outputs.append((src.name, proc.returncode, out, err))
+        failed = [o for o in outputs if o[1] != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{out}\n{err}" for name, rc, out, err in failed))
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-             *map(str, sources)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, lib_path)  # atomic: a concurrent build loses nothing
+        shutil.rmtree(tmp_dir)
         BUILD_LOG["built"] = True
-        BUILD_LOG["ptxas"] = proc.stderr
+        BUILD_LOG["ptxas"] = "".join(err for _, _, _, err in outputs)
     lib = ctypes.CDLL(str(lib_path))
     lib.rf_error_string.argtypes = [ctypes.c_int]
     lib.rf_error_string.restype = ctypes.c_char_p

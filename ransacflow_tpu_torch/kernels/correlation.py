@@ -1,4 +1,4 @@
-"""Kernel 1: local correlation volume (`csrc/correlation.cu`)."""
+"""Kernel 6: local correlation volume (`csrc/correlation.cu`)."""
 
 import ctypes
 

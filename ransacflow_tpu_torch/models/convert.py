@@ -95,6 +95,21 @@ def alignment_params_from_tree(trees, device, kernel_size=7):
             for name, net in _alignment_nets(kernel_size).items()}
 
 
+def load_params_npz(path):
+    """A parameter tree saved by the JAX package's `save_params_npz` (flat
+    '/'-joined keys, e.g. `scripts/assets/accept_weights.npz`) -> nested dict
+    of float32 numpy arrays, for `alignment_params_from_tree`."""
+    tree = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(f[key], np.float32)
+    return tree
+
+
 def _seeded(net, generator):
     """Every conv ~ kaiming normal (fan_out) from `generator`; BatchNorm
     keeps its identity init, as the JAX init does."""

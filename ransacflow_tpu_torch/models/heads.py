@@ -3,15 +3,15 @@
 
 Both heads share one trunk shape: conv3x3 k^2 -> 512 -> 256 -> 128 with BN
 and ReLU between, then conv3x3 to k^2 (flow: softmax expectation over the
-offsets) or to 1 (matchability: sigmoid). All convs are bias-free.
+offsets) or to 1 (matchability: sigmoid). All convs are bias-free and run
+on cuDNN; the epilogues after conv4 are kernel 7 (`kernels/heads.py`).
 """
 
-import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ransacflow_tpu_torch.kernels.heads import flow_epilogue, match_epilogue
 from ransacflow_tpu_torch.models.layers import conv, nchw, nhwc
-from ransacflow_tpu_torch.ops.correlation import corr_offset_grids
 from ransacflow_tpu_torch.ops.sampler import upsample_bilinear_x8
 
 TRUNK = (512, 256, 128)
@@ -36,16 +36,12 @@ def net_flow_coarse(net, corr, up8=True, kernel_size=7):
     """(B, H, W, k^2) correlation -> (B, H, W, 2) normalized residual flow
     (x then y), or (B, 8H, 8W, 2) with up8: the softmax expectation over the
     k x k offset grid, divided by the feature width/height, times 2."""
-    p = torch.softmax(nhwc(net(nchw(corr))), dim=-1)
-    gx, gy = corr_offset_grids(kernel_size, p.device, p.dtype)
-    _, h, w, _ = p.shape
-    flow = torch.stack([(p * gx).sum(-1) / w * 2.0,
-                        (p * gy).sum(-1) / h * 2.0], dim=-1)
+    flow = flow_epilogue(nhwc(net(nchw(corr))), kernel_size)
     return upsample_bilinear_x8(flow) if up8 else flow
 
 
 def net_matchability(net, corr, up8=True):
     """(B, H, W, k^2) correlation -> (B, H, W, 1) matchability in (0, 1),
     or (B, 8H, 8W, 1) with up8."""
-    m = torch.sigmoid(nhwc(net(nchw(corr))))
+    m = match_epilogue(nhwc(net(nchw(corr))))
     return upsample_bilinear_x8(m) if up8 else m

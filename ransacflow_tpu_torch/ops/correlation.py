@@ -1,7 +1,7 @@
 """Offset grids of the local correlation volume (port of
 `ransacflow_tpu/ops/correlation.py:44`).
 
-The volume itself, `correlation_volume`, is kernel 1
+The volume itself, `correlation_volume`, is kernel 6
 (`kernels/correlation.py`): channel c = di*k + dj holds the target offset
 (di - k//2) rows, (dj - k//2) cols.
 """

@@ -1,11 +1,13 @@
 """Homographies: application, warp grids, the 4-point solve and its error.
 
 Port of `ransacflow_tpu/ops/homography.py` (the 'projective' solve only).
-All functions batch over leading dimensions.
+The torch functions batch over leading dimensions; `dlt_homography_np` is
+the host fp64 solve of one set.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from ransacflow_tpu_torch.ops.grid import normalized_grid
@@ -99,3 +101,26 @@ def reprojection_error(match1, match2, H21):
     """
     d = match1[..., :2] - apply_homography(H21, match2[..., :2])
     return torch.sqrt((d * d).sum(dim=-1))
+
+
+def dlt_homography_np(X, Y):
+    """Host fp64 single-set DLT (numpy SVD), used to polish the RANSAC
+    winner; a copy of `ransacflow_tpu/ops/homography.py:187`.
+
+    Reproduces the reference's numpy-SVD numerics (utils/outil.py:68-87)
+    bit for bit: the cross products (v'u etc.) round in the inputs' float32
+    before entering the fp64 system, so inputs keep their dtype here.
+
+    X: (4, 2|3) source points, Y: (4, 2|3) target points (numpy).
+    Returns (3, 3) float64 H21 (unit-norm null vector).
+    """
+    X = np.asarray(X)
+    Y = np.asarray(Y)
+    A = np.zeros((8, 9))
+    for i in range(4):
+        u, v = Y[i, 0], Y[i, 1]
+        up, vp = X[i, 0], X[i, 1]
+        A[2 * i] = [0, 0, 0, -u, -v, -1, vp * u, vp * v, vp]
+        A[2 * i + 1] = [u, v, 1, 0, 0, 0, -up * u, -up * v, -up]
+    _, _, vh = np.linalg.svd(A)
+    return vh[8].reshape(3, 3)

@@ -2,17 +2,19 @@
 (port of `ransacflow_tpu/pipeline/fine.py:25-106`).
 
 `params` is the dict of the three alignment networks: 'netFeatCoarse',
-'netFlowCoarse', 'netMatch' (see `pipeline.init_alignment_params`).
+'netFlowCoarse', 'netMatch' (see `pipeline.init_alignment_params`). The
+source warp is kernel 5, the correlations kernel 6, the head epilogues
+kernel 7 and the compose tail kernel 8.
 """
 
 import torch
 
+from ransacflow_tpu_torch.kernels.compose import compose_tail
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume
+from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
 from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
 from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
 from ransacflow_tpu_torch.models.layers import l2_normalize
-from ransacflow_tpu_torch.ops.grid import normalized_grid
-from ransacflow_tpu_torch.ops.sampler import grid_sample, interpolate_bilinear
 
 
 @torch.inference_mode()
@@ -28,8 +30,7 @@ def pred_flow_mask(params, src, featt, flow_coarse, cycle_match=False,
     Returns dict: flow (1, Ht, Wt, 2) composed grid, match (Ht, Wt),
     flow_down8 (1, Ht/8, Wt/8, 2), match_down8 (1, Ht/8, Wt/8, 2).
     """
-    ht, wt = flow_coarse.shape[1:3]
-    src_warp = grid_sample(src, flow_coarse)
+    src_warp = warp_sample(src, flow_coarse)
     feats = l2_normalize(feature_extractor(params["netFeatCoarse"], src_warp))
 
     corr12 = correlation_volume(featt, feats, kernel_size)
@@ -39,27 +40,11 @@ def pred_flow_mask(params, src, featt, flow_coarse, cycle_match=False,
     corr21 = correlation_volume(feats, featt, kernel_size)
     match21_down8 = net_matchability(params["netMatch"], corr21, up8=False)
 
-    match12 = interpolate_bilinear(match12_down8, ht, wt)
-    match21 = interpolate_bilinear(match21_down8, ht, wt)
-    flow_up = interpolate_bilinear(flow_down8, ht, wt)
-    grid = normalized_grid(ht, wt, flow_up.device, flow_up.dtype)[None]
-    flow_up = (flow_up + grid).clamp(-1.0, 1.0)
-
-    if cycle_match:
-        # flow12 and the back-warped match21 sample the same grid: one call
-        sampled = grid_sample(torch.cat([flow_coarse, match21], dim=-1), flow_up)
-        flow12 = sampled[..., :2]
-        match = match12 * sampled[..., 2:3]
-    else:
-        flow12 = grid_sample(flow_coarse, flow_up)
-        match = match12
-
-    in_bounds = ((flow12[..., 0:1] >= -1) & (flow12[..., 0:1] <= 1)
-                 & (flow12[..., 1:2] >= -1) & (flow12[..., 1:2] <= 1))
-    match = match * in_bounds.to(match.dtype)
+    flow12, match = compose_tail(flow_down8, match12_down8, match21_down8,
+                                 flow_coarse, cycle_match)
     return {
         "flow": flow12,
-        "match": match[0, :, :, 0],
+        "match": match[0],
         "flow_down8": flow_down8,
         "match_down8": torch.cat([match12_down8, match21_down8], dim=-1),
     }

@@ -1,7 +1,50 @@
-"""Pyramid scales and shapes (host helpers, copied from
-`ransacflow_tpu/utils/image.py:73` and `bench.py:45-58`)."""
+"""Host image helpers: PIL resizing to the coarse net's stride, pyramid
+scales and shapes (copied from `ransacflow_tpu/utils/image.py:14-88` and
+`bench.py:45-58`)."""
 
 import numpy as np
+from PIL import Image
+
+STRIDE_NET = 16
+
+
+def min_size_shape_wh(size_wh, min_size, stride=STRIDE_NET):
+    """(new_w, new_h) of a min-side resize, floored to stride: the one shape
+    rule of every resize and mask (reference:
+    evaluation/evalHpatch/coarseAlignFeatMatch.py:90-100)."""
+    w, h = size_wh
+    ratio = min(w / float(min_size), h / float(min_size))
+    new_w, new_h = int(round(w / ratio)), int(round(h / ratio))
+    return new_w // stride * stride, new_h // stride * stride
+
+
+def resize_min_size(img, min_size, stride=STRIDE_NET):
+    """Resize a PIL image so the *smaller* side ~= min_size, floor to stride
+    (Lanczos)."""
+    return img.resize(min_size_shape_wh(img.size, min_size, stride),
+                      resample=Image.LANCZOS)
+
+
+def resized_shape_min_size(img, min_size, stride=STRIDE_NET):
+    """(Ht, Wt) that `resize_min_size` would produce, without resizing."""
+    new_w, new_h = min_size_shape_wh(img.size, min_size, stride)
+    return new_h, new_w
+
+
+def resize_max_size(img, min_size, stride=STRIDE_NET):
+    """Resize so the *larger* side ~= min_size, floor to stride (reference:
+    quick_start/coarseAlignFeatMatch.py:80-90)."""
+    w, h = img.size
+    ratio = max(w / float(min_size), h / float(min_size))
+    new_w, new_h = int(round(w / ratio)), int(round(h / ratio))
+    new_w, new_h = new_w // stride * stride, new_h // stride * stride
+    return img.resize((new_w, new_h), resample=Image.LANCZOS)
+
+
+def to_array(img):
+    """PIL -> float32 (H, W, 3) in [0, 1] (torchvision ToTensor semantics,
+    channels-last)."""
+    return np.asarray(img.convert("RGB"), dtype=np.float32) / 255.0
 
 
 def scale_list(nb_scale, scale_r):

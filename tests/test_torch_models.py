@@ -156,3 +156,26 @@ def test_seeded_init_distributions():
                                nets["netFeatCoarse"].conv1.weight)
     trunk = convert.init_resnet50_layer3(torch.Generator().manual_seed(0), "cpu")
     assert abs(trunk.conv1.weight.std().item() - (2.0 / (49 * 64)) ** 0.5) < 0.002
+
+
+def test_load_params_npz(tmp_path, trees):
+    """Trees saved by the JAX package's `save_params_npz` load as the JAX
+    loader reads them, and the checked-in accept weights fill every
+    parameter and statistic of the alignment networks."""
+    from ransacflow_tpu.models.convert import load_params_npz as j_load, save_params_npz
+
+    path = tmp_path / "align.npz"
+    save_params_npz(str(path), trees[1])
+    ours, ref = convert.load_params_npz(str(path)), j_load(str(path))
+    flat = jax.tree_util.tree_leaves_with_path(ref)
+    assert len(flat) == len(jax.tree_util.tree_leaves(ours))
+    for key_path, leaf in flat:
+        node = ours
+        for k in key_path:
+            node = node[k.key]
+        assert node.dtype == np.float32
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+    tree = convert.load_params_npz("scripts/assets/accept_weights.npz")
+    nets = convert.alignment_params_from_tree(tree, "cpu")  # raises on a gap
+    np.testing.assert_array_equal(nets["netMatch"].conv4.weight.detach().numpy(),
+                                  tree["netMatch"]["conv4"]["weight"].transpose(3, 2, 0, 1))

@@ -21,10 +21,20 @@ from ransacflow_tpu.ops import (
     ransac as jransac,
     sampler as jsampler,
 )
+from ransacflow_tpu.ops.correlation import corr_offset_grids as j_corr_offset_grids
 from ransacflow_tpu_torch import kernels
+from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume, correlation_volume_ref
+from ransacflow_tpu_torch.kernels.heads import (
+    flow_epilogue,
+    flow_epilogue_ref,
+    match_epilogue,
+    match_epilogue_ref,
+)
 from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 from ransacflow_tpu_torch.kernels.ransac import ransac_score, ransac_score_ref
+from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_ref
+from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
 from ransacflow_tpu_torch.ops import (
     blurpool,
     grid,
@@ -207,6 +217,68 @@ def test_sampler_draws_valid_indices_and_rejects_duplicates(rng):
     assert not bool(res.found)
 
 
+def _warp_grid_with_border(rng, b, h, w):
+    """(b, h, w, 2) sampling grids: the identity (every border pixel exactly
+    on +-1) and warps that reach past the image."""
+    H = np.stack([np.eye(3)] + [np.eye(3) + 0.15 * rng.randn(3, 3) for _ in range(b - 1)])
+    return np.array(jhom.warp_grid(jnp.asarray(H.astype(np.float32)), h, w))
+
+
+def _compose_inputs(rng, b=1, h8=5, w8=7, identity=True):
+    ht, wt = 8 * h8, 8 * w8
+    flow8 = (0.04 * rng.randn(b, h8, w8, 2)).astype(np.float32)
+    flow8[:, 0, :3] = 0.0  # residual 0: the composed point lands on the border
+    m12 = rng.rand(b, h8, w8, 1).astype(np.float32)
+    m21 = rng.rand(b, h8, w8, 1).astype(np.float32)
+    H = np.eye(3) if identity else np.eye(3) + 0.1 * rng.randn(3, 3)
+    coarse = np.array(jhom.warp_grid(jnp.asarray(np.repeat(
+        H[None], b, 0).astype(np.float32)), ht, wt))
+    return flow8, m12, m21, coarse
+
+
+def _jax_compose_tail(flow8, m12, m21, coarse, cycle_match):
+    """`ransacflow_tpu/pipeline/fine.py:61-92` on JAX arrays."""
+    ht, wt = coarse.shape[1:3]
+    up = lambda x: jsampler.interpolate_bilinear(jnp.asarray(x), ht, wt)  # noqa: E731
+    flow_up = jnp.clip(up(flow8) + jgrid.normalized_grid(ht, wt)[None], -1.0, 1.0)
+    flow12 = jsampler.grid_sample(jnp.asarray(coarse), flow_up)
+    match = up(m12)
+    if cycle_match:
+        match = match * jsampler.grid_sample(up(m21), flow_up)
+    inb = ((flow12[..., 0:1] >= -1) & (flow12[..., 0:1] <= 1)
+           & (flow12[..., 1:2] >= -1) & (flow12[..., 1:2] <= 1))
+    return flow12, (match * inb)[..., 0]
+
+
+def test_warp_sample_ref_matches_jax(rng):
+    """Kernel 5's plain version on grids that land on +-1 and outside."""
+    img = rng.rand(3, 9, 12, 3).astype(np.float32)
+    g = _warp_grid_with_border(rng, 3, 7, 10)
+    assert (np.abs(g) == 1.0).any() and (np.abs(g) > 1.0).any()
+    close(warp_sample_ref(t(img), t(g)), jsampler.grid_sample(jnp.asarray(img), jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("cycle_match", [True, False])
+def test_compose_tail_ref_matches_jax(rng, cycle_match):
+    """Kernel 8's plain version, grids exactly on the border included."""
+    for identity in (True, False):
+        args = _compose_inputs(rng, b=1, identity=identity)
+        flow12, match = compose_tail_ref(*map(t, args), cycle_match)
+        ref_flow, ref_match = _jax_compose_tail(*args, cycle_match)
+        close(flow12, ref_flow)
+        close(match, ref_match)
+
+
+def test_head_epilogues_ref_match_jax(rng):
+    """Kernel 7's plain versions: models/heads.py:69-99 after conv4."""
+    logits = (3 * rng.randn(2, 5, 6, 49)).astype(np.float32)
+    p = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    gx, gy = j_corr_offset_grids(7)
+    ref = jnp.stack([jnp.sum(p * gx, -1) / 6 * 2.0, jnp.sum(p * gy, -1) / 5 * 2.0], -1)
+    close(flow_epilogue_ref(t(logits), 7), ref)
+    close(match_epilogue_ref(t(logits[..., :1])), jax.nn.sigmoid(jnp.asarray(logits[..., :1])))
+
+
 def test_cpu_tensors_take_the_plain_versions(rng):
     kernels.reset_launch_counts()
     x = t(rng.randn(1, 4, 5, 8).astype(np.float32))
@@ -219,6 +291,17 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     for ours, ref in zip(ransac_score(t(m1), t(m2), t(valid), s, 0.05),
                          ransac_score_ref(t(m1), t(m2), t(valid), s, 0.05)):
         torch.testing.assert_close(ours, ref, equal_nan=True)
+    for ours, ref in zip(ransac_adaptive(t(m1), t(m2), t(valid), s, 8, 16, 0.05, 0.999),
+                         ransac_adaptive_ref(t(m1), t(m2), t(valid), s, 8, 16, 0.05, 0.999)):
+        torch.testing.assert_close(ours, ref)
+    img, g = t(rng.rand(1, 6, 7, 3).astype(np.float32)), t(_warp_grid_with_border(rng, 1, 4, 5))
+    torch.testing.assert_close(warp_sample(img, g), warp_sample_ref(img, g))
+    args = tuple(map(t, _compose_inputs(rng)))
+    for ours, ref in zip(compose_tail(*args, True), compose_tail_ref(*args, True)):
+        torch.testing.assert_close(ours, ref)
+    logits = t(rng.randn(1, 3, 4, 9).astype(np.float32))
+    torch.testing.assert_close(flow_epilogue(logits, 3), flow_epilogue_ref(logits, 3))
+    torch.testing.assert_close(match_epilogue(logits), match_epilogue_ref(logits))
     assert set(kernels.launch_counts().values()) == {0}
 
 
@@ -254,3 +337,61 @@ def test_ransac_score_kernel_on_card(cuda, rng):
     assert (c_k == c_r).float().mean() >= 0.999
     ok = c_r > 0
     torch.testing.assert_close(H_k[ok], H_r[ok], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structured", [True, False])
+def test_ransac_adaptive_kernel_on_card(cuda, rng, structured):
+    """Kernel 4 against its plain version on the same draws, the stop test
+    under sync-debug 'error' (nothing reads back)."""
+    m1, m2, valid = _matches(rng, n=1200, inlier_frac=0.6 if structured else 0.0)
+    m1, m2, valid = (x.to(cuda) for x in (t(m1), t(m2), t(valid)))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        samples = ransac.sample_minimal_sets(valid, 12 * 1024, gen)
+        H, count, sample, chunks = ransac_adaptive(m1, m2, valid, samples, 1024,
+                                                   12000, 0.05, 0.999)
+        res, n_eval = ransac.ransac_homography_adaptive(m1, m2, valid, 0.05, n_iter=12000,
+                                                        chunk=1024, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(res.found) and int(n_eval) % 1024 == 0
+    H_r, count_r, sample_r, chunks_r = ransac_adaptive_ref(m1, m2, valid, samples, 1024,
+                                                           12000, 0.05, 0.999)
+    assert int(count) == int(count_r) and int(chunks) == int(chunks_r)
+    assert int(chunks) == (1 if structured else 12)
+    torch.testing.assert_close(sample, sample_r)
+    torch.testing.assert_close(H, H_r, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_warp_sample_kernel_on_card(cuda, rng):
+    img = t(rng.rand(2, 37, 53, 3).astype(np.float32)).to(cuda)
+    g = t(_warp_grid_with_border(rng, 2, 29, 41)).to(cuda)
+    torch.testing.assert_close(warp_sample(img, g), warp_sample_ref(img, g),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_head_epilogue_kernels_on_card(cuda, rng):
+    logits = t((3 * rng.randn(2, 13, 17, 49)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(flow_epilogue(logits, 7), flow_epilogue_ref(logits, 7),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(match_epilogue(logits[..., :1].contiguous()),
+                               match_epilogue_ref(logits[..., :1]), atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cycle_match", [True, False])
+def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
+    for identity in (True, False):
+        args = [x.to(cuda) for x in map(t, _compose_inputs(rng, b=2, identity=identity))]
+        flow, match = compose_tail(*args, cycle_match)
+        flow_r, match_r = compose_tail_ref(*args, cycle_match)
+        torch.testing.assert_close(flow, flow_r, atol=1e-5, rtol=0)
+        # the in-bounds mask is a step at |flow12| = 1: compare off it
+        off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
+        torch.testing.assert_close(match[off], match_r[off], atol=1e-5, rtol=0)
+        assert off.float().mean() > 0.8
