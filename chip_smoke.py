@@ -1,35 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port once on one CUDA card: the serving path and
-the multi-homography loop.
+"""Drive the PyTorch + CUDA port once on one CUDA card: the serving path,
+the multi-homography loop and training.
 
     python3 chip_smoke.py
 
 Phases, each of which must pass:
   (a) card: a CUDA device is present; prints its name and power limit;
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
-  (c) kernels: each hand-written kernel (K2-K8) against its plain PyTorch
-      version at its path's shapes, with max error and paired times (CUDA
-      events); K4 runs under sync-debug 'error';
+  (c) kernels: each hand-written kernel (K1-K11, the backward kernels of
+      K6, K7, K9 and K10 under their own names) against its plain PyTorch
+      version at its path's shapes (K1 the serving pyramid, the backward
+      kernels and K9-K11 the full-width training step's), with max error
+      and paired times (CUDA events and profiler device time); K4 runs
+      under sync-debug 'error';
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
-      on a small pair, and for launches of its kernels: mutual_argmax (K2),
-      ransac_score (K3), warp_sample (K5), correlation_volume (K6),
-      head_epilogues (K7) and compose_tail (K8); prints pairs/s;
+      on a small pair, and for launches of its kernels: lanczos_pyramid (K1),
+      mutual_argmax (K2), ransac_score (K3), warp_sample (K5),
+      correlation_volume (K6), head_epilogues (K7), compose_tail (K8) and
+      blur_pool (K9); prints pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
       HPatches configuration (4 related pairs, 480x640 targets, 7-scale
       pyramid from 960x1280, max_coarse 10, mask_region_th 0.01, match12
       only, cached matching, seeded trunk, alignment nets from
       scripts/assets/accept_weights.npz), once with adaptive RANSAC (blocks
       of 4096, cap 50k) and once with 50k fixed hypotheses, checked for
-      finite outputs, 1 <= count <= 11 and launches of all seven kernels
-      (K2-K8, ransac_adaptive K4 added); prints pairs/s, homographies and
+      finite outputs, 1 <= count <= 11 and launches of the serving path's
+      kernels and ransac_adaptive (K4); prints pairs/s, homographies and
       hypotheses per fit and a one-slot stage split; then, on one pair
       from PIL images, the host loop (`CoarseAligner` +
       `multi_homography_predict`) and the device loop through
       `multi_homography_predict_fused` on the same aligner and seed, whose
-      first homographies must agree within 0.01.
-Each path's launch counts are set to 0 just before it and read just after.
+      first homographies must agree within 0.01;
+  (f) training: one small stage-3 step (IMG 32, B 2) on the card against the
+      port on the CPU (losses and every gradient); stage 3 at full width (16
+      pairs of 224x224, margin 88, k 7, Adam 2e-4, betas (0.5, 0.999)):
+      finite losses, launches of every training kernel (K5, K6, K7, K9,
+      K10, K11 and the backward kernels), the median step time of 12
+      CUDA-event-timed steps after warm-up, trained pairs/s, peak memory and
+      a profiler breakdown of one step; one stage-1 step; then
+      `python -m ransacflow_tpu_torch.cli.train --stage 3 ... NoVal` for 2
+      full-width steps on synthetic JPEG groups, its checkpoint loaded back.
+Each path's launch counts are set to 0 just before it and read just after;
+a kernel's `launches` is the sum over the paths.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -37,6 +51,7 @@ exits non-zero, without that last line, on any failure or without CUDA.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,9 +68,12 @@ N_BANK, N_TARGET, N_CHANNELS = 13065, 1200, 1024
 MH_N_ITER, MH_CHUNK, MH_MAX_COARSE = 50000, 4096, 10  # bench.py bench_multihomo
 MH_SEED = 7  # pair k of the device loop draws from seed MH_SEED + k
 ACCEPT_WEIGHTS = "scripts/assets/accept_weights.npz"
-SERVING_KERNELS = ("mutual_argmax", "ransac_score", "warp_sample",
-                   "correlation_volume", "head_epilogues", "compose_tail")
+SERVING_KERNELS = ("lanczos_pyramid", "mutual_argmax", "ransac_score", "warp_sample",
+                   "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
 MULTIHOMO_KERNELS = SERVING_KERNELS + ("ransac_adaptive",)
+TRAIN_KERNELS = ("warp_sample", "grid_sample_bwd", "correlation_volume",
+                 "correlation_volume_bwd", "head_epilogues", "head_epilogues_bwd",
+                 "blur_pool", "blur_pool_bwd", "masked_ssim", "masked_ssim_bwd")
 
 
 def require(cond, msg):
@@ -335,15 +353,170 @@ def check_compose_tail(gen):
     return out
 
 
+TRAIN_PAIRS, TRAIN_IMG, TRAIN_MARGIN = 16, 224, 88  # the reference's stage presets
+TRAIN_FEAT = (2 * TRAIN_PAIRS, TRAIN_IMG // 8, TRAIN_IMG // 8)  # (32, 28, 28)
+
+
+def _grads(out, inputs, g):
+    """Backward of `out` alone (the graph kept), for timing it."""
+    return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+
+def _backward_check(name, kernel_fn, plain_fn, inputs, tol, gen):
+    """Forward and backward of `kernel_fn` against `plain_fn` on `inputs`
+    (each requiring grad): max errors and paired times of the backward.
+    Each input's cotangent is held to `tol` times the larger of 1 and the
+    plain one's largest magnitude (fp32 rounding grows with the values)."""
+    ks = [x.detach().clone().requires_grad_() for x in inputs]
+    ps = [x.detach().clone().requires_grad_() for x in inputs]
+    out_k, out_p = kernel_fn(*ks), plain_fn(*ps)
+    g = torch.randn(out_p.shape, generator=gen, device="cuda")
+    d_k = torch.autograd.grad(out_k, ks, g, retain_graph=True)
+    d_p = torch.autograd.grad(out_p, ps, g, retain_graph=True)
+    torch.cuda.synchronize()
+    require(out_k.grad_fn is not None, f"{name}: the kernel's output has no grad_fn")
+    errs = [(a - b).abs().max().item() for a, b in zip(d_k, d_p)]
+    scales = [max(1.0, b.abs().max().item()) for b in d_p]
+    for e, s in zip(errs, scales):
+        require(e <= tol * s, f"{name}: backward max abs err {e} > {tol} * {s}")
+    return {"max_abs_err": max(errs), "grad_scale": max(scales),
+            **paired_ms(_grads(out_k, ks, g), _grads(out_p, ps, g))}
+
+
+def check_pyramid(gen):
+    """K1 on the serving pyramid: 4 sources of 960x1280 into the 7 scales."""
+    from ransacflow_tpu_torch.kernels.pyramid import device_pyramid, device_pyramid_ref
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    shapes = pyramid_shapes()
+    src = torch.rand((N_PAIRS, *shapes[0], 3), generator=gen, device="cuda")
+    got, want = device_pyramid(src, shapes), device_pyramid_ref(src, shapes)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    # fp32 sums of <= 24 taps per axis, in another order than the matmuls
+    require(err <= 1e-5, f"pyramid: max abs err {err} > 1e-5")
+    return {"max_abs_err": err, **paired_ms(lambda: device_pyramid(src, shapes),
+                                            lambda: device_pyramid_ref(src, shapes))}
+
+
+def check_blur_pool(gen):
+    """K9 at the training stem: (32, 64, 223, 223) in channels-last memory,
+    as the feature extractor hands it over; forward and backward."""
+    from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
+
+    x = torch.rand((TRAIN_FEAT[0], 64, TRAIN_IMG - 1, TRAIN_IMG - 1), generator=gen,
+                   device="cuda").contiguous(memory_format=torch.channels_last)
+    filt = binomial_filter(64, 3, "cuda")
+    err = (blur_pool(x, filt) - blur_pool_ref(x, filt)).abs().max().item()
+    require(err <= 1e-6, f"blur_pool: max abs err {err} > 1e-6")  # 9 exact taps
+    fwd = {"max_abs_err": err, **paired_ms(lambda: blur_pool(x, filt),
+                                           lambda: blur_pool_ref(x, filt))}
+    bwd = _backward_check("blur_pool_bwd", lambda a: blur_pool(a, filt),
+                          lambda a: blur_pool_ref(a, filt), [x], 1e-5, gen)
+    return fwd, bwd
+
+
+def check_grid_sample_bwd(gen):
+    """K11 at the training step's shapes: the cycle warp final[roll] at
+    final (both cotangents, the splat with fp32 atomics: run-to-run order),
+    and the image warp at final (grid cotangent only)."""
+    from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
+    from ransacflow_tpu_torch.ops.grid import normalized_grid
+
+    b2 = TRAIN_FEAT[0]
+    grid = normalized_grid(TRAIN_IMG, TRAIN_IMG, "cuda")[None]
+    final = (grid + 0.05 * torch.randn((b2, TRAIN_IMG, TRAIN_IMG, 2), generator=gen,
+                                       device="cuda")).clamp(-1, 1).contiguous()
+    roll = torch.roll(torch.arange(b2, device="cuda"), b2 // 2)
+    images = torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device="cuda")
+    out = _backward_check("grid_sample_bwd", warp_sample, warp_sample_ref,
+                          [final[roll].contiguous(), final], 1e-5, gen)
+    fk, fp = final.clone().requires_grad_(), final.clone().requires_grad_()
+    g = torch.randn(images.shape, generator=gen, device="cuda")
+    dk = torch.autograd.grad(warp_sample(images, fk), fk, g)[0]
+    dp = torch.autograd.grad(warp_sample_ref(images, fp), fp, g)[0]
+    err, scale = (dk - dp).abs().max().item(), dp.abs().max().item()
+    # the grid cotangent is scaled by (W - 1) / 2 = 111.5: relative to its size
+    require(err <= 1e-5 * max(1.0, scale),
+            f"grid_sample_bwd (grid only): max abs err {err} > 1e-5 * {scale}")
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["grad_scale"] = max(out["grad_scale"], scale)
+    return out
+
+
+def check_correlation_bwd(gen):
+    """K6's backward at the training shape (32, 28, 28, 256), k=7."""
+    from ransacflow_tpu_torch.kernels.correlation import (
+        correlation_volume, correlation_volume_ref)
+
+    x = _normalized((*TRAIN_FEAT, 256), -1, gen)
+    y = _normalized((*TRAIN_FEAT, 256), -1, gen)
+    return _backward_check("correlation_volume_bwd", lambda a, b: correlation_volume(a, b, 7),
+                           lambda a, b: correlation_volume_ref(a, b, 7), [x, y], 1e-4, gen)
+
+
+def check_head_epilogues_bwd(gen):
+    """K7's backward at the training heads' (32, 28, 28, 49) and (.., 1)."""
+    from ransacflow_tpu_torch.kernels.heads import (
+        flow_epilogue, flow_epilogue_ref, match_epilogue, match_epilogue_ref)
+
+    flow_logits = 3 * torch.randn((*TRAIN_FEAT, 49), generator=gen, device="cuda")
+    match_logits = 3 * torch.randn((*TRAIN_FEAT, 1), generator=gen, device="cuda")
+    both = lambda fe, me: lambda a, b: torch.cat(  # noqa: E731
+        [fe(a, 7).flatten(), me(b).flatten()])
+    return _backward_check("head_epilogues_bwd", both(flow_epilogue, match_epilogue),
+                           both(flow_epilogue_ref, match_epilogue_ref),
+                           [flow_logits, match_logits], 1e-5, gen)
+
+
+def check_masked_ssim(gen):
+    """K10 at the training shape: (32, 224, 224, 3), the mask from a
+    matchability that is zero outside the 48x48 supervised centre."""
+    from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
+
+    b2 = TRAIN_FEAT[0]
+    img1 = torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device="cuda")
+    img2 = (img1 + 0.1 * torch.rand(img1.shape, generator=gen, device="cuda")).clamp(0, 1)
+    match = torch.zeros((b2, TRAIN_IMG, TRAIN_IMG, 1), device="cuda")
+    c = slice(TRAIN_MARGIN, TRAIN_IMG - TRAIN_MARGIN)
+    match[:, c, c] = torch.rand(match[:, c, c].shape, generator=gen, device="cuda")
+    loss, ref = masked_ssim_loss(img1, img2, match), masked_ssim_loss_ref(img1, img2, match)
+    rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    require(rel <= 1e-5, f"masked_ssim: relative err {rel} > 1e-5")
+    require(loss.item() == masked_ssim_loss(img1, img2, match).item(),
+            "masked_ssim: two calls differ (the reduction must be deterministic)")
+    fwd = {"max_abs_err": abs(loss.item() - ref.item()), "rel_err": rel,
+           **paired_ms(lambda: masked_ssim_loss(img1, img2, match),
+                       lambda: masked_ssim_loss_ref(img1, img2, match))}
+    i_k, i_p = img1.clone().requires_grad_(), img1.clone().requires_grad_()
+    l_k = masked_ssim_loss(i_k, img2, match)
+    l_p = masked_ssim_loss_ref(i_p, img2, match)
+    one = torch.ones((), device="cuda")
+    d_k = torch.autograd.grad(l_k, i_k, one, retain_graph=True)[0]
+    d_p = torch.autograd.grad(l_p, i_p, one, retain_graph=True)[0]
+    scale = d_p.abs().max().item()
+    err = (d_k - d_p).abs().max().item()
+    require(err <= 1e-4 * scale, f"masked_ssim_bwd: max abs err {err} > 1e-4 * {scale}")
+    bwd = {"max_abs_err": err, "grad_scale": scale,
+           **paired_ms(_grads(l_k, i_k, one), _grads(l_p, i_p, one))}
+    return fwd, bwd
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"correlation_volume": check_correlation(gen),
+    results = {"lanczos_pyramid": check_pyramid(gen),
+               "correlation_volume": check_correlation(gen),
                "mutual_argmax": check_matching(gen),
                "ransac_score": check_ransac(gen),
                "ransac_adaptive": check_ransac_adaptive(gen),
                "warp_sample": check_warp_sample(gen),
                "head_epilogues": check_head_epilogues(gen),
                "compose_tail": check_compose_tail(gen)}
+    results["blur_pool"], results["blur_pool_bwd"] = check_blur_pool(gen)
+    results["masked_ssim"], results["masked_ssim_bwd"] = check_masked_ssim(gen)
+    results["grid_sample_bwd"] = check_grid_sample_bwd(gen)
+    results["correlation_volume_bwd"] = check_correlation_bwd(gen)
+    results["head_epilogues_bwd"] = check_head_epilogues_bwd(gen)
     for name, r in results.items():
         print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
     return results
@@ -635,7 +808,249 @@ def phase_multihomo(card):
     return launches, readings
 
 
+def _train_batch(images, n_pairs, img_size, margin):
+    """(images, index_roll, grid, mask_margin) of a training step on the
+    images' device."""
+    from ransacflow_tpu_torch.ops.grid import normalized_grid
+    from ransacflow_tpu_torch.train import local_index_roll, margin_mask
+
+    dev = images.device
+    return (images, local_index_roll(n_pairs, dev),
+            normalized_grid(img_size, img_size, dev)[None],
+            margin_mask(2 * n_pairs, img_size, margin, dev))
+
+
+def _stage_kwargs(stage):
+    from ransacflow_tpu_torch.train import STAGES
+
+    return {k: STAGES[stage][k] for k in ("mode", "mu_cycle", "lambda_match",
+                                          "grad_weight")}
+
+
+def _new_trainer(device, stage):
+    from ransacflow_tpu_torch.pipeline import init_alignment_params
+    from ransacflow_tpu_torch.train import make_optimizer, split_trainable
+
+    nets = init_alignment_params(torch.Generator().manual_seed(1), device)
+    return nets, make_optimizer(split_trainable(nets, _stage_kwargs(stage)["mode"])[0])
+
+
+def check_train_step_against_cpu():
+    """One stage-3 step at IMG 32, B 2, margin 8 (tests/test_torch_train.py's
+    shapes) on the card and on the CPU (held against the JAX package by
+    those tests), same weights and images: the losses to 1e-4 relative, the
+    BatchNorm statistics to 1e-4, and the gradients by two measures: the
+    median over tensors of each tensor's max difference over its largest
+    magnitude to 1e-4, and each tensor's cosine similarity to >= 0.999.
+    Not each tensor to 1e-4: the step's gradients are piecewise smooth
+    (ReLU and max-pool kinks, grid_sample's pixel edges), and two fp32
+    implementations straddle a kink now and then. On the CPU alone, 10 of
+    30 perturbations of these images by 3e-7 moved one tensor by 2.8e-2 to
+    5.4e-2 of its largest magnitude (cosine >= 0.99993) while the median
+    stayed at ~1.5e-5."""
+    from ransacflow_tpu_torch.train import train_step
+
+    n_pairs, img, margin = 2, 32, 8
+    images = torch.from_numpy(np.random.RandomState(4).rand(2 * n_pairs, img, img, 3)
+                              .astype(np.float32))
+    res = {}
+    for device in ("cpu", "cuda"):
+        nets, opt = _new_trainer(device, 3)
+        metrics = train_step(nets, opt, *_train_batch(images.to(device), n_pairs, img,
+                                                      margin), **_stage_kwargs(3))
+        res[device] = ({k: float(v) for k, v in metrics.items()},
+                       {f"{n}.{k}": p.grad.cpu() for n, net in nets.items()
+                        for k, p in net.named_parameters() if p.grad is not None},
+                       {f"{n}.{k}": b.cpu().float() for n, net in nets.items()
+                        for k, b in net.named_buffers()})
+    (loss_c, grad_c, bn_c), (loss_g, grad_g, bn_g) = res["cpu"], res["cuda"]
+    rel = max(abs(loss_g[k] - v) / max(abs(v), 1e-7) for k, v in loss_c.items())
+    require(rel <= 1e-4, f"train step: losses differ from the CPU: {loss_g} vs {loss_c}")
+    bn_err = max((bn_g[k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+                 for k, v in bn_c.items())
+    require(bn_err <= 1e-4, f"train step: BatchNorm statistics differ by {bn_err}")
+    require(grad_c.keys() == grad_g.keys() and len(grad_c) > 0, "train step: gradient sets")
+    of_max = {k: ((grad_g[k] - v).abs().max() / v.abs().max()).item()
+              for k, v in grad_c.items()}
+    cosine = {k: torch.nn.functional.cosine_similarity(grad_g[k].flatten(), v.flatten(),
+                                                       dim=0).item()
+              for k, v in grad_c.items()}
+    median = float(np.median(list(of_max.values())))
+    worst_cos = min(cosine, key=cosine.get)
+    require(median <= 1e-4, f"train step: median gradient error {median} of the largest "
+                            f"magnitude: {of_max}")
+    require(cosine[worst_cos] >= 0.999, f"train step: gradient {worst_cos} has cosine "
+                                        f"{cosine[worst_cos]} with the CPU's")
+    worst = max(of_max, key=of_max.get)
+    return {"loss_rel_err": rel, "bn_stat_err": bn_err, "n_grads": len(grad_c),
+            "grad_err_of_max_median": median, "grad_err_of_max_worst": of_max[worst],
+            "worst": worst, "min_cosine": cosine[worst_cos]}
+
+
+def _related_train_images(rng, n_pairs, img_size):
+    """I1 blocky, I2 the same rolled by 4 pixels: 2 * n_pairs images."""
+    i1 = _blocky(rng, n_pairs, img_size, img_size)
+    return torch.from_numpy(np.concatenate([i1, np.roll(i1, (4, 4), axis=(1, 2))]))
+
+
+HAND_KERNELS = ("pyramid_kernel", "blurpool_", "ssim_", "grid_sample_bwd_kernel",
+                "warp_sample_kernel", "correlation_", "epilogue", "sigmoid_")
+FAMILIES = (("hand kernels", HAND_KERNELS),
+            ("convolutions", ("conv", "gemm", "dgrad", "wgrad", "fprop", "fft",
+                              "pointwise_mult_and_sum_complex", "implicit_convolve")),
+            ("batchnorm", ("batchnorm", "batch_norm", "bn_")),
+            ("layout transposes", ("nchwToNhwc", "nhwcToNchw", "copy_", "transpose")),
+            ("pooling", ("max_pool",)))
+
+
+def _family(name):
+    for family, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return family
+    return "other elementwise and reductions"
+
+
+def _profile_step(step, reps=3):
+    """Device time of `reps` steps from a torch.profiler trace: device ms per
+    step, its share of the traced wall time, the split by kernel family and
+    the top kernels. (The trace slows the host: the untraced step time is
+    the CUDA-event median.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    device = sum(ms for _, ms in rows)
+    families = {}
+    for name, ms in rows:
+        families[_family(name)] = families.get(_family(name), 0.0) + ms
+    return {"traced_wall_ms": wall_ms, "device_ms": device,
+            "families_ms": {k: round(v, 4) for k, v in
+                            sorted(families.items(), key=lambda kv: -kv[1])},
+            "top": [(name[:60], round(ms, 4)) for name, ms in rows[:15]]}
+
+
+def _cli_entry_point(tmp):
+    """`python -m ransacflow_tpu_torch.cli.train --stage 3 ... NoVal` for 2
+    steps of the full-width batch on synthetic JPEG groups; the checkpoint is
+    loaded back into fresh networks and optimizer."""
+    from PIL import Image
+
+    from ransacflow_tpu_torch.train import load_checkpoint
+
+    data, out = f"{tmp}/data", f"{tmp}/out"
+    os.makedirs(data)
+    rng = np.random.RandomState(5)
+    for idx in range(2 * TRAIN_PAIRS):  # two batches of groups
+        base = (_blocky(rng, 1, 256, 320)[0] * 255).astype(np.uint8)
+        for view, shift in ((1, 0), (2, 6)):
+            Image.fromarray(np.roll(base, shift, axis=1)).save(f"{data}/{idx}_{view}.jpg")
+    cmd = [sys.executable, "-m", "ransacflow_tpu_torch.cli.train", "--trainImgDir", data,
+           "--outDir", out, "--stage", "3", "--batchSize", str(TRAIN_PAIRS),
+           "--imgSize", str(TRAIN_IMG), "--margin", str(TRAIN_MARGIN), "--nEpochs", "1",
+           "--maxStepsPerEpoch", "2", "--device", "cuda", "NoVal", "--epochSaveModel", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.train exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    recs = [json.loads(line) for line in open(f"{out}/metrics.jsonl")]
+    last = recs[-1]
+    require(last["step"] == 0 and all(np.isfinite(last[k]) for k in ("loss", "loss_lr",
+                                                                       "loss_cycle",
+                                                                       "loss_match")),
+            f"cli.train: epoch record {last}")
+    nets, opt = _new_trainer("cuda", 3)
+    ckpt = load_checkpoint(f"{out}/checkpoint_epoch0.pt", nets, opt)
+    require(ckpt["step"] == 0 and len(opt.state_dict()["state"]) > 0,
+            "cli.train: the checkpoint did not load back")
+    w = nets["netFlowCoarse"].conv1.weight
+    require(w.device.type == "cuda" and bool(torch.isfinite(w).all()),
+            "cli.train: loaded weights")
+    return {"seconds": seconds, "epoch_record": last}
+
+
+def phase_train(card):
+    """Stage 3 at full width (16 pairs of 224x224, margin 88, k 7, Adam
+    2e-4 / (0.5, 0.999)), after the small step against the CPU; then one
+    stage-1 step and the CLI entry point."""
+    import tempfile
+
+    from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.train import train_step
+
+    small = check_train_step_against_cpu()
+    print(f"(f) small stage-3 step, card vs CPU: {small}", flush=True)
+
+    rng = np.random.RandomState(6)
+    batch = _train_batch(_related_train_images(rng, TRAIN_PAIRS, TRAIN_IMG).cuda(),
+                         TRAIN_PAIRS, TRAIN_IMG, TRAIN_MARGIN)
+    nets, opt = _new_trainer("cuda", 3)
+    step = lambda: train_step(nets, opt, *batch, **_stage_kwargs(3))  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    first = step()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(all(launches[k] > 0 for k in TRAIN_KERNELS),
+            f"training path: kernel not launched: {launches}")
+    first = {k: float(v) for k, v in first.items()}
+    require(all(np.isfinite(v) for v in first.values()), f"stage 3: losses {first}")
+    for _ in range(2):  # warm-up
+        step()
+    times = []
+    for _ in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    last = {k: float(v) for k, v in metrics.items()}
+    require(all(np.isfinite(v) for v in last.values()), f"stage 3: losses {last}")
+    step_ms = float(np.median(times))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = _profile_step(step)
+    # the device's idle share of the untraced step, on the device's timeline
+    profile["idle_share"] = max(0.0, 1.0 - profile["device_ms"] / step_ms)
+    print(f"(f) stage 3 at full width ({TRAIN_PAIRS} pairs, {TRAIN_IMG}x{TRAIN_IMG}, "
+          f"margin {TRAIN_MARGIN}): step ms median of {len(times)} {step_ms:.3f} "
+          f"(min {min(times):.3f}, max {max(times):.3f}) = "
+          f"{TRAIN_PAIRS / (step_ms / 1e3):.3f} trained pairs/s; peak memory "
+          f"{peak_gb:.2f} GB; first step {first}; step 15 {last}; launches "
+          f"{launches} on {card}", flush=True)
+    print(f"(f) one step in the profiler: {profile}", flush=True)
+    del nets, opt, batch
+
+    nets1, opt1 = _new_trainer("cuda", 1)
+    batch1 = _train_batch(_related_train_images(rng, TRAIN_PAIRS, TRAIN_IMG).cuda(),
+                          TRAIN_PAIRS, TRAIN_IMG, TRAIN_MARGIN)
+    stage1 = {k: float(v) for k, v in
+              train_step(nets1, opt1, *batch1, **_stage_kwargs(1)).items()}
+    require(all(np.isfinite(v) for v in stage1.values()) and stage1["loss_match"] == 0.0,
+            f"stage 1: losses {stage1}")
+    print(f"(f) stage 1 step at full width: {stage1}", flush=True)
+    del nets1, opt1, batch1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _cli_entry_point(tmp)
+    print(f"(f) cli.train --stage 3 NoVal, 2 steps at full width: {cli}", flush=True)
+    return launches, {"step_ms": step_ms, "step_ms_all": times,
+                      "pairs_s": TRAIN_PAIRS / (step_ms / 1e3), "peak_gb": peak_gb,
+                      "profile": profile}
+
+
 SOURCES = {
+    "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
+                        "ransacflow_tpu/pipeline/fused.py:30"),
     "mutual_argmax": ("cuda", "ransacflow_tpu_torch/csrc/matching.cu",
                       "ransacflow_tpu/ops/matching.py:24"),
     "ransac_score": ("cuda", "ransacflow_tpu_torch/csrc/ransac.cu",
@@ -650,6 +1065,20 @@ SOURCES = {
                        "ransacflow_tpu/models/heads.py:69"),
     "compose_tail": ("cuda", "ransacflow_tpu_torch/csrc/compose.cu",
                      "ransacflow_tpu/pipeline/fine.py:61"),
+    "blur_pool": ("cuda", "ransacflow_tpu_torch/csrc/blurpool.cu",
+                  "ransacflow_tpu/ops/blurpool.py:42"),
+    "blur_pool_bwd": ("cuda", "ransacflow_tpu_torch/csrc/blurpool.cu",
+                      "ransacflow_tpu/ops/blurpool.py:42"),
+    "masked_ssim": ("cuda", "ransacflow_tpu_torch/csrc/ssim.cu",
+                    "ransacflow_tpu/ops/ssim.py:57"),
+    "masked_ssim_bwd": ("cuda", "ransacflow_tpu_torch/csrc/ssim.cu",
+                        "ransacflow_tpu/ops/ssim.py:57"),
+    "grid_sample_bwd": ("cuda", "ransacflow_tpu_torch/csrc/grid_sample_bwd.cu",
+                        "ransacflow_tpu/ops/sampler.py:211"),
+    "correlation_volume_bwd": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
+                               "ransacflow_tpu/ops/correlation.py:21"),
+    "head_epilogues_bwd": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",
+                           "ransacflow_tpu/models/heads.py:69"),
 }
 
 
@@ -659,17 +1088,19 @@ def main():
         phase_build()
         results = phase_kernels()
         serving = phase_serving(card)
-        launches, readings = phase_multihomo(card)
+        multihomo, readings = phase_multihomo(card)
+        train, train_readings = phase_train(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
+    by_path = {"serving": serving, "multihomo": multihomo, "train": train}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": launches[name],
-                "launches_by_path": {"serving": serving[name], "multihomo": launches[name]},
+                "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {path: p[name] for path, p in by_path.items()},
                 **{key: results[name][key] for key in
                    ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms")}}
                for name, (route, src, rep) in SOURCES.items()]
-    print(json.dumps({"multihomo": readings}))
+    print(json.dumps({"multihomo": readings, "train": train_readings}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

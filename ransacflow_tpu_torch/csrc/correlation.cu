@@ -17,6 +17,16 @@
 // then each thread accumulates its outputs from shared memory. Rows are
 // padded to 33 floats so that neighbouring rows fall in different banks.
 // Simple and right first: no tensor cores, no asynchronous copies.
+//
+// Its backward (rf_correlation_volume_bwd, the TPU's autodiff of the same
+// op in training) is in gather form, with no atomics:
+//   dx[b, i, j, c] = sum_d g[b, i, j, d] * y[b, i+di-p, j+dj-p, c]
+//   dy[b, i, j, c] = sum_d g[b, i-di+p, j-dj+p, d] * x[b, i-di+p, j-dj+p, c]
+// terms outside the map being zero. At the training shape (32, 28, 28, 256),
+// k=7, it does 2 x 315 M multiply-adds whose operands come from L1/L2: one
+// thread per (pixel, channel), consecutive threads on consecutive channels,
+// so the y and x reads of a warp are one coalesced row and the g reads a
+// broadcast. Each sum runs in offset order, so the result is deterministic.
 #include "common.cuh"
 
 namespace {
@@ -102,6 +112,41 @@ __global__ void __launch_bounds__(kThreads) correlation_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) correlation_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ g, float* __restrict__ dx, float* __restrict__ dy,
+    int H, int W, int C, int k, long long total) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int c = static_cast<int>(e % C);
+  const long long pix = e / C;
+  const int j = static_cast<int>(pix % W);
+  const int i = static_cast<int>((pix / W) % H);
+  const long long b0 = pix / (static_cast<long long>(H) * W) * H * W;  // first pixel of b
+  const int p = k / 2, kk = k * k;
+  float sx = 0.f, sy = 0.f;
+  for (int di = 0; di < k; ++di) {
+    for (int dj = 0; dj < k; ++dj) {
+      const int d = di * k + dj;
+      if (dx != nullptr) {
+        const int yi = i + di - p, yj = j + dj - p;
+        if (yi >= 0 && yi < H && yj >= 0 && yj < W) {
+          sx = fmaf(g[pix * kk + d], y[(b0 + yi * W + yj) * C + c], sx);
+        }
+      }
+      if (dy != nullptr) {
+        const int gi = i - di + p, gj = j - dj + p;
+        if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
+          const long long q = b0 + gi * W + gj;
+          sy = fmaf(g[q * kk + d], x[q * C + c], sy);
+        }
+      }
+    }
+  }
+  if (dx != nullptr) dx[e] = sx;
+  if (dy != nullptr) dy[e] = sy;
+}
+
 }  // namespace
 
 // The caller keeps k odd and k <= 11, so that kTileJ * k * k outputs fit
@@ -114,5 +159,17 @@ RF_API int rf_correlation_volume(const float* x, const float* y, float* out,
                       kStride;
   const dim3 grid((W + kTileJ - 1) / kTileJ, H, B);
   correlation_kernel<<<grid, kThreads, smem, stream>>>(x, y, out, H, W, C, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g: (B, H, W, k*k) the volume's cotangent; dx, dy: (B, H, W, C), either
+// null to skip it. Same layouts as rf_correlation_volume.
+RF_API int rf_correlation_volume_bwd(const float* x, const float* y, const float* g,
+                                     float* dx, float* dy, int B, int H, int W,
+                                     int C, int k, cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * H * W * C;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  correlation_bwd_kernel<<<blocks, kThreads, 0, stream>>>(x, y, g, dx, dy, H, W, C, k,
+                                                          total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -134,6 +134,15 @@ def check(t, name, dtype, shape=None, ndim=None, device=None):
         raise ValueError(f"{name}: is empty")
 
 
+def forbid_grad(name, *tensors):
+    """Raise when a forward-only wrapper would hand back a tensor cut off
+    from the autograd graph: grad mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() "
+                           "or on tensors that do not require grad")
+
+
 def ptr(t):
     """Device pointer of a tensor, as ctypes wants it."""
     return ctypes.c_void_p(t.data_ptr())

@@ -4,7 +4,7 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, ptr, stream
+from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
 from ransacflow_tpu_torch.ops.grid import normalized_grid
 from ransacflow_tpu_torch.ops.sampler import grid_sample, interpolate_bilinear
 
@@ -46,7 +46,10 @@ def compose_tail_ref(flow_down8, match12_down8, match21_down8, flow_coarse,
 
 def compose_tail(flow_down8, match12_down8, match21_down8, flow_coarse,
                  cycle_match):
-    """`compose_tail_ref` for CPU tensors, the kernel for CUDA ones."""
+    """`compose_tail_ref` for CPU tensors, the kernel for CUDA ones.
+    Forward only: raises when an input requires grad under grad mode."""
+    forbid_grad("compose_tail", flow_down8, match12_down8, match21_down8,
+                flow_coarse)
     if flow_coarse.device.type == "cpu":
         return compose_tail_ref(flow_down8, match12_down8, match21_down8,
                                 flow_coarse, cycle_match)

@@ -12,6 +12,12 @@ launch latency bounds it. One program handles a block of cells as a
 the row in registers; nothing between the logits and the flow touches
 memory. The conv stack before it stays on cuDNN.
 
+The backward kernels (training: the TPU's autodiff of the same epilogues)
+are the same per-cell reductions: the flow epilogue recomputes the softmax
+p from the logits and writes dlogit = p * (u - sum(p * u)) with
+u = gx * gfx * 2 / W + gy * gfy * 2 / H; the sigmoid's is g * s * (1 - s)
+from the saved output s.
+
 Imported only by the launching functions of `kernels/heads.py`: the CPU
 hosts that run the tests have no Triton.
 """
@@ -47,3 +53,34 @@ def sigmoid_kernel(x_ptr, out_ptr, n, BLOCK: tl.constexpr):
     mask = offs < n
     x = tl.load(x_ptr + offs, mask=mask, other=0.0)
     tl.store(out_ptr + offs, 1.0 / (1.0 + tl.exp(-x)), mask=mask)
+
+
+@triton.jit
+def flow_epilogue_bwd_kernel(logits_ptr, gout_ptr, dlogits_ptr, n_cells, H, W,
+                             K: tl.constexpr, KK: tl.constexpr, P: tl.constexpr,
+                             BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
+    rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
+    cols = tl.arange(0, BLOCK_C)
+    rmask = rows < n_cells
+    cmask = cols < KK
+    mask = rmask[:, None] & cmask[None, :]
+    x = tl.load(logits_ptr + rows[:, None] * KK + cols[None, :], mask=mask, other=0.0)
+    x = tl.where(cmask[None, :], x, float("-inf"))
+    e = tl.exp(x - tl.max(x, axis=1)[:, None])
+    p = e / tl.sum(e, axis=1)[:, None]
+    gx = (cols % K - P).to(tl.float32)
+    gy = (cols // K - P).to(tl.float32)
+    gfx = tl.load(gout_ptr + rows * 2, mask=rmask, other=0.0) / W * 2.0
+    gfy = tl.load(gout_ptr + rows * 2 + 1, mask=rmask, other=0.0) / H * 2.0
+    u = gx[None, :] * gfx[:, None] + gy[None, :] * gfy[:, None]
+    d = p * (u - tl.sum(p * u, axis=1)[:, None])
+    tl.store(dlogits_ptr + rows[:, None] * KK + cols[None, :], d, mask=mask)
+
+
+@triton.jit
+def sigmoid_bwd_kernel(s_ptr, g_ptr, out_ptr, n, BLOCK: tl.constexpr):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    s = tl.load(s_ptr + offs, mask=mask, other=0.0)
+    g = tl.load(g_ptr + offs, mask=mask, other=0.0)
+    tl.store(out_ptr + offs, g * s * (1.0 - s), mask=mask)

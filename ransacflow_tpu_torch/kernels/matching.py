@@ -4,7 +4,7 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, ptr, stream
+from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
 
 KERNEL = Kernel("rf_mutual_argmax",
                 [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7)
@@ -25,7 +25,9 @@ def mutual_argmax_ref(score):
 
 
 def mutual_argmax(score):
-    """`mutual_argmax_ref` for a CPU tensor, the kernel for a CUDA one."""
+    """`mutual_argmax_ref` for a CPU tensor, the kernel for a CUDA one.
+    Forward only: raises when `score` requires grad under grad mode."""
+    forbid_grad("mutual_argmax", score)
     if score.device.type == "cpu":
         return mutual_argmax_ref(score)
     check(score, "score", torch.float32, ndim=2)

@@ -4,7 +4,7 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, ptr, stream
+from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
 from ransacflow_tpu_torch.ops.homography import dlt_homography
 
 DET_EPS = 1e-6  # kDetEps in the source
@@ -35,7 +35,9 @@ def ransac_score_ref(match1, match2, valid, samples, tolerance):
 
 def ransac_score(match1, match2, valid, samples, tolerance):
     """`ransac_score_ref` for CPU tensors, the kernel for CUDA ones.
-    `samples` must lie in [0, N)."""
+    `samples` must lie in [0, N). Forward only: raises when a match array
+    requires grad under grad mode."""
+    forbid_grad("ransac_score", match1, match2)
     if match1.device.type == "cpu":
         return ransac_score_ref(match1, match2, valid, samples, tolerance)
     n = match1.shape[0]

@@ -5,7 +5,7 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, ptr, stream
+from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
 from ransacflow_tpu_torch.kernels.ransac import ransac_score_ref
 
 KERNEL = Kernel("rf_ransac_adaptive",
@@ -55,7 +55,9 @@ def ransac_adaptive(match1, match2, valid, samples, chunk, n_iter, tolerance,
     """`ransac_adaptive_ref` for CPU tensors, the kernel for CUDA ones, whose
     stop test stays on the device: every chunk is enqueued, a chunk after
     the stop returns at once, and nothing is read back. `samples` must lie
-    in [0, N)."""
+    in [0, N). Forward only: raises when a match array requires grad under
+    grad mode."""
+    forbid_grad("ransac_adaptive", match1, match2)
     if match1.device.type == "cpu":
         return ransac_adaptive_ref(match1, match2, valid, samples, chunk, n_iter,
                                    tolerance, confidence)

@@ -7,6 +7,7 @@ downsample shortcuts. `state_dict` names are the reference's
 (`layer2.0.downsample.1.weight`, ...).
 """
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -49,6 +50,13 @@ class FeatureExtractor(nn.Module):
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = self.blur(F.max_pool2d(x, 2, 1))
+        if not torch.is_grad_enabled():
+            # The layers below run on cuDNN in the memory format they are
+            # handed: channels-last (from conv1, kept by the blur-pool
+            # kernel) is faster for a training step, NCHW for inference
+            # (H100, fp32: a 224x224 batch-32 step 56.1 against 60.5 ms;
+            # one 480x640 image 4.94 against 3.99 ms).
+            x = x.contiguous()
         return self.layer3(self.layer2(self.layer1(x)))
 
 

@@ -2,10 +2,13 @@
 `ransacflow_tpu/models/layers.py`).
 
 The networks are `nn.Module`s with the reference's `state_dict` names and run
-NCHW inside. Convolutions are bias-free fp32 `nn.Conv2d`, BatchNorm is
-`nn.BatchNorm2d` in eval mode (eps 1e-5) and max pooling is `F.max_pool2d`,
-which pads with -inf as the reference does. The reference's int8 conv branch
-has no counterpart.
+NCHW inside. Convolutions are bias-free fp32 `nn.Conv2d` and max pooling
+is `F.max_pool2d`, which pads with -inf as the reference does. BatchNorm is
+`nn.BatchNorm2d` (eps 1e-5, momentum 0.1): in eval mode it normalizes with
+the running statistics; in train mode it has the reference's semantics
+(`ransacflow_tpu/models/layers.py:89-116`): the biased batch variance
+normalizes, the unbiased one enters the running statistics. The
+reference's int8 conv branch has no counterpart.
 """
 
 import math

@@ -3,13 +3,13 @@
 
 Multi-scale coarse features -> mutual matching -> RANSAC -> homography warp
 -> fine stage. `fused_align_batch` runs pairs one after another (the
-reference's 'scan' batch mode).
+reference's 'scan' batch mode). The pyramid is kernel 1
+(`kernels/pyramid.device_pyramid`, re-exported here).
 """
-
-import math
 
 import torch
 
+from ransacflow_tpu_torch.kernels.pyramid import device_pyramid  # noqa: F401  (K1)
 from ransacflow_tpu_torch.models.layers import l2_normalize
 from ransacflow_tpu_torch.models.resnet50 import imagenet_preprocess, resnet50_layer3
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
@@ -17,49 +17,6 @@ from ransacflow_tpu_torch.ops.homography import warp_grid
 from ransacflow_tpu_torch.ops.matching import mutual_matching
 from ransacflow_tpu_torch.ops.ransac import ransac_homography
 from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask
-
-LANCZOS_RADIUS = 3.0
-
-
-def _lanczos3_weights(in_size, out_size, device):
-    """(in_size, out_size) weights of `jax.image.resize(..., 'lanczos3')`
-    along one axis, built as JAX builds them (`compute_weight_mat`: the
-    kernel widened by 1/scale on downscale, columns normalized, samples
-    outside the input zeroed), in fp32."""
-    f32 = torch.float32
-    scale = torch.full((), out_size / in_size, dtype=f32, device=device)
-    inv_scale = torch.ones((), dtype=f32, device=device) / scale
-    kernel_scale = torch.clamp_min(inv_scale, 1.0)
-    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]
-         ).abs() / kernel_scale
-    y = LANCZOS_RADIUS * torch.sin(math.pi * x) * torch.sin(math.pi * x / LANCZOS_RADIUS)
-    w = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
-    w = torch.where(x > LANCZOS_RADIUS, 0.0, w)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
-                    w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
-
-
-def device_pyramid(image, shapes):
-    """The coarse scale pyramid of (B, H, W, 3) images, on their device.
-
-    Each (h, w) of `shapes` other than the input's own is an antialiased
-    Lanczos-3 resize with `jax.image.resize`'s numbers: per-axis weight
-    matrices applied as matrix products. Returns a tuple of (B, h, w, 3).
-    """
-    _, H, W, _ = image.shape
-    out = []
-    for h, w in shapes:
-        x = image
-        if h != H:
-            x = torch.einsum("bhwc,hH->bHwc", x, _lanczos3_weights(H, h, x.device))
-        if w != W:
-            x = torch.einsum("bhwc,wW->bhWc", x, _lanczos3_weights(W, w, x.device))
-        out.append(x.contiguous())
-    return tuple(out)
 
 
 def _bank_coords(pyramid_shapes, device, stride=16):

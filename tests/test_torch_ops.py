@@ -22,7 +22,10 @@ from ransacflow_tpu.ops import (
     sampler as jsampler,
 )
 from ransacflow_tpu.ops.correlation import corr_offset_grids as j_corr_offset_grids
+from ransacflow_tpu.pipeline import fused as jfused
 from ransacflow_tpu_torch import kernels
+from ransacflow_tpu_torch.kernels import pyramid
+from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
 from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume, correlation_volume_ref
 from ransacflow_tpu_torch.kernels.heads import (
@@ -34,6 +37,7 @@ from ransacflow_tpu_torch.kernels.heads import (
 from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 from ransacflow_tpu_torch.kernels.ransac import ransac_score, ransac_score_ref
 from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_ref
+from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
 from ransacflow_tpu_torch.ops import (
     blurpool,
@@ -395,3 +399,177 @@ def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
         off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
         torch.testing.assert_close(match[off], match_r[off], atol=1e-5, rtol=0)
         assert off.float().mean() > 0.8
+
+
+def _forward_only_calls(rng, device):
+    """(name, call) of every forward-only wrapper on inputs that require grad."""
+    m1, m2, valid = _matches(rng, n=32)
+    m1, m2, valid = (t(a).to(device) for a in (m1, m2, valid))
+    s = t(rng.randint(0, 32, (16, 4)).astype(np.int32)).to(device)
+    f8, m12, m21, coarse = (t(a).to(device) for a in _compose_inputs(rng))
+    score = t(rng.randn(20, 9).astype(np.float32)).to(device)
+    img = t(rng.rand(1, 16, 20, 3).astype(np.float32)).to(device)
+    g = lambda x: x.clone().requires_grad_()  # noqa: E731
+    return [("mutual_argmax", lambda: mutual_argmax(g(score))),
+            ("ransac_score", lambda: ransac_score(g(m1), m2, valid, s, 0.05)),
+            ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, s, 8, 16, 0.05,
+                                                        0.999)),
+            ("compose_tail", lambda: compose_tail(g(f8), m12, m21, coarse, True)),
+            ("device_pyramid", lambda: pyramid.device_pyramid(g(img), [(8, 10)]))]
+
+
+def test_forward_only_wrappers_raise_under_grad(rng):
+    """K1, K2, K3, K4 and K8 have no backward: under grad mode an input that
+    requires grad raises instead of handing back a tensor cut off from the
+    graph; under no_grad they run."""
+    for name, call in _forward_only_calls(rng, "cpu"):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def test_pyramid_taps_rebuild_the_weight_matrices():
+    """Kernel 1's per-output taps (start, count, weights) rebuild the plain
+    version's Lanczos-3 matrices exactly, downscale, upscale and identity."""
+    for n_in, n_out in ((960, 800), (960, 240), (1280, 320), (64, 32), (32, 64), (50, 50)):
+        start, count, w = pyramid._taps(n_in, n_out)
+        dense = np.zeros((n_out, n_in), np.float32)
+        for o in range(n_out):
+            dense[o, start[o]:start[o] + count[o]] = w[o, :count[o]]
+        ref = (np.eye(n_in, dtype=np.float32) if n_in == n_out else
+               pyramid._lanczos3_weights(n_in, n_out, "cpu").numpy().T)
+        np.testing.assert_array_equal(dense, ref)
+    assert pyramid._taps(960, 240)[2].shape[1] == 24  # 4x down: 24 taps
+
+
+def test_device_pyramid_ref_matches_jax(rng):
+    """Kernel 1's plain version, one axis at a time included."""
+    img = rng.rand(1, 40, 56, 3).astype(np.float32)
+    shapes = [(40, 56), (32, 48), (20, 28), (56, 72), (40, 28), (25, 56)]
+    for ours, ref in zip(pyramid.device_pyramid(t(img), shapes),
+                         jfused.device_pyramid(jnp.asarray(img), shapes)):
+        assert ours.shape == ref.shape
+        close(ours, ref)
+
+
+@pytest.mark.gpu
+def test_forward_only_wrappers_raise_under_grad_on_card(cuda, rng):
+    for name, call in _forward_only_calls(rng, cuda):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+
+
+@pytest.mark.gpu
+def test_pyramid_kernel_on_card(cuda, rng):
+    img = t(rng.rand(2, 96, 128, 3).astype(np.float32)).to(cuda)
+    shapes = [(96, 128), (80, 106), (48, 64), (24, 32), (120, 160), (96, 64)]
+    kernels.reset_launch_counts()
+    got = pyramid.device_pyramid(img, shapes)
+    assert kernels.launch_counts()["lanczos_pyramid"] == 1  # every scale, one launch
+    assert got[0] is img
+    for g, r in zip(got, pyramid.device_pyramid_ref(img, shapes)):
+        assert g.shape == r.shape and g.is_contiguous()
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(223, 223), (24, 31), (112, 112)])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_blur_pool_kernels_on_card(cuda, rng, hw, channels_last):
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = t(rng.randn(2, 5, *hw).astype(np.float32)).to(cuda).contiguous(memory_format=fmt)
+    filt = binomial_filter(5, 3, cuda)
+    xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yk, yr = blur_pool(xk, filt), blur_pool_ref(xr, filt)
+    assert yk.grad_fn is not None and yk.is_contiguous(memory_format=fmt)
+    torch.testing.assert_close(yk, yr, atol=1e-6, rtol=0)
+    g = torch.randn_like(yr)
+    kernels.reset_launch_counts()
+    yk.backward(g)
+    yr.backward(g)
+    assert kernels.launch_counts()["blur_pool_bwd"] == 1
+    torch.testing.assert_close(xk.grad, xr.grad, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError):
+        blur_pool(x[:, :, :, 1:], filt)  # a view in neither layout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [1, 2, 3])
+def test_grid_sample_kernels_on_card(cuda, rng, channels):
+    """K5 forward and K11 backward against F.grid_sample's autograd, grids
+    on +-1 and outside included; the splat only when the image needs it.
+    K11 adds with fp32 atomics, in an order that changes from run to run:
+    sums of a few terms, so 1e-5."""
+    img = t(rng.rand(2, 17, 23, channels).astype(np.float32)).to(cuda)
+    grid = t(_warp_grid_with_border(rng, 2, 19, 21)).to(cuda)
+    g = torch.randn((2, 19, 21, channels), device=cuda)
+    for image_grad in (True, False):
+        ik, ir = img.clone().requires_grad_(image_grad), img.clone().requires_grad_(image_grad)
+        gk, gr = grid.clone().requires_grad_(), grid.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        out = warp_sample(ik, gk)
+        out.backward(g)
+        assert kernels.launch_counts()["grid_sample_bwd"] == 1
+        warp_sample_ref(ir, gr).backward(g)
+        torch.testing.assert_close(gk.grad, gr.grad, atol=1e-5, rtol=0)
+        if image_grad:
+            torch.testing.assert_close(ik.grad, ir.grad, atol=1e-5, rtol=0)
+        else:
+            assert ik.grad is None
+
+
+@pytest.mark.gpu
+def test_correlation_backward_kernel_on_card(cuda, rng):
+    x = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
+    y = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
+    for k in (7, 3):
+        g = torch.randn((2, 13, 21, k * k), device=cuda)
+        xk, yk, xr, yr = (a.clone().requires_grad_() for a in (x, y, x, y))
+        kernels.reset_launch_counts()
+        correlation_volume(xk, yk, k).backward(g)
+        assert kernels.launch_counts()["correlation_volume_bwd"] == 1
+        correlation_volume_ref(xr, yr, k).backward(g)
+        torch.testing.assert_close(xk.grad, xr.grad, atol=1e-4, rtol=0)
+        torch.testing.assert_close(yk.grad, yr.grad, atol=1e-4, rtol=0)
+    # one side only: the other gets no cotangent
+    yk = y.clone().requires_grad_()
+    correlation_volume(x, yk, 7).sum().backward()
+    assert yk.grad is not None
+
+
+@pytest.mark.gpu
+def test_head_epilogue_backward_kernels_on_card(cuda, rng):
+    logits = t((3 * rng.randn(2, 13, 17, 49)).astype(np.float32)).to(cuda)
+    for fn, ref, width, args in ((flow_epilogue, flow_epilogue_ref, 49, (7,)),
+                                 (match_epilogue, match_epilogue_ref, 1, ())):
+        lk = logits[..., :width].contiguous().requires_grad_()
+        lr = logits[..., :width].contiguous().requires_grad_()
+        out = fn(lk, *args)
+        g = torch.randn_like(out)
+        kernels.reset_launch_counts()
+        out.backward(g)
+        assert kernels.launch_counts()["head_epilogues_bwd"] == 1
+        ref(lr, *args).backward(g)
+        torch.testing.assert_close(lk.grad, lr.grad, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_masked_ssim_kernels_on_card(cuda, rng):
+    """K10 forward (a two-pass reduction: deterministic) and backward in
+    img1 against the plain version's autograd."""
+    img1, img2 = (t(rng.rand(3, 37, 70, 3).astype(np.float32)).to(cuda) for _ in range(2))
+    match = t(rng.rand(3, 37, 70, 1).astype(np.float32)).to(cuda)
+    match[0] = 0.0  # an image with no valid pixel
+    ik, ir = img1.clone().requires_grad_(), img1.clone().requires_grad_()
+    lk, lr = masked_ssim_loss(ik, img2, match), masked_ssim_loss_ref(ir, img2, match)
+    torch.testing.assert_close(lk, lr, atol=0, rtol=1e-5)
+    assert masked_ssim_loss(img1, img2, match).item() == lk.item()  # deterministic
+    kernels.reset_launch_counts()
+    (2.5 * lk).backward()
+    assert kernels.launch_counts()["masked_ssim_bwd"] == 1
+    (2.5 * lr).backward()
+    torch.testing.assert_close(ik.grad, ir.grad, atol=1e-5 * float(ir.grad.abs().max()),
+                               rtol=0)
+    with pytest.raises(RuntimeError, match="img2"):
+        masked_ssim_loss(img1, img2.clone().requires_grad_(), match)
