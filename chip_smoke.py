@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on one CUDA card: the serving path,
-the multi-homography loop and training.
+the multi-homography loop, training, the opt-in fast modes through the
+public entry points, and the sky mask.
 
     python3 chip_smoke.py
 
 Phases, each of which must pass:
   (a) card: a CUDA device is present; prints its name and power limit;
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
-  (c) kernels: each hand-written kernel (K1-K11, the backward kernels of
-      K6, K7, K9 and K10 under their own names) against its plain PyTorch
-      version at its path's shapes (K1 the serving pyramid, the backward
-      kernels and K9-K11 the full-width training step's), with max error
-      and paired times (CUDA events and profiler device time); K4 runs
-      under sync-debug 'error';
+  (c) kernels: each hand-written kernel (K1-K13, the backward kernels of
+      K6, K7, K9 and K10 under their own names, and K2 with relax_cells 1)
+      against its plain PyTorch version at its path's shapes (K1 the serving
+      pyramid, K12 a serving pair's four anchor resamples, K13 the sky
+      mask's conv5 maps, the backward kernels and K9-K11 the full-width
+      training step's), with max error, paired times (CUDA events and
+      profiler device time), the time of one PyTorch call that computes the
+      same function where there is one (`library_ms`), and the least time
+      the card could take for the work (`bound_ms`: bytes over 3.35 TB/s or
+      operations over 67 TFLOP/s fp32, whichever is larger); K4 runs under
+      sync-debug 'error';
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
@@ -41,7 +47,21 @@ Phases, each of which must pass:
       CUDA-event-timed steps after warm-up, trained pairs/s, peak memory and
       a profiler breakdown of one step; one stage-1 step; then
       `python -m ransacflow_tpu_torch.cli.train --stage 3 ... NoVal` for 2
-      full-width steps on synthetic JPEG groups, its checkpoint loaded back.
+      full-width steps on synthetic JPEG groups, its checkpoint loaded back;
+  (g) fast modes: the 4 serving pairs of (d) through `fused_align_batch` at
+      anchor stride 3 with relax_cells 1 (fixed 10k and adaptive 4096),
+      timed best of 3 in turns with the exact mode; `RansacFlowAligner.
+      align_images` on a 480x640 pair (quick-start defaults, anchor 3, relax
+      1, adaptive 4096); `python -m ransacflow_tpu_torch.cli.align ...
+      --device cuda` in those modes (rc 0, its five outputs); the device
+      multi-homography loop with relax_cells 1 against the host loop on (e)'s
+      first pair; launches of the serving kernels, anchor_resample (K12)
+      and ransac_adaptive (K4);
+  (h) sky mask: `SkySegmenter` on the card against the CPU on a small image,
+      then a seeded one at full width (5 scales of a 480x640 image, ms per
+      image), and the `--segNet` hook (`cli.common.build_sky_fn` ->
+      bg_mask -> `multi_homography_predict_fused`) on the 4 related pairs of
+      (e); launches of ppm_pool (K13) and the loop's kernels.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths.
 
@@ -74,6 +94,14 @@ MULTIHOMO_KERNELS = SERVING_KERNELS + ("ransac_adaptive",)
 TRAIN_KERNELS = ("warp_sample", "grid_sample_bwd", "correlation_volume",
                  "correlation_volume_bwd", "head_epilogues", "head_epilogues_bwd",
                  "blur_pool", "blur_pool_bwd", "masked_ssim", "masked_ssim_bwd")
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+# RANSAC arithmetic per (hypothesis, match): the homography applied (15), the
+# divide (2), the squared residual (5) and the tolerance test and count (2);
+# per hypothesis the Hartley normalization and the closed-form 4-point solve
+RANSAC_OPS_PER_MATCH, RANSAC_OPS_PER_SOLVE = 24, 250
 
 
 def require(cond, msg):
@@ -109,6 +137,30 @@ def device_ms(fn, reps=20):
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages())
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops, suffix=""):
+    """The least time the card could take for the work (ms): the larger of
+    the bytes that must move (each input read once, each output written
+    once) over HBM's rate and the operations over the fp32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms" + suffix: max(t_bytes, t_ops),
+            "bound_by" + suffix: "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes" + suffix: int(n_bytes), "bound_ops" + suffix: int(n_ops)}
+
+
+def library(fn, suffix=""):
+    """`library_ms` (CUDA events, as `ms`) and its device time: one PyTorch
+    call that computes the kernel's function on the same inputs (never
+    called by the port), or None where there is none."""
+    if fn is None:
+        return {"library_ms" + suffix: None, "library_device_ms" + suffix: None}
+    return {"library_ms" + suffix: cuda_ms(fn), "library_device_ms" + suffix: device_ms(fn)}
 
 
 def paired_ms(kernel_fn, plain_fn, reps=20, suffix=""):
@@ -166,10 +218,13 @@ def check_correlation(gen):
     require(err <= 1e-4, f"correlation: max abs err {err} > 1e-4")
     return {"max_abs_err": err,
             **paired_ms(lambda: correlation_volume(x, y, 7),
-                        lambda: correlation_volume_ref(x, y, 7))}
+                        lambda: correlation_volume_ref(x, y, 7)),
+            **bound(nbytes(x, y, got), 2 * got.numel() * x.shape[-1]), **library(None)}
 
 
 def check_matching(gen):
+    """K2 at the serving shape (13065 x 1200), exact reciprocity with a
+    planted tie, then relax_cells=1 on the 30 x 40 target grid."""
     from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 
     feat_a = _normalized((N_CHANNELS, N_BANK), 0, gen)
@@ -180,16 +235,25 @@ def check_matching(gen):
     valid_b[5] = True
     score = (feat_a.T @ feat_b) * valid_b.float()[None, :]
     require(score[57, 5].item() == score[101, 5].item(), "planted tie is not exact")
-    got = mutual_argmax(score)
-    want = mutual_argmax_ref(score)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("best_src", "best_tgt", "valid"), got[:3], want[:3]):
-        require(torch.equal(g, w), f"matching: {name} differs from the plain version")
-    require(got[0][5].item() == 57, "matching: the tie did not go to the lowest index")
-    require(not got[2][~valid_b].any().item(), "matching: a masked target matched")
-    err = (got[3] - want[3]).abs().max().item()
-    return {"max_abs_err": err, **paired_ms(lambda: mutual_argmax(score),
-                                            lambda: mutual_argmax_ref(score))}
+    out = {}
+    for relax, suffix in ((0, ""), (1, "_relaxed")):
+        args = (score, relax, 40 if relax else None)
+        got = mutual_argmax(*args)
+        want = mutual_argmax_ref(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("best_src", "best_tgt", "valid"), got[:3], want[:3]):
+            require(torch.equal(g, w), f"matching{suffix}: {name} differs from the plain version")
+        require(got[0][5].item() == 57, "matching: the tie did not go to the lowest index")
+        require(not got[2][~valid_b].any().item(), "matching: a masked target matched")
+        out["max_abs_err" + suffix] = (got[3] - want[3]).abs().max().item()
+        out["n_valid" + suffix] = int(got[2].sum())
+        out.update(paired_ms(lambda: mutual_argmax(*args), lambda: mutual_argmax_ref(*args),
+                             suffix=suffix))
+        # the score read once; a comparison per element for each argmax
+        out.update(bound(nbytes(score, *got), 2 * score.numel(), suffix))
+        out.update(library(lambda: (torch.argmax(score, 0), torch.argmax(score, 1)), suffix))
+    require(out["n_valid_relaxed"] >= out["n_valid"], "matching: relaxing lost matches")
+    return out
 
 
 def _ransac_matches(gen, inlier_frac=0.6):
@@ -231,9 +295,11 @@ def check_ransac(gen):
     if best_k == best_r:
         require(err <= 1e-4, f"ransac: winner H21 max abs err {err} > 1e-4")
     require(c_k.max().item() > 0.4 * N_TARGET, "ransac: no good model found")
+    ops = N_ITER * (N_TARGET * RANSAC_OPS_PER_MATCH + RANSAC_OPS_PER_SOLVE)
     return {"max_abs_err": err, "counts_agree": agree,
             **paired_ms(lambda: ransac_score(m1, m2, valid, samples, 0.05),
-                        lambda: ransac_score_ref(m1, m2, valid, samples, 0.05))}
+                        lambda: ransac_score_ref(m1, m2, valid, samples, 0.05)),
+            **bound(nbytes(m1, m2, valid, samples, H_k, c_k), ops), **library(None)}
 
 
 def check_ransac_adaptive(gen):
@@ -274,9 +340,15 @@ def check_ransac_adaptive(gen):
         require(err <= 1e-4, f"ransac_adaptive ({case}): H21 max abs err {err}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out[f"{case}_same_sample"] = bool(torch.equal(sample, sample_r))
+        suffix = "" if case == "clean" else "_to_cap"
         out.update(paired_ms(lambda: ransac_adaptive(*args),
-                             lambda: ransac_adaptive_ref(*args), reps=5,
-                             suffix="" if case == "clean" else "_to_cap"))
+                             lambda: ransac_adaptive_ref(*args), reps=5, suffix=suffix))
+        # the blocks this run's data needs, not the cap
+        n_hyp = int(blocks) * MH_CHUNK
+        out.update(bound(nbytes(m1, m2, valid, samples[:n_hyp], H, count, sample),
+                         n_hyp * (N_TARGET * RANSAC_OPS_PER_MATCH + RANSAC_OPS_PER_SOLVE),
+                         suffix))
+        out.update(library(None, suffix))
     return out
 
 
@@ -304,8 +376,13 @@ def check_warp_sample(gen):
         torch.cuda.synchronize()
         err = max(err, (got - warp_sample_ref(src, grid)).abs().max().item())
     require(err <= 1e-5, f"warp_sample: max abs err {err} > 1e-5")
+    src_nchw = src.permute(0, 3, 1, 2)
+    # 4 taps of 3 channels (a multiply-add each) and ~10 for the weights
     return {"max_abs_err": err, **paired_ms(lambda: warp_sample(src, grid),
-                                            lambda: warp_sample_ref(src, grid))}
+                                            lambda: warp_sample_ref(src, grid)),
+            **bound(nbytes(src, grid, got), got.numel() * 8 + grid.numel() * 5),
+            **library(lambda: torch.nn.functional.grid_sample(
+                src_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True))}
 
 
 def check_head_epilogues(gen):
@@ -321,9 +398,12 @@ def check_head_epilogues(gen):
     torch.cuda.synchronize()
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     require(err <= 1e-4, f"head_epilogues: max abs err {err} > 1e-4")
+    # per logit: the max, exp, sum and two weighted sums (~7); sigmoid ~4
     return {"max_abs_err": err, **paired_ms(
         lambda: (flow_epilogue(flow_logits, 7), match_epilogue(match_logits)),
-        lambda: (flow_epilogue_ref(flow_logits, 7), match_epilogue_ref(match_logits)))}
+        lambda: (flow_epilogue_ref(flow_logits, 7), match_epilogue_ref(match_logits))),
+        **bound(nbytes(flow_logits, match_logits, *got),
+                7 * flow_logits.numel() + 4 * match_logits.numel()), **library(None)}
 
 
 def check_compose_tail(gen):
@@ -350,6 +430,9 @@ def check_compose_tail(gen):
         out.update(paired_ms(lambda: compose_tail(flow8, m12, m21, coarse, cycle),
                              lambda: compose_tail_ref(flow8, m12, m21, coarse, cycle),
                              suffix=suffix))
+    # per output pixel: three 4-tap upsamplings, the grid sample (~60)
+    out.update(bound(nbytes(flow8, m12, m21, coarse, flow, match), 60 * match.numel()))
+    out.update(library(None))
     return out
 
 
@@ -385,7 +468,7 @@ def _backward_check(name, kernel_fn, plain_fn, inputs, tol, gen):
 
 def check_pyramid(gen):
     """K1 on the serving pyramid: 4 sources of 960x1280 into the 7 scales."""
-    from ransacflow_tpu_torch.kernels.pyramid import device_pyramid, device_pyramid_ref
+    from ransacflow_tpu_torch.kernels.pyramid import device_pyramid, device_pyramid_ref, taps
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
     shapes = pyramid_shapes()
@@ -395,8 +478,13 @@ def check_pyramid(gen):
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     # fp32 sums of <= 24 taps per axis, in another order than the matmuls
     require(err <= 1e-5, f"pyramid: max abs err {err} > 1e-5")
+    B, H, W, _ = src.shape
+    ops = 0  # a multiply-add per nonzero tap: the row pass, then the columns
+    for h, w in shapes[1:]:
+        ops += 2 * B * 3 * (int(taps(H, h)[1].sum()) * W + h * int(taps(W, w)[1].sum()))
     return {"max_abs_err": err, **paired_ms(lambda: device_pyramid(src, shapes),
-                                            lambda: device_pyramid_ref(src, shapes))}
+                                            lambda: device_pyramid_ref(src, shapes)),
+            **bound(nbytes(src, *got[1:]), ops), **library(None)}
 
 
 def check_blur_pool(gen):
@@ -407,12 +495,20 @@ def check_blur_pool(gen):
     x = torch.rand((TRAIN_FEAT[0], 64, TRAIN_IMG - 1, TRAIN_IMG - 1), generator=gen,
                    device="cuda").contiguous(memory_format=torch.channels_last)
     filt = binomial_filter(64, 3, "cuda")
-    err = (blur_pool(x, filt) - blur_pool_ref(x, filt)).abs().max().item()
+    y = blur_pool(x, filt)
+    err = (y - blur_pool_ref(x, filt)).abs().max().item()
     require(err <= 1e-6, f"blur_pool: max abs err {err} > 1e-6")  # 9 exact taps
     fwd = {"max_abs_err": err, **paired_ms(lambda: blur_pool(x, filt),
-                                           lambda: blur_pool_ref(x, filt))}
+                                           lambda: blur_pool_ref(x, filt)),
+           **bound(nbytes(x, y), 18 * y.numel()),
+           **library(lambda: torch.nn.functional.conv2d(
+               torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect"), filt, stride=2,
+               groups=64))}
     bwd = _backward_check("blur_pool_bwd", lambda a: blur_pool(a, filt),
                           lambda a: blur_pool_ref(a, filt), [x], 1e-5, gen)
+    # the output's cotangent read, the input's written; 9 taps each
+    bwd.update(bound(nbytes(y, x), 18 * y.numel()))
+    bwd.update(library(None))
     return fwd, bwd
 
 
@@ -441,6 +537,15 @@ def check_grid_sample_bwd(gen):
             f"grid_sample_bwd (grid only): max abs err {err} > 1e-5 * {scale}")
     out["max_abs_err"] = max(out["max_abs_err"], err)
     out["grad_scale"] = max(out["grad_scale"], scale)
+    # the timed backward: the cotangent, image and grid read, both
+    # cotangents written (5 x 32 x 224 x 224 x 2 floats); per output value
+    # the 4-tap splat and the grid's two partials (~40)
+    image, grid = final[roll].contiguous(), final
+    out.update(bound(5 * nbytes(grid), 40 * grid.numel()))
+    g = torch.randn(grid.shape, generator=gen, device="cuda").permute(0, 3, 1, 2)
+    image_nchw = image.permute(0, 3, 1, 2)
+    out.update(library(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g, image_nchw, grid, 0, 0, True, [True, True])))
     return out
 
 
@@ -451,8 +556,14 @@ def check_correlation_bwd(gen):
 
     x = _normalized((*TRAIN_FEAT, 256), -1, gen)
     y = _normalized((*TRAIN_FEAT, 256), -1, gen)
-    return _backward_check("correlation_volume_bwd", lambda a, b: correlation_volume(a, b, 7),
-                           lambda a, b: correlation_volume_ref(a, b, 7), [x, y], 1e-4, gen)
+    out = _backward_check("correlation_volume_bwd", lambda a, b: correlation_volume(a, b, 7),
+                          lambda a, b: correlation_volume_ref(a, b, 7), [x, y], 1e-4, gen)
+    g_numel = x.numel() // 256 * 49
+    # x and y read, the (.., 49) cotangent read, dx and dy written; two
+    # multiply-adds per (pixel, offset, channel)
+    out.update(bound(nbytes(x, y) * 2 + g_numel * 4, 4 * g_numel * 256))
+    out.update(library(None))
+    return out
 
 
 def check_head_epilogues_bwd(gen):
@@ -464,9 +575,15 @@ def check_head_epilogues_bwd(gen):
     match_logits = 3 * torch.randn((*TRAIN_FEAT, 1), generator=gen, device="cuda")
     both = lambda fe, me: lambda a, b: torch.cat(  # noqa: E731
         [fe(a, 7).flatten(), me(b).flatten()])
-    return _backward_check("head_epilogues_bwd", both(flow_epilogue, match_epilogue),
-                           both(flow_epilogue_ref, match_epilogue_ref),
-                           [flow_logits, match_logits], 1e-5, gen)
+    out = _backward_check("head_epilogues_bwd", both(flow_epilogue, match_epilogue),
+                          both(flow_epilogue_ref, match_epilogue_ref),
+                          [flow_logits, match_logits], 1e-5, gen)
+    # the logits read and their cotangents written, the outputs' cotangents read
+    n_out = flow_logits.numel() // 49 * 2 + match_logits.numel()
+    out.update(bound(2 * nbytes(flow_logits, match_logits) + 4 * n_out,
+                     10 * (flow_logits.numel() + match_logits.numel())))
+    out.update(library(None))
+    return out
 
 
 def check_masked_ssim(gen):
@@ -485,9 +602,13 @@ def check_masked_ssim(gen):
     require(rel <= 1e-5, f"masked_ssim: relative err {rel} > 1e-5")
     require(loss.item() == masked_ssim_loss(img1, img2, match).item(),
             "masked_ssim: two calls differ (the reduction must be deterministic)")
+    # per pixel and channel: five separable 11-tap blurs (220) and the SSIM
+    # map (~25); per pixel the separable box of the mask (44)
     fwd = {"max_abs_err": abs(loss.item() - ref.item()), "rel_err": rel,
            **paired_ms(lambda: masked_ssim_loss(img1, img2, match),
-                       lambda: masked_ssim_loss_ref(img1, img2, match))}
+                       lambda: masked_ssim_loss_ref(img1, img2, match)),
+           **bound(nbytes(img1, img2, match, loss), 245 * img1.numel() + 44 * match.numel()),
+           **library(None)}
     i_k, i_p = img1.clone().requires_grad_(), img1.clone().requires_grad_()
     l_k = masked_ssim_loss(i_k, img2, match)
     l_p = masked_ssim_loss_ref(i_p, img2, match)
@@ -497,9 +618,88 @@ def check_masked_ssim(gen):
     scale = d_p.abs().max().item()
     err = (d_k - d_p).abs().max().item()
     require(err <= 1e-4 * scale, f"masked_ssim_bwd: max abs err {err} > 1e-4 * {scale}")
+    # the forward's maps, three partials blurred again (132) and the sum (~15)
     bwd = {"max_abs_err": err, "grad_scale": scale,
-           **paired_ms(_grads(l_k, i_k, one), _grads(l_p, i_p, one))}
+           **paired_ms(_grads(l_k, i_k, one), _grads(l_p, i_p, one)),
+           **bound(nbytes(img1, img2, match, d_k), 392 * img1.numel() + 44 * match.numel()),
+           **library(None)}
     return fwd, bwd
+
+
+SERVING_RESAMPLES = (((60, 80), (50, 66)), ((30, 40), (40, 53)), ((30, 40), (25, 33)),
+                     ((15, 20), (20, 26)))  # a serving pair's K12 calls at stride 3
+
+
+def check_anchor_resample(gen):
+    """K12 at a serving pair's four resamples (anchors 0, 3, 6 of the 7-scale
+    pyramid), 1024 channels; the rows written into one bank as the path does."""
+    import torch.nn.functional as F
+
+    from ransacflow_tpu_torch.kernels.anchor_resample import (
+        anchor_resample_feats, anchor_resample_feats_ref, bilinear_weights)
+    from ransacflow_tpu_torch.kernels.pyramid import taps
+
+    maps = [3 * torch.randn((1, h, w, N_CHANNELS), generator=gen, device="cuda")
+            for (h, w), _ in SERVING_RESAMPLES]
+    sizes = [fh * fw for _, (fh, fw) in SERVING_RESAMPLES]
+    bank = torch.empty((sum(sizes), N_CHANNELS), device="cuda")
+
+    def kernel():
+        offset = 0
+        for fmap, (_, (fh, fw)), n in zip(maps, SERVING_RESAMPLES, sizes):
+            anchor_resample_feats(fmap, fh, fw, out=bank[offset:offset + n])
+            offset += n
+        return bank
+
+    def plain():
+        return torch.cat([anchor_resample_feats_ref(fmap, fh, fw)
+                          for fmap, (_, (fh, fw)) in zip(maps, SERVING_RESAMPLES)])
+
+    def lib():  # F.interpolate agrees with JAX's resize (tests/test_torch_fastmodes.py)
+        return [F.normalize(F.interpolate(fmap.permute(0, 3, 1, 2), size=(fh, fw),
+                                          mode="bilinear", align_corners=False,
+                                          antialias=True), dim=1)
+                for fmap, (_, (fh, fw)) in zip(maps, SERVING_RESAMPLES)]
+
+    err = (kernel() - plain()).abs().max().item()
+    torch.cuda.synchronize()
+    # unit rows from fp32 sums of <= 9 taps in another order
+    require(err <= 1e-5, f"anchor_resample: max abs err {err} > 1e-5")
+    ops = 0  # a multiply-add per tap and channel, and the normalization
+    for (h, w), (fh, fw) in SERVING_RESAMPLES:
+        n_taps = (int(taps(h, fh, bilinear_weights)[1].sum())
+                  * int(taps(w, fw, bilinear_weights)[1].sum()))
+        ops += N_CHANNELS * (2 * n_taps + 3 * fh * fw)
+    return {"max_abs_err": err, **paired_ms(kernel, plain),
+            **bound(nbytes(*maps, bank), ops), **library(lib)}
+
+
+def check_ppm_pool(gen):
+    """K13 at the sky mask's conv5 shapes: (1, 47, 63, 2048) for a 480x640
+    image at the capped scales, (1, 38, 50, 2048) at the short side 300."""
+    import torch.nn.functional as F
+
+    from ransacflow_tpu_torch.kernels.adaptive_pool import bin_edges, ppm_pool, ppm_pool_ref
+
+    scales = (1, 2, 3, 6)
+    out = {"max_abs_err": 0.0}
+    for (h, w), suffix in (((47, 63), ""), ((38, 50), "_short300")):
+        x = torch.relu(torch.randn((1, h, w, 2048), generator=gen, device="cuda"))
+        got, want = ppm_pool(x, scales), ppm_pool_ref(x, scales)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        # fp32 means of up to 2961 values summed in another order
+        require(err <= 1e-5, f"ppm_pool: max abs err {err} > 1e-5")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        x_nchw = x.permute(0, 3, 1, 2)
+        adds = sum((r1 - r0) * (c1 - c0) for s in scales for r0, r1 in bin_edges(h, s)
+                   for c0, c1 in bin_edges(w, s))
+        out.update(paired_ms(lambda: ppm_pool(x, scales), lambda: ppm_pool_ref(x, scales),
+                             suffix=suffix))
+        out.update(bound(nbytes(x, *got), adds * 2048, suffix))
+        out.update(library(lambda: [F.adaptive_avg_pool2d(x_nchw, s) for s in scales],
+                           suffix))
+    return out
 
 
 def phase_kernels():
@@ -517,6 +717,8 @@ def phase_kernels():
     results["grid_sample_bwd"] = check_grid_sample_bwd(gen)
     results["correlation_volume_bwd"] = check_correlation_bwd(gen)
     results["head_epilogues_bwd"] = check_head_epilogues_bwd(gen)
+    results["anchor_resample"] = check_anchor_resample(gen)
+    results["ppm_pool"] = check_ppm_pool(gen)
     for name, r in results.items():
         print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
     return results
@@ -535,21 +737,42 @@ def _nets(device):
             init_alignment_params(torch.Generator().manual_seed(1), device))
 
 
-def check_small_pair_against_cpu():
+SMALL_SHAPES = ((128, 128), (64, 64), (32, 32))
+# 5 scales for the anchor mode at stride 3: anchors 0 and 3, the target's
+# own 64x64 (seeded trunks are not smooth across scales, and a target
+# between anchors fits no sane homography on 16 cells), and only
+# downscales beside the two identities: an upscale's edge cells copy the
+# anchor's, and those copies tie exactly with the target's own rows. The
+# full-width serving run below takes the upscales.
+SMALL_ANCHOR_SHAPES = ((128, 128), (112, 112), (96, 96), (64, 64), (48, 48))
+
+
+def check_small_pair_against_cpu(shapes=SMALL_SHAPES, target_scale=None, **mode):
     """The port on the card against its plain CPU path (held against the JAX
-    package by tests/test_torch_pipeline.py), one 64x64 pair, same draws."""
-    from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align
+    package by tests/test_torch_pipeline.py and, in the fast modes,
+    tests/test_torch_fastmodes.py), one 64x64 target, same draws. The target
+    is a blocky image of its own, or the source's scale `target_scale`.
+    `mode`: fused_align's anchor_stride / relax_cells. The coarse matches
+    (m1, m2, valid) must be identical."""
+    from ransacflow_tpu_torch.pipeline.fused import _coarse_match, device_pyramid, fused_align
 
     rng = np.random.RandomState(3)
-    src = torch.from_numpy(_blocky(rng, 1, 128, 128))
+    src = torch.from_numpy(_blocky(rng, 1, *shapes[0]))
     tgt = torch.from_numpy(_blocky(rng, 1, 64, 64))
     samples = torch.from_numpy(rng.randint(0, 16, (256, 4)).astype(np.int32))
-    outs = {}
+    outs, matches = {}, {}
     for device in ("cpu", "cuda"):
         resnet, align = _nets(device)
-        pyr = device_pyramid(src.to(device), [(128, 128), (64, 64), (32, 32)])
-        outs[device] = fused_align(resnet, align, pyr, tgt.to(device), n_iter=256,
-                                   injected_samples=samples.to(device))
+        pyr = device_pyramid(src.to(device), list(shapes))
+        target = tgt.to(device) if target_scale is None else pyr[target_scale]
+        outs[device] = fused_align(resnet, align, pyr, target, n_iter=256,
+                                   injected_samples=samples.to(device), **mode)
+        with torch.inference_mode():
+            matches[device] = [m.cpu() for m in _coarse_match(resnet, pyr, target, **mode)]
+    (m1c, m2c, vc), (m1g, m2g, vg) = matches["cpu"], matches["cuda"]
+    require(torch.equal(vc, vg) and torch.equal(m1c[vc], m1g[vg]) and torch.equal(m2c, m2g),
+            f"small pair {mode}: coarse matches differ from CPU "
+            f"({int(vc.sum())} vs {int(vg.sum())} valid)")
     cpu, gpu = outs["cpu"], {k: v.cpu() for k, v in outs["cuda"].items()}
     require(bool(gpu["found"] == cpu["found"]), "small pair: found differs from CPU")
     require(int(gpu["num_inliers"]) == int(cpu["num_inliers"]),
@@ -563,14 +786,35 @@ def check_small_pair_against_cpu():
             for k in ("H21", "flow")}
     errs["match"] = (gpu["match"] - cpu["match"])[~border].abs().max().item()
     errs["border_px"] = int(border.sum())
+    errs["valid_matches"] = int(vc.sum())
     # cuDNN and CPU convolutions sum in other orders (fp32, TF32 off)
     require(errs["H21"] <= 1e-4 and errs["flow"] <= 1e-3 and errs["match"] <= 1e-3,
             f"small pair: differs from CPU: {errs}")
     return errs
 
 
-def phase_serving(card):
+def _launches_of(fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after: the launches of that one path. Returns (fn(), counts)."""
     from ransacflow_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def _require_launched(path, launches, names=(), exact=None):
+    """Each kernel of `names` launched on `path`, and each of `exact` the
+    given number of times."""
+    missing = [k for k in names if launches[k] == 0]
+    require(not missing, f"{path}: kernel not launched: {missing}; {launches}")
+    for k, n in (exact or {}).items():
+        require(launches[k] == n, f"{path}: {k} launched {launches[k]} times, "
+                                  f"expected {n}; {launches}")
+
+
+def phase_serving(card):
     from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
@@ -589,12 +833,9 @@ def phase_serving(card):
         return fused_align_batch(resnet, align, pyramids, targets, gen,
                                  n_iter=N_ITER)
 
-    kernels.reset_launch_counts()
-    out = serve()
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    require(all(launches[k] > 0 for k in SERVING_KERNELS),
-            f"serving path: kernel not launched: {launches}")
+    out, launches = _launches_of(serve)
+    _require_launched("serving path", launches, SERVING_KERNELS,
+                      {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0})
     ht, wt = TARGET_HW
     require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), "H21 shape")
     require(tuple(out["flow"].shape) == (N_PAIRS, 1, ht, wt, 2), "flow shape")
@@ -616,7 +857,7 @@ def phase_serving(card):
           f"{out['found'].tolist()}, inliers {out['num_inliers'].tolist()}, "
           f"best of 3: {best_ms:.1f} ms = {pairs_s:.3f} pairs/s "
           f"(fp32, scan, n_iter {N_ITER}) on {card}", flush=True)
-    return launches
+    return launches, pairs_s
 
 
 def _related_pairs(rng, n, src_hw):
@@ -692,7 +933,6 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
 def phase_multihomo(card):
     from PIL import Image
 
-    from ransacflow_tpu_torch import kernels
     from ransacflow_tpu_torch.models.convert import (
         alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
     from ransacflow_tpu_torch.ops.grid import feature_cell_coords
@@ -701,7 +941,8 @@ def phase_multihomo(card):
         CoarseAligner, multi_homography_predict, multi_homography_predict_fused)
     from ransacflow_tpu_torch.pipeline.coarse import _coarse_feats
     from ransacflow_tpu_torch.pipeline.fine import fine_features
-    from ransacflow_tpu_torch.pipeline.fused import _bank_coords, device_pyramid
+    from ransacflow_tpu_torch.pipeline.bank import bank_coords
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid
     from ransacflow_tpu_torch.pipeline.multihomo import _fused_multi_homo_batch
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
@@ -716,7 +957,7 @@ def phase_multihomo(card):
     bgs = torch.ones((N_PAIRS, ht, wt), device="cuda")
     fh, fw = ht // 16, wt // 16
     y, x = feature_cell_coords(fh, fw, "cuda")
-    coords_a, coords_b = _bank_coords(shapes, "cuda"), torch.stack([x, y], dim=1)
+    coords_a, coords_b = bank_coords(shapes, "cuda"), torch.stack([x, y], dim=1)
 
     @torch.inference_mode()
     def setup(source, target):
@@ -740,12 +981,14 @@ def phase_multihomo(card):
             adaptive_chunk=adaptive_chunk)
 
     series = {"adaptive": MH_CHUNK, "fixed": 0}
-    kernels.reset_launch_counts()
-    outs = {name: run(chunk) for name, chunk in series.items()}
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    require(all(launches[k] > 0 for k in MULTIHOMO_KERNELS),
-            f"multi-homography path: kernel not launched: {launches}")
+    outs, launches = {}, {}
+    for name, chunk in series.items():
+        outs[name], launches[f"multihomo_{name}"] = _launches_of(lambda: run(chunk))
+    no_k3 = tuple(k for k in MULTIHOMO_KERNELS if k != "ransac_score")
+    _require_launched("multi-homography loop, adaptive", launches["multihomo_adaptive"],
+                      no_k3, {"ransac_score": 0})
+    _require_launched("multi-homography loop, fixed", launches["multihomo_fixed"],
+                      SERVING_KERNELS, {"ransac_adaptive": 0})
     n_slots = MH_MAX_COARSE + 1
     readings = {}
     for name, out in outs.items():
@@ -775,7 +1018,7 @@ def phase_multihomo(card):
               f"best of 3: {best_ms:.1f} ms = {readings[name]['pairs_s']:.3f} pairs/s, "
               f"homographies {counts} (avg {readings[name]['avg_homographies']}), "
               f"hypotheses per fit {fits} on {card}", flush=True)
-    print(f"(e) launches (both series): {launches}", flush=True)
+    print(f"(e) launches by series: {launches}", flush=True)
     bank, featt, src_idx, valid, mid, ffine = setup(sources[0], targets[0])
     for name, chunk in series.items():
         stages = _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a,
@@ -805,6 +1048,326 @@ def phase_multihomo(card):
           f"device loop {fused['coarse_h'].shape[0]}; first H {gap:.2e} apart "
           f"(same draws), {batch_gap:.2e} from the batch run's (device pyramid, "
           f"other draws); phase (e) {seconds:.1f} s", flush=True)
+    return launches, readings
+
+ANCHOR = dict(anchor_stride=3, relax_cells=1)  # bench.py's anchor serving series
+FAST_KERNELS = SERVING_KERNELS + ("anchor_resample", "ransac_adaptive")
+# the loop from PIL images: no device pyramid (K1), adaptive RANSAC (no K3)
+SKY_KERNELS = ("ppm_pool", "mutual_argmax", "ransac_adaptive", "warp_sample",
+               "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
+
+
+def _to_pil(a):
+    from PIL import Image
+
+    return Image.fromarray((a * 255).round().astype(np.uint8))
+
+
+def _event_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _align_cli(tmp, src, tgt):
+    """`python -m ransacflow_tpu_torch.cli.align ... --device cuda` in the
+    fast modes on two PNGs; its outputs must exist."""
+    paths = [f"{tmp}/a.png", f"{tmp}/b.png"]
+    for img, path in zip((src, tgt), paths):
+        img.save(path)
+    cmd = [sys.executable, "-m", "ransacflow_tpu_torch.cli.align", "--img1", paths[0],
+           "--img2", paths[1], "--outdir", f"{tmp}/out", "--device", "cuda",
+           "--anchorStride", "3", "--relaxCells", "1", "--adaptiveChunk", str(MH_CHUNK)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.align exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    names = ("fine_aligned_source.png", "resized_target.png", "comb_coarse_alignment.png",
+             "comb_fine_alignment.png", "H21.npy")
+    require(all(os.path.exists(f"{tmp}/out/{n}") for n in names),
+            f"cli.align: outputs missing: {os.listdir(f'{tmp}/out')}")
+    return {"seconds": seconds, "H21": np.load(f"{tmp}/out/H21.npy").tolist()}
+
+
+def phase_fast_modes(card, exact_pairs_s):
+    """(g) The opt-in fast modes through the public entry points: a small
+    pair against the CPU, the serving batch of (d) at anchor stride 3 with
+    relax_cells 1 (fixed 10k and adaptive), `RansacFlowAligner.align_images`,
+    `cli.align`, and the device multi-homography loop with relax_cells
+    against the host loop. Each path's launches are counted on their own."""
+    import tempfile
+
+    from ransacflow_tpu_torch.models.convert import alignment_params_from_tree, load_params_npz
+    from ransacflow_tpu_torch.pipeline import (
+        CoarseAligner, RansacFlowAligner, multi_homography_predict,
+        multi_homography_predict_fused)
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    t0 = time.perf_counter()
+    small = check_small_pair_against_cpu(SMALL_ANCHOR_SHAPES, 3, **ANCHOR)
+    print(f"(g) small pair, anchor 3 + relax 1, card vs CPU (coarse matches identical), "
+          f"max abs err: {small}", flush=True)
+    shapes = pyramid_shapes()
+    n_scales = len(shapes)
+    rng = np.random.RandomState(0)  # the pairs of (d)
+    sources = torch.from_numpy(_blocky(rng, N_PAIRS, *shapes[0])).cuda()
+    targets = torch.from_numpy(_blocky(rng, N_PAIRS, *TARGET_HW)).cuda()[:, None]
+    resnet, align = _nets("cuda")
+    align_mh = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    series = {"exact": {}, "anchor3_relax1": ANCHOR,
+              "anchor3_relax1_adaptive4096": dict(ANCHOR, adaptive_chunk=MH_CHUNK)}
+
+    def serve(kw):
+        pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
+        return fused_align_batch(resnet, align, pyramids, targets, gen, n_iter=N_ITER, **kw)
+
+    # every scale of every pair is one K12 launch (an identity one at an anchor)
+    per_batch = {"anchor_resample": n_scales * N_PAIRS, "lanczos_pyramid": 1}
+    launches, outs = {}, {}
+    outs["anchor3_relax1"], launches["fast_serving_fixed"] = _launches_of(
+        lambda: serve(series["anchor3_relax1"]))
+    _require_launched("fast serving, fixed", launches["fast_serving_fixed"],
+                      SERVING_KERNELS, dict(per_batch, ransac_adaptive=0))
+    outs["anchor3_relax1_adaptive4096"], launches["fast_serving_adaptive"] = _launches_of(
+        lambda: serve(series["anchor3_relax1_adaptive4096"]))
+    _require_launched("fast serving, adaptive", launches["fast_serving_adaptive"],
+                      [k for k in FAST_KERNELS if k != "ransac_score"],
+                      dict(per_batch, ransac_score=0))
+
+    for name, out in outs.items():
+        require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), f"{name}: H21 shape")
+        for key in ("H21", "flow", "match", "flow_down8", "match_down8"):
+            require(bool(torch.isfinite(out[key]).all()), f"{name}: {key} is not finite")
+    best = {name: float("inf") for name in series}
+    for _ in range(3):  # in turns, in one call
+        for name, kw_ in series.items():
+            best[name] = min(best[name], _event_ms(lambda: serve(kw_)))
+    readings = {name: {"best_ms": ms, "pairs_s": N_PAIRS / (ms / 1e3)}
+                for name, ms in best.items()}
+    for name, out in outs.items():
+        readings[name].update(found=out["found"].tolist(),
+                              inliers=out["num_inliers"].tolist())
+    ratio = readings["anchor3_relax1"]["pairs_s"] / readings["exact"]["pairs_s"]
+    print(f"(g) serving batch, {N_PAIRS} pairs, best of 3 in turns: "
+          + ", ".join(f"{n} {r['pairs_s']:.3f} pairs/s" for n, r in readings.items())
+          + f"; anchor/exact {ratio:.3f}; (d) exact {exact_pairs_s:.3f} pairs/s; "
+          f"found/inliers {[(n, outs[n]['num_inliers'].tolist()) for n in outs]}; launches "
+          f"fixed {launches['fast_serving_fixed']}, adaptive "
+          f"{launches['fast_serving_adaptive']} on {card}", flush=True)
+
+    base = _blocky(np.random.RandomState(8), 1, *TARGET_HW)[0]
+    src_img, tgt_img = _to_pil(base), _to_pil(np.roll(base, (16, 16), axis=(0, 1)))
+    aligner = RansacFlowAligner(align, resnet, "cuda", adaptive_chunk=MH_CHUNK, **ANCHOR)
+    api, launches["align_images"] = _launches_of(lambda: aligner.align_images(src_img, tgt_img))
+    _require_launched("align_images", launches["align_images"],
+                      ("mutual_argmax", "ransac_adaptive", "warp_sample", "correlation_volume",
+                       "head_epilogues", "compose_tail", "blur_pool"),
+                      {"anchor_resample": n_scales, "ransac_score": 0, "lanczos_pyramid": 0})
+    require(api["H21"] is not None, "align_images found no homography")
+    for key in ("flow", "match", "warped_coarse", "warped_fine"):
+        require(bool(np.isfinite(api[key]).all()), f"align_images: {key} is not finite")
+    ht, wt = api["target"].shape[:2]
+    require(api["flow"].shape == (ht, wt, 2) and api["warped_fine"].shape == (ht, wt, 3),
+            "align_images: shapes")
+    t1 = time.perf_counter()
+    aligner.align_images(src_img, tgt_img)
+    api_ms = (time.perf_counter() - t1) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = _align_cli(tmp, src_img, tgt_img)
+    print(f"(g) align_images (quick-start defaults, anchor 3, relax 1, adaptive "
+          f"{MH_CHUNK}) on a 480x640 pair: target {ht}x{wt}, H21 {api['H21'].tolist()}, "
+          f"{api_ms:.1f} ms (host clock, a second call), launches "
+          f"{launches['align_images']}; cli.align rc 0 in {cli['seconds']:.1f} s, "
+          f"H21 {cli['H21']}", flush=True)
+
+    srcs_np, tgts_np = _related_pairs(np.random.RandomState(1), 1, shapes[0])  # (e)'s pair 0
+    coarse = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=MH_N_ITER, min_size=480,
+                           seed=MH_SEED, rematch_per_call=True, **ANCHOR)
+    kw = dict(max_coarse=MH_MAX_COARSE, mask_region_th=0.01, cycle_match=False)
+    loop_kernels = ("mutual_argmax", "ransac_score", "warp_sample", "correlation_volume",
+                    "head_epilogues", "compose_tail", "blur_pool")
+    _, launches["loop_set_pair_anchor"] = _launches_of(
+        lambda: coarse.set_pair(_to_pil(srcs_np[0]), _to_pil(tgts_np[0])))
+    _require_launched("set_pair, anchor mode", launches["loop_set_pair_anchor"],
+                      exact={"anchor_resample": 7, "mutual_argmax": 0})  # rematch: none cached
+    host, launches["loop_relax1_host"] = _launches_of(
+        lambda: multi_homography_predict(coarse, align_mh, **kw))
+    _require_launched("host loop, relax 1", launches["loop_relax1_host"], loop_kernels,
+                      {"anchor_resample": 0, "ransac_adaptive": 0})
+    fused, launches["loop_relax1_device"] = _launches_of(
+        lambda: multi_homography_predict_fused(
+            coarse, align_mh, generator=torch.Generator(device="cuda").manual_seed(MH_SEED),
+            **kw))
+    _require_launched("device loop, relax 1", launches["loop_relax1_device"], loop_kernels,
+                      {"anchor_resample": 0, "ransac_adaptive": 0})
+    require(host is not None and fused is not None, "relaxed loops found nothing")
+    gap = _h_error(host["coarse_h"][0], fused["coarse_h"][0])
+    require(gap < 0.01, f"relaxed loops: the host loop's first H is {gap} from the device's")
+    readings["loop_relax1"] = {"host_homographies": int(host["coarse_h"].shape[0]),
+                               "device_homographies": int(fused["coarse_h"].shape[0]),
+                               "first_h_gap": gap}
+    readings["align_images_ms"] = api_ms
+    readings["small_pair_vs_cpu"] = small
+    print(f"(g) multi-homography loop, anchor 3 + relax 1, rematch: host "
+          f"{host['coarse_h'].shape[0]} homographies, device {fused['coarse_h'].shape[0]}, "
+          f"first H {gap:.2e} apart; launches set_pair "
+          f"{launches['loop_set_pair_anchor']}, host {launches['loop_relax1_host']}, "
+          f"device {launches['loop_relax1_device']}; phase (g) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, readings
+
+
+def check_sky_against_cpu():
+    """`SkySegmenter` on the card against the port on the CPU (held against
+    the JAX package by tests/test_torch_segnet.py), one small image at one
+    small scale, seg_id the class that wins most pixels on the CPU."""
+    from ransacflow_tpu_torch.models.convert import init_segnet
+    from ransacflow_tpu_torch.models.segnet import SkySegmenter
+
+    img = _to_pil(np.random.RandomState(9).rand(48, 56, 3))
+    segs = {}
+    for device in ("cpu", "cuda"):
+        segs[device] = SkySegmenter(*init_segnet(torch.Generator().manual_seed(0), device),
+                                    device)
+        segs[device].IMG_SIZES = (64,)
+    scores = {d: seg.class_scores(img).cpu() for d, seg in segs.items()}
+    err = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    # peaked seeded logits (~65 nats): cuDNN's and the CPU's fp32 orders through
+    # 55 convolutions move a probability by ~2e-4 on an H100
+    require(err <= 1e-3, f"sky scores: card vs CPU max abs err {err}")
+    seg_id = int(torch.bincount(scores["cpu"].argmax(-1).flatten()).argmax())
+    masks = {}
+    for d, seg in segs.items():
+        seg.seg_id = seg_id
+        masks[d] = seg.get_sky(img)
+    agree = float((masks["cuda"] == masks["cpu"]).mean())
+    require(agree >= 0.999, f"get_sky: card and CPU agree on {agree} of the pixels")
+    return {"max_abs_err": err, "mask_agree": agree, "mask_share": float(masks["cpu"].mean())}
+
+
+SKY_CLASS = 2  # the eval harnesses' seg_id (build_sky_fn)
+
+
+def _make_sky_partial(seg, images):
+    """Seeded weights give the sky class no pixels, so the hook's mask would
+    be empty. Swap the decoder's last-layer rows of the sky class and of the
+    class whose share of `images` is nearest one half: the scores are only
+    relabelled, and the sky mask becomes that class's partial one."""
+    counts = torch.zeros(seg.decoder.conv_last[4].out_channels, device="cuda")
+    for img in images:
+        counts += torch.bincount(seg.class_scores(img).argmax(-1).flatten(),
+                                 minlength=counts.numel())
+    share = counts / counts.sum()
+    cls = int((share - 0.5).abs().argmin())
+    last = seg.decoder.conv_last[4]
+    with torch.no_grad():
+        for p in (last.weight, last.bias):
+            p[[SKY_CLASS, cls]] = p[[cls, SKY_CLASS]].clone()
+    return cls, float(share[cls])
+
+
+def phase_sky(card):
+    """(h) The sky mask: a seeded `SkySegmenter` at full width (5 scales of a
+    480x640 image), then the eval harnesses' `--segNet` hook, `build_sky_fn`
+    -> bg_mask -> `multi_homography_predict_fused`, on the 4 related pairs
+    of (e), with a partial mask: the masked cells hold no inlier."""
+    import argparse
+    import tempfile
+
+    from ransacflow_tpu_torch.cli.common import build_sky_fn
+    from ransacflow_tpu_torch.models.convert import (
+        alignment_params_from_tree, init_segnet, load_params_npz)
+    from ransacflow_tpu_torch.models.segnet import SkySegmenter
+    from ransacflow_tpu_torch.pipeline import CoarseAligner, multi_homography_predict_fused
+    from ransacflow_tpu_torch.pipeline.coarse import _mask_to_cells
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    t0 = time.perf_counter()
+    small = check_sky_against_cpu()
+    print(f"(h) sky mask, card vs CPU (one 48x56 image, one scale): {small}", flush=True)
+    enc, dec = init_segnet(torch.Generator().manual_seed(0), "cuda")
+    seg = SkySegmenter(enc, dec, "cuda", seg_id=SKY_CLASS)
+    img = _to_pil(_blocky(np.random.RandomState(10), 1, *TARGET_HW)[0])
+    resnet, _ = _nets("cuda")
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    srcs_np, tgts_np = _related_pairs(np.random.RandomState(1), N_PAIRS, pyramid_shapes()[0])
+    sky_cls, sky_cls_share = _make_sky_partial(seg, [_to_pil(t_) for t_ in tgts_np])
+    aligner = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=MH_N_ITER, min_size=480,
+                            seed=MH_SEED, adaptive_chunk=MH_CHUNK)
+    launches = {}
+    mask, launches["sky_get_sky"] = _launches_of(lambda: seg.get_sky(img))
+    _require_launched("get_sky", launches["sky_get_sky"],
+                      exact={"ppm_pool": len(SkySegmenter.IMG_SIZES)})
+    require(mask.shape == TARGET_HW and set(np.unique(mask)) <= {0.0, 1.0}, "get_sky: mask")
+    hook = dict.fromkeys(launches["sky_get_sky"], 0)
+    outs, bg_share, kept = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(enc.state_dict(), f"{tmp}/enc.pth")
+        torch.save(dec.state_dict(), f"{tmp}/dec.pth")
+        args = argparse.Namespace(segNet=True, segEncoderPth=f"{tmp}/enc.pth",
+                                  segDecoderPth=f"{tmp}/dec.pth")
+        sky_fn = build_sky_fn(args, "cuda")
+        for k in range(N_PAIRS):
+            path = f"{tmp}/target{k}.png"
+            _to_pil(tgts_np[k]).save(path)
+
+            def pair(k=k, path=path):
+                aligner.set_pair(_to_pil(srcs_np[k]), _to_pil(tgts_np[k]))
+                bg = sky_fn(path, aligner.tgt_array.shape[:2])
+                return bg, multi_homography_predict_fused(
+                    aligner, align, bg_mask=bg, max_coarse=MH_MAX_COARSE,
+                    mask_region_th=0.01, cycle_match=False,
+                    generator=torch.Generator(device="cuda").manual_seed(MH_SEED + k))
+
+            (bg, out), part = _launches_of(pair)  # the hook's launches, pair by pair
+            hook = {name: hook[name] + n for name, n in part.items()}
+            bg_share.append(float(bg.mean()))
+            outs.append(out)
+            # the loop's first fit is this masked RANSAC: no inlier on a masked cell
+            fg = (1.0 - bg > 0.5).astype(np.float32)
+            keep = _mask_to_cells(aligner.put(fg), aligner.feat_h, aligner.feat_w).cpu().numpy()
+            h, inl = aligner.get_coarse(fg)
+            off = 0 if h is None else int((inl.reshape(-1).astype(bool) & ~keep).sum())
+            require(off == 0, f"sky loop: pair {k}: {off} inliers on masked cells")
+            kept.append((int(aligner._cached_valid[torch.from_numpy(keep).cuda()].sum()),
+                         aligner.num_cached_matches))
+    launches["sky_hook"] = hook
+    _require_launched("--segNet hook", hook, SKY_KERNELS,
+                      {"ppm_pool": len(SkySegmenter.IMG_SIZES) * N_PAIRS})
+    partial = [k for k, b in enumerate(bg_share) if 0.0 < b < 1.0]
+    require(partial, f"sky loop: no pair has a partial mask: bg shares {bg_share}")
+    require(any(kept[k][0] < kept[k][1] for k in partial),
+            f"sky loop: the partial masks removed no cached match: {kept}")
+    for k, out in enumerate(outs):
+        require(out is not None or bg_share[k] == 0.0, f"sky loop: pair {k} found nothing")
+        if out is not None:
+            for key in ("coarse_h", "fine_flow_down8", "fine_match_down8"):
+                require(bool(np.isfinite(out[key]).all()), f"sky loop: {key} is not finite")
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        seg.get_sky(img)
+        times.append((time.perf_counter() - t1) * 1e3)
+    scores_ms = min(_event_ms(lambda: seg.class_scores(img)) for _ in range(3))
+    readings = {"get_sky_ms": min(times), "class_scores_ms": scores_ms,
+                "sky_class": sky_cls, "sky_class_share": sky_cls_share,
+                "bg_share": bg_share, "sky_share": float(mask.mean()),
+                "matches_kept_of_cached": kept,
+                "homographies": [None if o is None else int(o["coarse_h"].shape[0]) for o in outs]}
+    print(f"(h) SkySegmenter at full width (5 scales of a 480x640 image): get_sky "
+          f"{min(times):.1f} ms per image (host clock, best of 3), class_scores "
+          f"{scores_ms:.1f} ms (CUDA events); sky = seeded class {sky_cls} (share "
+          f"{sky_cls_share:.3f}); --segNet hook on the 4 pairs of (e): bg share {bg_share}, "
+          f"cached matches kept {kept}, homographies {readings['homographies']}; launches "
+          f"get_sky {launches['sky_get_sky']}, hook {hook} on {card}; phase (h) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches, readings
 
 
@@ -1079,6 +1642,10 @@ SOURCES = {
                                "ransacflow_tpu/ops/correlation.py:21"),
     "head_epilogues_bwd": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",
                            "ransacflow_tpu/models/heads.py:69"),
+    "anchor_resample": ("cuda", "ransacflow_tpu_torch/csrc/anchor_resample.cu",
+                        "ransacflow_tpu/pipeline/coarse.py:70"),
+    "ppm_pool": ("cuda", "ransacflow_tpu_torch/csrc/adaptive_pool.cu",
+                 "ransacflow_tpu/models/segnet.py:148"),
 }
 
 
@@ -1087,20 +1654,25 @@ def main():
         card = phase_card()
         phase_build()
         results = phase_kernels()
-        serving = phase_serving(card)
+        serving, exact_pairs_s = phase_serving(card)
         multihomo, readings = phase_multihomo(card)
         train, train_readings = phase_train(card)
+        fast, fast_readings = phase_fast_modes(card, exact_pairs_s)
+        sky, sky_readings = phase_sky(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
-    by_path = {"serving": serving, "multihomo": multihomo, "train": train}
+    by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
                 **{key: results[name][key] for key in
-                   ("max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms")}}
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms", "plain_device_ms", "library_device_ms")}}
                for name, (route, src, rep) in SOURCES.items()]
-    print(json.dumps({"multihomo": readings, "train": train_readings}))
+    print(json.dumps({"multihomo": readings, "train": train_readings,
+                      "fast_modes": fast_readings, "sky": sky_readings,
+                      "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

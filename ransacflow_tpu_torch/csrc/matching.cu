@@ -1,15 +1,19 @@
 // Mutual nearest-neighbour epilogue of the matching score matrix.
 //
 // Replaces: the argmax/reciprocity part of
-// ransacflow_tpu/ops/matching.py:24 mutual_matching (exact reciprocity,
-// relax_cells = 0). The score GEMM before it stays a torch.matmul, as it
-// was a plain jnp.dot in the reference.
+// ransacflow_tpu/ops/matching.py:24 mutual_matching, exact or relaxed
+// reciprocity. The score GEMM before it stays a torch.matmul, as it was a
+// plain jnp.dot in the reference.
 //
 // Given score (nA, nB) fp32, row-major:
 //   best_src[j]   = argmax_i score[i, j]   (nB,)  best source per target
 //   best_tgt[i]   = argmax_j score[i, j]   (nA,)  best target per source
 //   pair_score[j] = score[best_src[j], j]
-//   valid[j]      = best_tgt[best_src[j]] == j  and  pair_score[j] != 0
+//   valid[j]      = mutual(best_tgt[best_src[j]], j)  and  pair_score[j] != 0
+// where mutual(back, j) is back == j (relax_cells = 0), or, with
+// relax_cells > 0, the Chebyshev distance of the two cells on the target's
+// row-major grid of width grid_w is <= relax_cells (cells, not flat
+// indices: no wrap across a row edge).
 // with argmax in jnp.argmax / torch.argmax order: NaN counts as the largest
 // value and ties go to the lowest index. Every reduction compares
 // (value, -index) explicitly, so the result does not depend on the order in
@@ -109,8 +113,9 @@ __global__ void __launch_bounds__(kColTile * kRowLanes) col_partial_kernel(
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
     const float* __restrict__ score, int nB, int n_split,
     const float* __restrict__ part_v, const int* __restrict__ part_i,
-    const int* __restrict__ best_tgt, int* __restrict__ best_src,
-    unsigned char* __restrict__ valid, float* __restrict__ pair_score) {
+    const int* __restrict__ best_tgt, int relax_cells, int grid_w,
+    int* __restrict__ best_src, unsigned char* __restrict__ valid,
+    float* __restrict__ pair_score) {
   const int j = blockIdx.x * kMergeThreads + threadIdx.x;
   if (j >= nB) return;
   float bv = part_v[j];
@@ -126,14 +131,23 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   const float ps = score[static_cast<size_t>(bi) * nB + j];
   best_src[j] = bi;
   pair_score[j] = ps;
-  valid[j] = (best_tgt[bi] == j && ps != 0.f) ? 1 : 0;
+  const int back = best_tgt[bi];
+  bool mutual = back == j;
+  if (relax_cells > 0) {
+    const int d_row = abs(back / grid_w - j / grid_w);
+    const int d_col = abs(back % grid_w - j % grid_w);
+    mutual = max(d_row, d_col) <= relax_cells;
+  }
+  valid[j] = (mutual && ps != 0.f) ? 1 : 0;
 }
 
 }  // namespace
 
 // part_v / part_i: caller-allocated scratch of n_split * nB entries.
-// Needs nA >= 1, nB >= 1 and 1 <= n_split <= nA.
+// Needs nA >= 1, nB >= 1, 1 <= n_split <= nA, and grid_w >= 1 when
+// relax_cells > 0.
 RF_API int rf_mutual_argmax(const float* score, int nA, int nB, int n_split,
+                            int relax_cells, int grid_w,
                             float* part_v, int* part_i, int* best_src,
                             int* best_tgt, unsigned char* valid,
                             float* pair_score, cudaStream_t stream) {
@@ -149,6 +163,6 @@ RF_API int rf_mutual_argmax(const float* score, int nA, int nB, int n_split,
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<<<(nB + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
                  stream>>>(score, nB, n_split, part_v, part_i, best_tgt,
-                           best_src, valid, pair_score);
+                           relax_cells, grid_w, best_src, valid, pair_score);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,8 @@ Triton compiles its kernels at their first launch.
 """
 
 from ransacflow_tpu_torch.kernels import (
+    adaptive_pool,
+    anchor_resample,
     blurpool,
     compose,
     correlation,
@@ -39,6 +41,8 @@ KERNELS = {
     "masked_ssim": ssim.KERNEL,                        # K10
     "masked_ssim_bwd": ssim.KERNEL_BWD,                # K10 backward
     "grid_sample_bwd": warp_sample.KERNEL_BWD,         # K11
+    "anchor_resample": anchor_resample.KERNEL,         # K12
+    "ppm_pool": adaptive_pool.KERNEL,                  # K13
 }
 
 

@@ -15,26 +15,37 @@ KERNEL = Kernel("rf_lanczos_pyramid",
 _plans = {}  # (H, W, shapes, device) -> launch plan
 
 
-def _lanczos3_weights(in_size, out_size, device):
-    """(in_size, out_size) weights of `jax.image.resize(..., 'lanczos3')`
-    along one axis, built as JAX builds them (`compute_weight_mat`: the
-    kernel widened by 1/scale on downscale, columns normalized, samples
-    outside the input zeroed), in fp32."""
+def _lanczos3(x):
+    """The Lanczos-3 kernel of `jax.image.resize` at distances x >= 0."""
+    y = LANCZOS_RADIUS * torch.sin(math.pi * x) * torch.sin(math.pi * x / LANCZOS_RADIUS)
+    w = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
+    return torch.where(x > LANCZOS_RADIUS, 0.0, w)
+
+
+def resize_weights(in_size, out_size, device, kernel):
+    """(in_size, out_size) weights of `jax.image.resize` along one axis with
+    `kernel` (a function of the distance), built as JAX builds them
+    (`compute_weight_mat`: half-pixel centres, the kernel widened by 1/scale
+    on downscale, columns normalized, samples outside the input zeroed), in
+    fp32 with JAX's fp32 rounding of the inverse scale."""
     f32 = torch.float32
-    scale = torch.full((), out_size / in_size, dtype=f32, device=device)
-    inv_scale = torch.ones((), dtype=f32, device=device) / scale
+    inv = 1.0 / (out_size / in_size)  # a Python double, as in JAX
+    inv_scale = torch.full((), inv, dtype=f32, device=device)
     kernel_scale = torch.clamp_min(inv_scale, 1.0)
     sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
     x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]
          ).abs() / kernel_scale
-    y = LANCZOS_RADIUS * torch.sin(math.pi * x) * torch.sin(math.pi * x / LANCZOS_RADIUS)
-    w = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
-    w = torch.where(x > LANCZOS_RADIUS, 0.0, w)
+    w = kernel(x)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
                     w / torch.where(total != 0, total, 1.0), 0.0)
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
     return torch.where(inside[None, :], w, 0.0)
+
+
+def _lanczos3_weights(in_size, out_size, device):
+    """`resize_weights` of `jax.image.resize(..., 'lanczos3')`."""
+    return resize_weights(in_size, out_size, device, _lanczos3)
 
 
 def device_pyramid_ref(image, shapes):
@@ -54,14 +65,15 @@ def device_pyramid_ref(image, shapes):
     return tuple(out)
 
 
-def _taps(in_size, out_size):
+def taps(in_size, out_size, weights=_lanczos3_weights):
     """Per-output (start, count, weights (out_size, T)) of one axis: the
-    nonzero span of each column of the weight matrix (count 0 for an output
-    outside the input; the identity for out_size == in_size)."""
+    nonzero span of each column of the `weights(in_size, out_size, "cpu")`
+    matrix (count 0 for an output outside the input; the identity for
+    out_size == in_size)."""
     if in_size == out_size:
         return (np.arange(out_size, dtype=np.int32), np.ones(out_size, np.int32),
                 np.ones((out_size, 1), np.float32))
-    w = _lanczos3_weights(in_size, out_size, "cpu").numpy().T  # (out, in)
+    w = weights(in_size, out_size, "cpu").numpy().T  # (out, in)
     nz = w != 0
     any_nz = nz.any(axis=1)
     start = np.where(any_nz, nz.argmax(axis=1), 0).astype(np.int32)
@@ -84,9 +96,9 @@ def _plan(H, W, shapes, device):
     widest = 1
     for h, w in shapes:
         row = [n_idx, n_w]
-        rs, rc, rw = _taps(H, h)
+        rs, rc, rw = taps(H, h)
         col = [n_idx + h, n_w + rw.size]
-        cs, cc, cw = _taps(W, w)
+        cs, cc, cw = taps(W, w)
         starts += [rs, cs]
         counts += [rc, cc]
         weights += [rw.ravel(), cw.ravel()]

@@ -15,8 +15,11 @@ from ransacflow_tpu_torch.models.feature_extractor import FeatureExtractor
 from ransacflow_tpu_torch.models.heads import Head
 from ransacflow_tpu_torch.models.layers import kaiming_normal_
 from ransacflow_tpu_torch.models.resnet50 import ResNet50Layer3
+from ransacflow_tpu_torch.models.segnet import PPMDecoder, SegNetEncoder
 
 RESNET_TRUNK_SKIP = ("layer4.", "fc.", "avgpool.", "l2norm.")
+# the reference decoder's deep-supervision head, which inference does not run
+SEGNET_DEEPSUP_SKIP = ("cbr_deepsup.", "conv_last_deepsup.")
 
 
 def tree_to_state_dict(tree):
@@ -111,11 +114,13 @@ def load_params_npz(path):
 
 
 def _seeded(net, generator):
-    """Every conv ~ kaiming normal (fan_out) from `generator`; BatchNorm
-    keeps its identity init, as the JAX init does."""
+    """Every conv ~ kaiming normal (fan_out) from `generator` with a zero
+    bias; BatchNorm keeps its identity init, as the JAX init does."""
     for m in net.modules():
         if isinstance(m, torch.nn.Conv2d):
             kaiming_normal_(m, generator)
+            if m.bias is not None:
+                torch.nn.init.zeros_(m.bias)
     return net
 
 
@@ -135,3 +140,28 @@ def init_alignment_params(generator, device, kernel_size=7):
     with torch.no_grad():
         nets["netMatch"].conv4.weight.normal_(0.0, 1e-4, generator=generator)
     return {name: net.to(as_device(device)).eval() for name, net in nets.items()}
+
+
+def segnet_from_tree(enc_tree, dec_tree, device):
+    """(SegNetEncoder, PPMDecoder) with the weights of the JAX package's
+    segnet parameter trees."""
+    return (_load_into(SegNetEncoder(), tree_to_state_dict(enc_tree), device),
+            _load_into(PPMDecoder(), tree_to_state_dict(dec_tree), device))
+
+
+def init_segnet(generator, device):
+    """Seeded (SegNetEncoder, PPMDecoder). `generator` is a CPU
+    `torch.Generator`."""
+    return tuple(_seeded(net, generator).to(as_device(device)).eval()
+                 for net in (SegNetEncoder(), PPMDecoder()))
+
+
+def load_segnet(enc_pth, dec_pth, device):
+    """The reference's ADE20k encoder and decoder checkpoints (plain
+    state_dicts) -> (SegNetEncoder, PPMDecoder); the decoder's
+    deep-supervision head is dropped."""
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    return (_load_into(SegNetEncoder(), load(enc_pth), device),
+            _load_into(PPMDecoder(), load(dec_pth), device, SEGNET_DEEPSUP_SKIP))

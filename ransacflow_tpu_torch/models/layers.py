@@ -2,7 +2,8 @@
 `ransacflow_tpu/models/layers.py`).
 
 The networks are `nn.Module`s with the reference's `state_dict` names and run
-NCHW inside. Convolutions are bias-free fp32 `nn.Conv2d` and max pooling
+NCHW inside. Convolutions are bias-free fp32 `nn.Conv2d` (`conv`; the sky
+network's classifier alone has a bias) and max pooling
 is `F.max_pool2d`, which pads with -inf as the reference does. BatchNorm is
 `nn.BatchNorm2d` (eps 1e-5, momentum 0.1): in eval mode it normalizes with
 the running statistics; in train mode it has the reference's semantics
@@ -17,8 +18,8 @@ import torch
 import torch.nn as nn
 
 
-def conv(cin, cout, kernel_size, stride=1, padding=0):
-    return nn.Conv2d(cin, cout, kernel_size, stride, padding, bias=False)
+def conv(cin, cout, kernel_size, stride=1, padding=0, dilation=1):
+    return nn.Conv2d(cin, cout, kernel_size, stride, padding, dilation, bias=False)
 
 
 def kaiming_normal_(conv_module, generator):

@@ -17,13 +17,14 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 class Bottleneck(nn.Module):
-    """ResNet v1.5 bottleneck (stride on conv2), expansion 4."""
+    """ResNet v1.5 bottleneck (stride on conv2, which may be dilated),
+    expansion 4."""
 
-    def __init__(self, cin, planes, stride):
+    def __init__(self, cin, planes, stride, dilation=1):
         super().__init__()
         self.conv1 = conv(cin, planes, 1)
         self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = conv(planes, planes, 3, stride, 1)
+        self.conv2 = conv(planes, planes, 3, stride, dilation, dilation)
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = conv(planes, planes * 4, 1)
         self.bn3 = nn.BatchNorm2d(planes * 4)

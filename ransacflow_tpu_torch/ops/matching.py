@@ -1,8 +1,10 @@
 """Dense mutual nearest-neighbour matching, keyed by target cell (port of
-`ransacflow_tpu/ops/matching.py:24-74`, exact reciprocity only).
+`ransacflow_tpu/ops/matching.py:24-74`).
 
 The score GEMM is `torch.matmul`; its argmax/reciprocity epilogue is kernel 2
-(`kernels/matching.py`).
+(`kernels/matching.py`). With exact reciprocity a source cell matches at
+most one target cell; with `relax_cells > 0` several target cells may keep
+the same source cell.
 """
 
 from typing import NamedTuple
@@ -27,16 +29,25 @@ def _score(featA, featB, validB):
     return score
 
 
-def mutual_matching(featA, featB, validB=None):
+def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     """Mutual NN matching between L2-normalized banks featA (C, nA) and
     featB (C, nB). A pair (i, j) is kept iff i is the argmax of column j, j
     the argmax of row i, and the score is nonzero; ties go to the lowest
-    index. Masked target cells (validB False) score 0."""
-    best_src, _, valid, pair_score = mutual_argmax(_score(featA, featB, validB))
+    index. Masked target cells (validB False) score 0.
+
+    relax_cells > 0 (the anchor mode's companion): the back-match of j may
+    land within this Chebyshev radius of j, in cells of the row-major target
+    grid of width grid_w (required then). As in the reference, a back-match
+    on a masked cell (score 0, when every unmasked score of the source row
+    is negative) still validates its unmasked neighbours.
+    """
+    best_src, _, valid, pair_score = mutual_argmax(_score(featA, featB, validB),
+                                                   relax_cells, grid_w)
     return MatchResult(best_src, valid, pair_score)
 
 
-def mutual_matching_ref(featA, featB, validB=None):
+def mutual_matching_ref(featA, featB, validB=None, relax_cells=0, grid_w=None):
     """`mutual_matching` through the plain epilogue, on any device."""
-    best_src, _, valid, pair_score = mutual_argmax_ref(_score(featA, featB, validB))
+    best_src, _, valid, pair_score = mutual_argmax_ref(_score(featA, featB, validB),
+                                                       relax_cells, grid_w)
     return MatchResult(best_src, valid, pair_score)

@@ -1,5 +1,5 @@
 """Coarse alignment: multi-scale features -> mutual matching -> RANSAC (port
-of `ransacflow_tpu/pipeline/coarse.py`, exact mode, homography).
+of `ransacflow_tpu/pipeline/coarse.py`, homography).
 
 PIL resizing on the host; features, matching and the whole RANSAC search on
 the aligner's device. The winning minimal set is optionally re-solved on the
@@ -24,7 +24,7 @@ from ransacflow_tpu_torch.ops.ransac import (
     ransac_homography_adaptive,
 )
 from ransacflow_tpu_torch.ops.sampler import interpolate_bilinear
-from ransacflow_tpu_torch.pipeline.fused import _coarse_features
+from ransacflow_tpu_torch.pipeline.bank import anchor_bank, bank_coords, coarse_features
 from ransacflow_tpu_torch.utils.image import (
     STRIDE_NET,
     resize_max_size,
@@ -36,14 +36,18 @@ from ransacflow_tpu_torch.utils.image import (
 
 def _coarse_feats(resnet, img):
     """img (1, H, W, 3) in [0, 1] -> L2-normalized (H/16 * W/16, 1024)."""
-    return _coarse_features(resnet, img).flatten(0, 2)
+    return coarse_features(resnet, img).flatten(0, 2)
 
 
-def _match_masked(bank, featt, mask_cell, cached_src, cached_valid, rematch):
+def _match_masked(bank, featt, mask_cell, cached_src, cached_valid, rematch,
+                  relax_cells=0, grid_w=None):
     """Per-call masked matching: fresh (rematch: masked target cells score 0)
-    or the cached matches filtered by the mask. Returns (src_idx, valid)."""
+    or the cached matches filtered by the mask. Returns (src_idx, valid).
+    relax_cells/grid_w: relaxed reciprocity for the fresh matching (the
+    cached matches had it applied where they were built)."""
     if rematch:
-        res = mutual_matching(bank.T, featt.T, validB=mask_cell)
+        res = mutual_matching(bank.T, featt.T, validB=mask_cell,
+                              relax_cells=relax_cells, grid_w=grid_w)
         return res.src_idx, res.valid
     return cached_src, cached_valid & mask_cell
 
@@ -89,9 +93,13 @@ class CoarseAligner:
         termination (`ops.ransac.ransac_homography_adaptive`) with this
         block size, here and in the device-resident loop; n_iter becomes
         the cap. Ignored when injected_samples are given.
-      anchor_stride, relax_cells: the opt-in anchor-pyramid modes wait for
-        ROADMAP queue 1 item 14; stem_s2d is a TPU rewrite the port leaves
-        out (ROADMAP, "Not ported"). Anything but 0 / False raises.
+      anchor_stride: > 0 runs the trunk at every k-th pyramid scale only
+        (index 0 first) and resamples the other scales' bank rows from the
+        nearest anchor's map (`pipeline.bank.anchor_bank`, kernel 12).
+      relax_cells: > 0 accepts a match whose back-match lands within this
+        Chebyshev radius in target cells (`ops.matching.mutual_matching`).
+      stem_s2d: a TPU rewrite of the stem that the port leaves out (ROADMAP,
+        "Not ported"); True raises.
     """
 
     def __init__(self, resnet, device, nb_scale=7, n_iter=10000, tolerance=0.05,
@@ -103,9 +111,6 @@ class CoarseAligner:
             raise ValueError(f"transform={transform!r}: the port fits homographies "
                              "only; 'affine' waits for fit_affine (ROADMAP queue 1 "
                              "item 2)")
-        if anchor_stride or relax_cells:
-            raise ValueError("anchor_stride and relax_cells wait for the opt-in "
-                             "modes (ROADMAP queue 1 item 14)")
         if stem_s2d:
             raise ValueError("stem_s2d is a TPU rewrite of the stem that the port "
                              "leaves out (ROADMAP, 'Not ported')")
@@ -121,6 +126,8 @@ class CoarseAligner:
         self.polish_fp64 = bool(polish_fp64)
         self.seed = int(seed)
         self.adaptive_chunk = int(adaptive_chunk)
+        self.anchor_stride = int(anchor_stride)
+        self.relax_cells = int(relax_cells)
         self._resize = resize_min_size if resize_mode == "min" else resize_max_size
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
 
@@ -146,16 +153,14 @@ class CoarseAligner:
         # the mid-scale image is the one the fine stage warps
         self.src_img = imgs[len(self.scales) // 2]
         self.src_array = to_array(self.src_img)
-        feats, xs, ys = [], [], []
-        for im in imgs:
-            arr = to_array(im)
-            fh, fw = arr.shape[0] // STRIDE_NET, arr.shape[1] // STRIDE_NET
-            feats.append(_coarse_feats(self.resnet, self.put(arr)[None]))
-            y, x = feature_cell_coords(fh, fw, self.device)
-            xs.append(x)
-            ys.append(y)
-        self._bank = torch.cat(feats)  # (nA, 1024)
-        self._coordsA = torch.stack([torch.cat(xs), torch.cat(ys)], dim=1)
+        arrs = [to_array(im) for im in imgs]
+        if self.anchor_stride:
+            self._bank = anchor_bank(self.resnet, [self.put(a)[None] for a in arrs],
+                                     self.anchor_stride, STRIDE_NET)
+        else:
+            self._bank = torch.cat([_coarse_feats(self.resnet, self.put(a)[None])
+                                    for a in arrs])  # (nA, 1024)
+        self._coordsA = bank_coords([a.shape[:2] for a in arrs], self.device, STRIDE_NET)
 
     @torch.inference_mode()
     def set_target(self, img):
@@ -172,7 +177,8 @@ class CoarseAligner:
             self._cached_src = torch.zeros(n_b, dtype=torch.int32, device=self.device)
             self._cached_valid = torch.zeros(n_b, dtype=torch.bool, device=self.device)
         else:
-            res = mutual_matching(self._bank.T, self._featt.T)
+            res = mutual_matching(self._bank.T, self._featt.T,
+                                  relax_cells=self.relax_cells, grid_w=self.feat_w)
             self._cached_src, self._cached_valid = res.src_idx, res.valid
 
     def set_pair(self, img_src, img_tgt):
@@ -189,7 +195,7 @@ class CoarseAligner:
                                    self.feat_h, self.feat_w)
         src_idx, valid = _match_masked(self._bank, self._featt, mask_cell,
                                        self._cached_src, self._cached_valid,
-                                       self.rematch)
+                                       self.rematch, self.relax_cells, self.feat_w)
         m1, m2 = _homogeneous_matches(self._coordsA, self._coordsB, src_idx)
         return m1, m2, valid
 

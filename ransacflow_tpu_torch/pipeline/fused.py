@@ -1,53 +1,47 @@
 """The serving path: one pair aligned on the device with no host round trip
-(port of `ransacflow_tpu/pipeline/fused.py`, exact mode, fixed-count RANSAC).
+(port of `ransacflow_tpu/pipeline/fused.py`).
 
 Multi-scale coarse features -> mutual matching -> RANSAC -> homography warp
 -> fine stage. `fused_align_batch` runs pairs one after another (the
 reference's 'scan' batch mode). The pyramid is kernel 1
-(`kernels/pyramid.device_pyramid`, re-exported here).
+(`kernels/pyramid.device_pyramid`, re-exported here). The opt-in fast
+modes: `anchor_stride` (the trunk at every k-th scale only, the other
+scales' bank rows resampled from the nearest anchor by kernel 12),
+`relax_cells` (relaxed reciprocity in kernel 2) and `adaptive_chunk`
+(adaptive RANSAC, kernel 4). Their defaults are the reference's exact mode.
 """
 
 import torch
 
 from ransacflow_tpu_torch.kernels.pyramid import device_pyramid  # noqa: F401  (K1)
-from ransacflow_tpu_torch.models.layers import l2_normalize
-from ransacflow_tpu_torch.models.resnet50 import imagenet_preprocess, resnet50_layer3
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
 from ransacflow_tpu_torch.ops.homography import warp_grid
 from ransacflow_tpu_torch.ops.matching import mutual_matching
-from ransacflow_tpu_torch.ops.ransac import ransac_homography
+from ransacflow_tpu_torch.ops.ransac import ransac_homography, ransac_homography_adaptive
+from ransacflow_tpu_torch.pipeline.bank import anchor_bank, bank_coords, coarse_features
 from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask
 
 
-def _bank_coords(pyramid_shapes, device, stride=16):
-    """(nA, 2) (x, y) cell coords of a pyramid's feature bank."""
-    xs, ys = [], []
-    for h, w in pyramid_shapes:
-        y, x = feature_cell_coords(h // stride, w // stride, device)
-        xs.append(x)
-        ys.append(y)
-    return torch.stack([torch.cat(xs), torch.cat(ys)], dim=1)
-
-
-def _coarse_features(resnet, img):
-    """(1, H/16, W/16, 1024) L2-normalized trunk features of (1, H, W, 3)."""
-    return l2_normalize(resnet50_layer3(resnet, imagenet_preprocess(img)))
-
-
-def _coarse_match(resnet, pyramid, target):
+def _coarse_match(resnet, pyramid, target, anchor_stride=0, relax_cells=0):
     """Coarse features and mutual matching for one pair.
+
+    anchor_stride > 0: the anchor-pyramid bank (`pipeline.bank.anchor_bank`);
+    relax_cells > 0: relaxed reciprocity over the target grid.
 
     Returns (m1, m2, valid): homogeneous (nB, 3) match arrays keyed by target
     cell, invalid rows masked by valid (nB,).
     """
     device = target.device
-    bank = torch.cat([_coarse_features(resnet, img).flatten(0, 2) for img in pyramid])
-    coords_a = _bank_coords([img.shape[1:3] for img in pyramid], device)
-    ft = _coarse_features(resnet, target)
+    if anchor_stride:
+        bank = anchor_bank(resnet, pyramid, anchor_stride)
+    else:
+        bank = torch.cat([coarse_features(resnet, img).flatten(0, 2) for img in pyramid])
+    coords_a = bank_coords([img.shape[1:3] for img in pyramid], device)
+    ft = coarse_features(resnet, target)
     featt = ft.flatten(0, 2)
     y, x = feature_cell_coords(ft.shape[1], ft.shape[2], device)
     coords_b = torch.stack([x, y], dim=1)
-    m = mutual_matching(bank.T, featt.T)
+    m = mutual_matching(bank.T, featt.T, relax_cells=relax_cells, grid_w=ft.shape[2])
     ones = torch.ones((coords_b.shape[0], 1), dtype=coords_b.dtype, device=device)
     m1 = torch.cat([coords_a[m.src_idx.long()], ones], dim=1)
     m2 = torch.cat([coords_b, ones], dim=1)
@@ -81,7 +75,8 @@ def _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size):
 @torch.inference_mode()
 def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
                 n_iter=10000, kernel_size=7, cycle_match=True,
-                injected_samples=None):
+                injected_samples=None, adaptive_chunk=0, anchor_stride=0,
+                relax_cells=0):
     """Align one pair on the device of its tensors.
 
     resnet: `ResNet50Layer3`; align: the alignment networks
@@ -89,23 +84,31 @@ def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
     pyramid: tuple of (1, Hi, Wi, 3) source scales (the middle one is warped
       by the fine stage); target: (1, Ht, Wt, 3).
     generator: `torch.Generator` on that device for the RANSAC draws.
-    injected_samples: optional (n_iter, 4) RANSAC minimal sets (match indices)
-      used instead of drawing.
+    injected_samples: optional RANSAC minimal sets (match indices) used
+      instead of drawing: (n_iter, 4), or for adaptive RANSAC all its blocks'
+      (ceil(n_iter / adaptive_chunk) * adaptive_chunk, 4).
+    adaptive_chunk > 0: adaptive RANSAC in blocks of this size, n_iter the
+      cap. anchor_stride, relax_cells: see `_coarse_match`.
 
     Returns dict: 'H21' (3, 3), 'found' (), 'num_inliers' (), 'flow'
     (1, Ht, Wt, 2), 'match' (Ht, Wt), 'flow_down8', 'match_down8'.
     """
-    m1, m2, valid = _coarse_match(resnet, pyramid, target)
-    res = ransac_homography(m1, m2, valid, tolerance, n_iter=n_iter,
-                            generator=generator,
-                            injected_samples=injected_samples)
+    m1, m2, valid = _coarse_match(resnet, pyramid, target, anchor_stride, relax_cells)
+    if adaptive_chunk:
+        res, _ = ransac_homography_adaptive(m1, m2, valid, tolerance, n_iter=n_iter,
+                                            chunk=adaptive_chunk, generator=generator,
+                                            injected_samples=injected_samples)
+    else:
+        res = ransac_homography(m1, m2, valid, tolerance, n_iter=n_iter,
+                                generator=generator, injected_samples=injected_samples)
     return _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size)
 
 
 @torch.inference_mode()
 def fused_align_batch(resnet, align, pyramids, targets, generator=None,
                       tolerance=0.05, n_iter=10000, kernel_size=7,
-                      cycle_match=True):
+                      cycle_match=True, adaptive_chunk=0, anchor_stride=0,
+                      relax_cells=0):
     """`fused_align` over K pairs, one after another.
 
     pyramids: tuple of (K, 1, Hi, Wi, 3) stacked scales; targets:
@@ -113,6 +116,8 @@ def fused_align_batch(resnet, align, pyramids, targets, generator=None,
     dict of `fused_align` with a leading K axis.
     """
     outs = [fused_align(resnet, align, tuple(p[k] for p in pyramids), targets[k],
-                        generator, tolerance, n_iter, kernel_size, cycle_match)
+                        generator, tolerance, n_iter, kernel_size, cycle_match,
+                        adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride,
+                        relax_cells=relax_cells)
             for k in range(targets.shape[0])]
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}

@@ -89,7 +89,7 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
                       cached_valid, src, featt_fine, bg_mask, generator,
                       tolerance, mask_region_th, *, feat_h, feat_w, max_coarse,
                       cycle_match, kernel_size, n_iter, rematch,
-                      adaptive_chunk=0):
+                      adaptive_chunk=0, relax_cells=0):
     """The multi-homography loop with its state on the device.
 
     The loop state lives on the device of `bg_mask` in fixed shapes: the
@@ -106,6 +106,8 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
     generator: the `torch.Generator` (on that device) of the RANSAC draws.
     adaptive_chunk > 0 fits each homography with adaptive RANSAC in blocks of
     this size, n_iter being the cap; 0 draws exactly n_iter hypotheses.
+    relax_cells: relaxed reciprocity of the fresh matching in rematch mode
+    (`_match_masked`; the cached matches carry it from `set_target`).
 
     Returns dict of device tensors: 'mask', 'hs', 'flows', 'matches',
     'count' () int32, 'done' () bool and 'n_evaluated' (n_slots,) int32, the
@@ -130,7 +132,7 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
         fg = ((mask + (1.0 - bg_mask)) > 0.5).to(f32)
         mask_cell = _mask_to_cells(fg, feat_h, feat_w)
         src_idx, valid = _match_masked(bank, featt_c, mask_cell, cached_src,
-                                       cached_valid, rematch)
+                                       cached_valid, rematch, relax_cells, feat_w)
         m1, m2 = _homogeneous_matches(coords_a, coords_b, src_idx)
         if adaptive_chunk:
             res, n_eval = ransac_homography_adaptive(
@@ -202,7 +204,7 @@ def multi_homography_dispatch(coarse, params, max_coarse=10, mask_region_th=0.01
         coarse.tolerance, mask_region_th, feat_h=coarse.feat_h,
         feat_w=coarse.feat_w, max_coarse=max_coarse, cycle_match=cycle_match,
         kernel_size=kernel_size, n_iter=coarse.n_iter, rematch=coarse.rematch,
-        adaptive_chunk=coarse.adaptive_chunk)
+        adaptive_chunk=coarse.adaptive_chunk, relax_cells=coarse.relax_cells)
     return final, bg
 
 

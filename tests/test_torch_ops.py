@@ -25,6 +25,8 @@ from ransacflow_tpu.ops.correlation import corr_offset_grids as j_corr_offset_gr
 from ransacflow_tpu.pipeline import fused as jfused
 from ransacflow_tpu_torch import kernels
 from ransacflow_tpu_torch.kernels import pyramid
+from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool
+from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_feats
 from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
 from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume, correlation_volume_ref
@@ -415,13 +417,16 @@ def _forward_only_calls(rng, device):
             ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, s, 8, 16, 0.05,
                                                         0.999)),
             ("compose_tail", lambda: compose_tail(g(f8), m12, m21, coarse, True)),
-            ("device_pyramid", lambda: pyramid.device_pyramid(g(img), [(8, 10)]))]
+            ("device_pyramid", lambda: pyramid.device_pyramid(g(img), [(8, 10)])),
+            ("mutual_argmax relaxed", lambda: mutual_argmax(g(score), 1, 3)),
+            ("anchor_resample_feats", lambda: anchor_resample_feats(g(img), 5, 7)),
+            ("ppm_pool", lambda: ppm_pool(g(img)))]
 
 
 def test_forward_only_wrappers_raise_under_grad(rng):
-    """K1, K2, K3, K4 and K8 have no backward: under grad mode an input that
-    requires grad raises instead of handing back a tensor cut off from the
-    graph; under no_grad they run."""
+    """K1, K2 (exact and relaxed), K3, K4, K8, K12 and K13 have no backward:
+    under grad mode an input that requires grad raises instead of handing
+    back a tensor cut off from the graph; under no_grad they run."""
     for name, call in _forward_only_calls(rng, "cpu"):
         with pytest.raises(RuntimeError, match="no backward"):
             call()
@@ -433,14 +438,14 @@ def test_pyramid_taps_rebuild_the_weight_matrices():
     """Kernel 1's per-output taps (start, count, weights) rebuild the plain
     version's Lanczos-3 matrices exactly, downscale, upscale and identity."""
     for n_in, n_out in ((960, 800), (960, 240), (1280, 320), (64, 32), (32, 64), (50, 50)):
-        start, count, w = pyramid._taps(n_in, n_out)
+        start, count, w = pyramid.taps(n_in, n_out)
         dense = np.zeros((n_out, n_in), np.float32)
         for o in range(n_out):
             dense[o, start[o]:start[o] + count[o]] = w[o, :count[o]]
         ref = (np.eye(n_in, dtype=np.float32) if n_in == n_out else
                pyramid._lanczos3_weights(n_in, n_out, "cpu").numpy().T)
         np.testing.assert_array_equal(dense, ref)
-    assert pyramid._taps(960, 240)[2].shape[1] == 24  # 4x down: 24 taps
+    assert pyramid.taps(960, 240)[2].shape[1] == 24  # 4x down: 24 taps
 
 
 def test_device_pyramid_ref_matches_jax(rng):

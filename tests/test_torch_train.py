@@ -398,13 +398,16 @@ def test_pair_folder_yields_the_jax_batches(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, `train` and `cli` included, without JAX."""
+    """Every module of the port, `train`, `cli`, `eval` and the kernels
+    included, without JAX."""
     code = ("import sys, pkgutil, importlib, ransacflow_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'ransacflow_tpu_torch.'):\n"
             "    if not m.name.endswith('heads_triton'):\n"
             "        importlib.import_module(m.name)\n"
-            "assert 'ransacflow_tpu_torch.cli.train' in sys.modules\n"
-            "assert 'ransacflow_tpu_torch.train.loop' in sys.modules\n"
+            "for name in ('cli.train', 'train.loop', 'pipeline.api', 'cli.common',\n"
+            "             'cli.align', 'models.segnet', 'eval.sky', 'pipeline.bank',\n"
+            "             'kernels.anchor_resample', 'kernels.adaptive_pool'):\n"
+            "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
