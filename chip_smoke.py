@@ -8,24 +8,29 @@ public entry points, and the sky mask.
 Phases, each of which must pass:
   (a) card: a CUDA device is present; prints its name and power limit;
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
-  (c) kernels: each hand-written kernel (K1-K13, the backward kernels of
-      K6, K7, K9 and K10 under their own names, and K2 with relax_cells 1)
-      against its plain PyTorch version at its path's shapes (K1 the serving
-      pyramid, K12 a serving pair's four anchor resamples, K13 the sky
-      mask's conv5 maps, the backward kernels and K9-K11 the full-width
-      training step's), with max error, paired times (CUDA events and
-      profiler device time), the time of one PyTorch call that computes the
-      same function where there is one (`library_ms`), and the least time
-      the card could take for the work (`bound_ms`: bytes over 3.35 TB/s or
-      operations over 67 TFLOP/s fp32, whichever is larger); K4 runs under
-      sync-debug 'error';
+  (c) kernels: each hand-written kernel (K1-K13, K5 in its grid and its
+      homography form, the backward kernels of K6, K7, K9 and K10 under
+      their own names, and K2 with relax_cells 1) against its plain PyTorch
+      version at its path's shapes (K1 the serving pyramid, K5's homography
+      form the fine stage's 480x640 warp, K12 a serving pair's four anchor
+      resamples, K13 the sky mask's conv5 maps, the backward kernels and
+      K9-K11 the full-width training step's; K11 at the step's three calls,
+      each on a per-pixel-noise grid and an upsampled random flow's grid,
+      with the share of its tiles that splatted through shared memory, at
+      least 90% on the latter at C = 1 and 2), with max
+      error, paired times (CUDA events and profiler device time), the time
+      of one PyTorch call that computes the same function where there is one
+      (`library_ms`), and the least time the card could take for the work
+      (`bound_ms`: bytes over 3.35 TB/s or operations over 67 TFLOP/s fp32,
+      whichever is larger); K4 runs under sync-debug 'error';
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
       on a small pair, and for launches of its kernels: lanczos_pyramid (K1),
-      mutual_argmax (K2), ransac_score (K3), warp_sample (K5),
-      correlation_volume (K6), head_epilogues (K7), compose_tail (K8) and
-      blur_pool (K9); prints pairs/s;
+      mutual_argmax (K2), ransac_score (K3), warp_homography (K5, one per
+      pair, and no grid-form warp_sample), correlation_volume (K6),
+      head_epilogues (K7), compose_tail (K8) and blur_pool (K9); prints
+      pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
       HPatches configuration (4 related pairs, 480x640 targets, 7-scale
       pyramid from 960x1280, max_coarse 10, mask_region_th 0.01, match12
@@ -34,7 +39,9 @@ Phases, each of which must pass:
       of 4096, cap 50k) and once with 50k fixed hypotheses, checked for
       finite outputs, 1 <= count <= 11 and launches of the serving path's
       kernels and ransac_adaptive (K4); prints pairs/s, homographies and
-      hypotheses per fit and a one-slot stage split; then, on one pair
+      hypotheses per fit and a one-slot stage split (the slot's warp timed
+      both ways in turns: warp_grid + the grid form, and warp_homography);
+      then, on one pair
       from PIL images, the host loop (`CoarseAligner` +
       `multi_homography_predict`) and the device loop through
       `multi_homography_predict_fused` on the same aligner and seed, whose
@@ -43,7 +50,8 @@ Phases, each of which must pass:
       port on the CPU (losses and every gradient); stage 3 at full width (16
       pairs of 224x224, margin 88, k 7, Adam 2e-4, betas (0.5, 0.999)):
       finite losses, launches of every training kernel (K5, K6, K7, K9,
-      K10, K11 and the backward kernels), the median step time of 12
+      K10, K11 and the backward kernels), K11's shared-tile share in the
+      step, the median step time of 12
       CUDA-event-timed steps after warm-up, trained pairs/s, peak memory and
       a profiler breakdown of one step; one stage-1 step; then
       `python -m ransacflow_tpu_torch.cli.train --stage 3 ... NoVal` for 2
@@ -63,7 +71,9 @@ Phases, each of which must pass:
       bg_mask -> `multi_homography_predict_fused`) on the 4 related pairs of
       (e); launches of ppm_pool (K13) and the loop's kernels.
 Each path's launch counts are set to 0 just before it and read just after;
-a kernel's `launches` is the sum over the paths.
+a kernel's `launches` is the sum over the paths. Every fine pass of an
+alignment path warps through warp_homography: one launch per compose_tail
+launch, and no grid-form warp_sample but align_images' warped_fine.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -88,7 +98,7 @@ N_BANK, N_TARGET, N_CHANNELS = 13065, 1200, 1024
 MH_N_ITER, MH_CHUNK, MH_MAX_COARSE = 50000, 4096, 10  # bench.py bench_multihomo
 MH_SEED = 7  # pair k of the device loop draws from seed MH_SEED + k
 ACCEPT_WEIGHTS = "scripts/assets/accept_weights.npz"
-SERVING_KERNELS = ("lanczos_pyramid", "mutual_argmax", "ransac_score", "warp_sample",
+SERVING_KERNELS = ("lanczos_pyramid", "mutual_argmax", "ransac_score", "warp_homography",
                    "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
 MULTIHOMO_KERNELS = SERVING_KERNELS + ("ransac_adaptive",)
 TRAIN_KERNELS = ("warp_sample", "grid_sample_bwd", "correlation_volume",
@@ -385,6 +395,54 @@ def check_warp_sample(gen):
                 src_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True))}
 
 
+def check_warp_homography(gen):
+    """K5's homography form at the fine stage's shape: the 480x640 mid scale
+    warped onto a 480x640 target by the identity and by a warp that reaches
+    past the source, against warp_grid + F.grid_sample. The grid must agree
+    within 1e-6 and the identity's be the linspace grid exactly (+-1 on the
+    border, where K8's in-bounds test is a step)."""
+    from ransacflow_tpu_torch.kernels.warp_sample import (
+        warp_homography, warp_homography_ref, warp_sample_ref)
+    from ransacflow_tpu_torch.ops.grid import normalized_grid
+
+    src = torch.rand((1, *TARGET_HW, 3), generator=gen, device="cuda")
+    out = {"max_abs_err": 0.0, "grid_max_abs_err": 0.0}
+    for warped in (False, True):
+        H = torch.eye(3, device="cuda")
+        if warped:
+            H = torch.tensor([[1.05, 0.02, 0.1], [-0.01, 0.97, -0.05],
+                              [0.02, -0.03, 1.0]], device="cuda")
+        H = H[None].contiguous()
+        img, grid = warp_homography(src, H, TARGET_HW)
+        img_r, grid_r = warp_homography_ref(src, H, TARGET_HW)
+        torch.cuda.synchronize()
+        err, grid_err = (img - img_r).abs().max().item(), (grid - grid_r).abs().max().item()
+        # the sampling alone, at the kernel's own grid
+        own = (img - warp_sample_ref(src, grid)).abs().max().item()
+        require(err <= 1e-5 and grid_err <= 1e-6,
+                f"warp_homography (warped {warped}): image err {err} > 1e-5 or grid err "
+                f"{grid_err} > 1e-6 (at its own grid {own})")
+        if not warped:
+            require(torch.equal(grid, normalized_grid(*TARGET_HW, "cuda")[None]),
+                    "warp_homography: the identity's grid is not the linspace grid")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["grid_max_abs_err"] = max(out["grid_max_abs_err"], grid_err)
+        out["err_at_own_grid" + ("_warp" if warped else "_identity")] = own
+    src_nchw = src.permute(0, 3, 1, 2)
+    # per pixel: the homography and divide (~12), the weights (~10) and 4
+    # taps of 3 channels (a multiply-add each)
+    out.update(paired_ms(lambda: warp_homography(src, H, TARGET_HW),
+                         lambda: warp_homography_ref(src, H, TARGET_HW)))
+    out.update(bound(nbytes(src, H, img, grid), img.numel() // 3 * (22 + 8 * 3)))
+    out.update(library(None))
+    # a lower yardstick, not the same function: F.grid_sample on the grid
+    # built beforehand (no PyTorch call warps by a homography)
+    out.update(library(lambda: torch.nn.functional.grid_sample(
+        src_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        "_grid_sample_prebuilt"))
+    return out
+
+
 def check_head_epilogues(gen):
     """K7: softmax-expectation over (1, 60, 80, 49) logits and the
     matchability sigmoid over (1, 60, 80, 1)."""
@@ -512,40 +570,98 @@ def check_blur_pool(gen):
     return fwd, bwd
 
 
+def _upsampled_flow_grid(gen, b2):
+    """The identity plus a x8 bilinear upsample (align_corners=True) of a
+    random (b2, 28, 28, 2) flow of up to +-3 cells of the 28 x 28 grid,
+    clipped to [-1, 1]: the form of the grids net_flow_coarse +
+    flow_to_grid hand the training losses, not their values. The flow is
+    drawn independently per 8-pixel cell, so the field stretches by up to
+    ~6 px per px: smoother than per-pixel noise only at the scale of a cell.
+    Phase (f) reads K11's share on the step's own grids."""
+    from ransacflow_tpu_torch.models.heads import flow_to_grid
+    from ransacflow_tpu_torch.ops.grid import normalized_grid
+    from ransacflow_tpu_torch.ops.sampler import upsample_bilinear_x8
+
+    h8 = TRAIN_IMG // 8
+    cells = 3 * (2 * torch.rand((b2, h8, h8, 2), generator=gen, device="cuda") - 1)
+    flow = upsample_bilinear_x8(cells * (2.0 / h8))
+    return flow_to_grid(flow, normalized_grid(TRAIN_IMG, TRAIN_IMG, "cuda")[None]).contiguous()
+
+
+# K11's three calls in a training step (train/losses.py): the matchability's
+# cycle warp (C = 1) and the grid's (C = 2) with both cotangents, the image
+# warp (C = 3) with the grid cotangent only
+K11_CALLS = (("c1", 1, True), ("c2", 2, True), ("c3", 3, False))
+
+
 def check_grid_sample_bwd(gen):
-    """K11 at the training step's shapes: the cycle warp final[roll] at
-    final (both cotangents, the splat with fp32 atomics: run-to-run order),
-    and the image warp at final (grid cotangent only)."""
-    from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
+    """K11 at the training step's three calls, each on two grids: per-pixel
+    noise (identity + 0.05 randn, the worst case for the shared-memory
+    splat) and an upsampled random flow's grid. Each: the cotangents against
+    the plain version's (1e-5 of the largest magnitude: fp32 atomics in an
+    order that changes from run to run), `ms` of torch.autograd.grad
+    through the op, `ms_direct` of the bare `grid_sample_backward` (timed
+    as the bare aten call of `library_ms` is), the bound and the share of
+    splatting tiles that took the shared path, at least 90% on the upsampled
+    grid. The row's own keys are C = 2 on the upsampled grid."""
+    from ransacflow_tpu_torch.kernels import warp_sample as ws
     from ransacflow_tpu_torch.ops.grid import normalized_grid
 
     b2 = TRAIN_FEAT[0]
-    grid = normalized_grid(TRAIN_IMG, TRAIN_IMG, "cuda")[None]
-    final = (grid + 0.05 * torch.randn((b2, TRAIN_IMG, TRAIN_IMG, 2), generator=gen,
-                                       device="cuda")).clamp(-1, 1).contiguous()
+    noise = (normalized_grid(TRAIN_IMG, TRAIN_IMG, "cuda")[None]
+             + 0.05 * torch.randn((b2, TRAIN_IMG, TRAIN_IMG, 2), generator=gen,
+                                  device="cuda")).clamp(-1, 1).contiguous()
+    grids = {"noise": noise, "upsampled": _upsampled_flow_grid(gen, b2)}
     roll = torch.roll(torch.arange(b2, device="cuda"), b2 // 2)
-    images = torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device="cuda")
-    out = _backward_check("grid_sample_bwd", warp_sample, warp_sample_ref,
-                          [final[roll].contiguous(), final], 1e-5, gen)
-    fk, fp = final.clone().requires_grad_(), final.clone().requires_grad_()
-    g = torch.randn(images.shape, generator=gen, device="cuda")
-    dk = torch.autograd.grad(warp_sample(images, fk), fk, g)[0]
-    dp = torch.autograd.grad(warp_sample_ref(images, fp), fp, g)[0]
-    err, scale = (dk - dp).abs().max().item(), dp.abs().max().item()
-    # the grid cotangent is scaled by (W - 1) / 2 = 111.5: relative to its size
-    require(err <= 1e-5 * max(1.0, scale),
-            f"grid_sample_bwd (grid only): max abs err {err} > 1e-5 * {scale}")
-    out["max_abs_err"] = max(out["max_abs_err"], err)
-    out["grad_scale"] = max(out["grad_scale"], scale)
-    # the timed backward: the cotangent, image and grid read, both
-    # cotangents written (5 x 32 x 224 x 224 x 2 floats); per output value
-    # the 4-tap splat and the grid's two partials (~40)
-    image, grid = final[roll].contiguous(), final
-    out.update(bound(5 * nbytes(grid), 40 * grid.numel()))
-    g = torch.randn(grid.shape, generator=gen, device="cuda").permute(0, 3, 1, 2)
-    image_nchw = image.permute(0, 3, 1, 2)
-    out.update(library(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        g, image_nchw, grid, 0, 0, True, [True, True])))
+    out = {"max_abs_err": 0.0, "grad_scale": 0.0}
+    for grid_name, grid in grids.items():
+        images = {1: torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 1), generator=gen, device="cuda"),
+                  2: grid[roll].contiguous(),
+                  3: torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device="cuda")}
+        for call, c, need_image in K11_CALLS:
+            suffix = f"_{call}_{grid_name}"
+            image = images[c]
+            g = torch.randn((*grid.shape[:3], c), generator=gen, device="cuda")
+            d_k = ws.grid_sample_backward(image, grid, g, need_image)
+            d_p = ws.grid_sample_backward_ref(image, grid, g, need_image)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("image", "grid"), d_k, d_p):
+                if b is None:
+                    continue
+                err, scale = (a - b).abs().max().item(), max(1.0, b.abs().max().item())
+                require(err <= 1e-5 * scale, f"grid_sample_bwd{suffix} ({name}): max abs err "
+                                             f"{err} > 1e-5 * {scale}")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["grad_scale"] = max(out["grad_scale"], scale)
+            ws.reset_tile_counts()
+            ws.grid_sample_backward(image, grid, g, need_image)
+            shared, glob = ws.tile_counts("cuda").tolist()
+            share = out["shared_tile_share" + suffix] = (
+                shared / (shared + glob) if need_image else None)
+            require(grid_name != "upsampled" or not need_image or share >= 0.9,
+                    f"grid_sample_bwd{suffix}: {share} of the tiles shared, < 0.9")
+            # autograd through the op, the kernel's and the plain version's
+            ks = [image.clone().requires_grad_(need_image), grid.clone().requires_grad_()]
+            ps = [image.clone().requires_grad_(need_image), grid.clone().requires_grad_()]
+            wanted = lambda xs: xs if need_image else xs[1:]  # noqa: E731
+            out_k, out_p = ws.warp_sample(*ks), ws.warp_sample_ref(*ps)
+            out.update(paired_ms(_grads(out_k, wanted(ks), g), _grads(out_p, wanted(ps), g),
+                                 suffix=suffix))
+            direct = lambda: ws.grid_sample_backward(image, grid, g, need_image)  # noqa: E731
+            out["ms_direct" + suffix] = cuda_ms(direct)
+            out["device_ms_direct" + suffix] = device_ms(direct)
+            # read: the cotangent, the grid and the image (once); written:
+            # the grid cotangent and, with need_image, the image's; per
+            # point and channel the two partials (~10) and the splat (~8)
+            n_bytes = nbytes(g, grid, image, grid) + (nbytes(image) if need_image else 0)
+            out.update(bound(n_bytes, grid.numel() // 2 * c * (18 if need_image else 10),
+                             suffix))
+            g_nchw, image_nchw = g.permute(0, 3, 1, 2), image.permute(0, 3, 1, 2)
+            out.update(library(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, image_nchw, grid, 0, 0, True, [need_image, True]), suffix))
+    for key in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms"):
+        out[key] = out[key + "_c2_upsampled"]
     return out
 
 
@@ -703,24 +819,30 @@ def check_ppm_pool(gen):
 
 
 def phase_kernels():
+    """Each kernel's check, its line printed as soon as it passes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"lanczos_pyramid": check_pyramid(gen),
-               "correlation_volume": check_correlation(gen),
-               "mutual_argmax": check_matching(gen),
-               "ransac_score": check_ransac(gen),
-               "ransac_adaptive": check_ransac_adaptive(gen),
-               "warp_sample": check_warp_sample(gen),
-               "head_epilogues": check_head_epilogues(gen),
-               "compose_tail": check_compose_tail(gen)}
-    results["blur_pool"], results["blur_pool_bwd"] = check_blur_pool(gen)
-    results["masked_ssim"], results["masked_ssim_bwd"] = check_masked_ssim(gen)
-    results["grid_sample_bwd"] = check_grid_sample_bwd(gen)
-    results["correlation_volume_bwd"] = check_correlation_bwd(gen)
-    results["head_epilogues_bwd"] = check_head_epilogues_bwd(gen)
-    results["anchor_resample"] = check_anchor_resample(gen)
-    results["ppm_pool"] = check_ppm_pool(gen)
-    for name, r in results.items():
-        print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
+    checks = ((("lanczos_pyramid",), check_pyramid),
+              (("correlation_volume",), check_correlation),
+              (("mutual_argmax",), check_matching),
+              (("ransac_score",), check_ransac),
+              (("ransac_adaptive",), check_ransac_adaptive),
+              (("warp_sample",), check_warp_sample),
+              (("warp_homography",), check_warp_homography),
+              (("head_epilogues",), check_head_epilogues),
+              (("compose_tail",), check_compose_tail),
+              (("blur_pool", "blur_pool_bwd"), check_blur_pool),
+              (("masked_ssim", "masked_ssim_bwd"), check_masked_ssim),
+              (("grid_sample_bwd",), check_grid_sample_bwd),
+              (("correlation_volume_bwd",), check_correlation_bwd),
+              (("head_epilogues_bwd",), check_head_epilogues_bwd),
+              (("anchor_resample",), check_anchor_resample),
+              (("ppm_pool",), check_ppm_pool))
+    results = {}
+    for names, check in checks:
+        got = check(gen)
+        for name, r in zip(names, got if len(names) > 1 else (got,)):
+            results[name] = r
+            print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
     return results
 
 
@@ -814,6 +936,12 @@ def _require_launched(path, launches, names=(), exact=None):
                                   f"expected {n}; {launches}")
 
 
+def _fine_warps(launches, grid_form=0):
+    """The warp counts an alignment path must show: one warp_homography per
+    fine pass (one per compose_tail launch), and `grid_form` warp_sample."""
+    return {"warp_homography": launches["compose_tail"], "warp_sample": grid_form}
+
+
 def phase_serving(card):
     from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
@@ -835,7 +963,8 @@ def phase_serving(card):
 
     out, launches = _launches_of(serve)
     _require_launched("serving path", launches, SERVING_KERNELS,
-                      {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0})
+                      {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0,
+                       "compose_tail": N_PAIRS, **_fine_warps(launches)})
     ht, wt = TARGET_HW
     require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), "H21 shape")
     require(tuple(out["flow"].shape) == (N_PAIRS, 1, ht, wt, 2), "flow shape")
@@ -880,10 +1009,13 @@ def _h_error(h_a, h_b, n=64):
 def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
                     featt_fine, adaptive_chunk, reps=5):
     """Median device time of each stage of one slot of the loop (pair 0, an
-    empty mask), from CUDA events recorded between the stages."""
+    empty mask), from CUDA events recorded around the stages. The warp is
+    timed both ways in turns (which goes first alternates): 'warp_old' the
+    grid built by warp_grid and sampled by K5's grid form, 'warp' K5's
+    homography form, whose image and grid the later stages take."""
     from ransacflow_tpu_torch.kernels.compose import compose_tail
     from ransacflow_tpu_torch.kernels.correlation import correlation_volume
-    from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
+    from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
     from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
     from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
     from ransacflow_tpu_torch.models.layers import l2_normalize
@@ -894,40 +1026,49 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
 
     ht, wt = TARGET_HW
     gen = torch.Generator(device="cuda").manual_seed(0)
-    names = ("mask_and_matches", "ransac", "warp", "fine_features", "correlation",
-             "heads", "compose")
     samples = []
-    for _ in range(reps + 1):  # the first is a warm-up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        cells = _mask_to_cells(torch.zeros((ht, wt), device="cuda"), ht // 16, wt // 16)
-        idx, ok = _match_masked(bank, featt, cells, src_idx, valid, False)
-        m1, m2 = _homogeneous_matches(coords_a, coords_b, idx)
-        ev[1].record()
+    for rep in range(reps + 1):  # the first is a warm-up
+        marks = {}
+
+        def stage(name, fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn()
+            end.record()
+            marks[name] = (start, end)
+            return result
+
+        def matches():
+            cells = _mask_to_cells(torch.zeros((ht, wt), device="cuda"), ht // 16, wt // 16)
+            idx, ok = _match_masked(bank, featt, cells, src_idx, valid, False)
+            return (*_homogeneous_matches(coords_a, coords_b, idx), ok)
+
+        m1, m2, ok = stage("mask_and_matches", matches)
         if adaptive_chunk:
-            res, _ = ransac_homography_adaptive(m1, m2, ok, 0.05, MH_N_ITER,
-                                                adaptive_chunk, generator=gen)
+            res, _ = stage("ransac", lambda: ransac_homography_adaptive(
+                m1, m2, ok, 0.05, MH_N_ITER, adaptive_chunk, generator=gen))
         else:
-            res = ransac_homography(m1, m2, ok, 0.05, MH_N_ITER, generator=gen)
-        ev[2].record()
-        grid = warp_grid(res.H21[None], ht, wt)
-        src_warp = warp_sample(src, grid)
-        ev[3].record()
-        feats = l2_normalize(feature_extractor(align["netFeatCoarse"], src_warp))
-        ev[4].record()
-        corr12 = correlation_volume(featt_fine, feats, 7)
-        corr21 = correlation_volume(feats, featt_fine, 7)
-        ev[5].record()
-        flow8 = net_flow_coarse(align["netFlowCoarse"], corr12, up8=False)
-        m12 = net_matchability(align["netMatch"], corr12, up8=False)
-        m21 = net_matchability(align["netMatch"], corr21, up8=False)
-        ev[6].record()
-        compose_tail(flow8, m12, m21, grid, False)
-        ev[7].record()
-        ev[7].synchronize()
-        samples.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
-    med = np.median(np.array(samples[1:]), axis=0)
-    return {name: float(v) for name, v in zip(names, med)}
+            res = stage("ransac", lambda: ransac_homography(m1, m2, ok, 0.05, MH_N_ITER,
+                                                            generator=gen))
+        warps = [("warp_old", lambda: warp_sample(src, warp_grid(res.H21[None], ht, wt))),
+                 ("warp", lambda: warp_homography(src, res.H21[None], (ht, wt)))]
+        for name, fn in (warps if rep % 2 else warps[::-1]):
+            got = stage(name, fn)
+            if name == "warp":
+                src_warp, grid = got
+        feats = stage("fine_features", lambda: l2_normalize(
+            feature_extractor(align["netFeatCoarse"], src_warp)))
+        corr12, corr21 = stage("correlation", lambda: (
+            correlation_volume(featt_fine, feats, 7), correlation_volume(feats, featt_fine, 7)))
+        flow8, m12, m21 = stage("heads", lambda: (
+            net_flow_coarse(align["netFlowCoarse"], corr12, up8=False),
+            net_matchability(align["netMatch"], corr12, up8=False),
+            net_matchability(align["netMatch"], corr21, up8=False)))
+        stage("compose", lambda: compose_tail(flow8, m12, m21, grid, False))
+        torch.cuda.synchronize()
+        samples.append({name: a.elapsed_time(b) for name, (a, b) in marks.items()})
+    return {name: float(np.median([smp[name] for smp in samples[1:]])) for name in samples[0]}
 
 
 def phase_multihomo(card):
@@ -986,9 +1127,15 @@ def phase_multihomo(card):
         outs[name], launches[f"multihomo_{name}"] = _launches_of(lambda: run(chunk))
     no_k3 = tuple(k for k in MULTIHOMO_KERNELS if k != "ransac_score")
     _require_launched("multi-homography loop, adaptive", launches["multihomo_adaptive"],
-                      no_k3, {"ransac_score": 0})
+                      no_k3, {"ransac_score": 0, **_fine_warps(launches["multihomo_adaptive"])})
     _require_launched("multi-homography loop, fixed", launches["multihomo_fixed"],
-                      SERVING_KERNELS, {"ransac_adaptive": 0})
+                      SERVING_KERNELS, {"ransac_adaptive": 0,
+                                        **_fine_warps(launches["multihomo_fixed"])})
+    for name, out in outs.items():  # one warp per slot run: a slot run evaluated > 0
+        slots = int((out["n_evaluated"] > 0).sum())
+        require(launches[f"multihomo_{name}"]["warp_homography"] == slots,
+                f"{name}: warp_homography launched "
+                f"{launches[f'multihomo_{name}']['warp_homography']} times for {slots} slots")
     n_slots = MH_MAX_COARSE + 1
     readings = {}
     for name, out in outs.items():
@@ -1053,7 +1200,7 @@ def phase_multihomo(card):
 ANCHOR = dict(anchor_stride=3, relax_cells=1)  # bench.py's anchor serving series
 FAST_KERNELS = SERVING_KERNELS + ("anchor_resample", "ransac_adaptive")
 # the loop from PIL images: no device pyramid (K1), adaptive RANSAC (no K3)
-SKY_KERNELS = ("ppm_pool", "mutual_argmax", "ransac_adaptive", "warp_sample",
+SKY_KERNELS = ("ppm_pool", "mutual_argmax", "ransac_adaptive", "warp_homography",
                "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
 
 
@@ -1129,17 +1276,21 @@ def phase_fast_modes(card, exact_pairs_s):
         return fused_align_batch(resnet, align, pyramids, targets, gen, n_iter=N_ITER, **kw)
 
     # every scale of every pair is one K12 launch (an identity one at an anchor)
-    per_batch = {"anchor_resample": n_scales * N_PAIRS, "lanczos_pyramid": 1}
+    per_batch = {"anchor_resample": n_scales * N_PAIRS, "lanczos_pyramid": 1,
+                 "compose_tail": N_PAIRS}
     launches, outs = {}, {}
     outs["anchor3_relax1"], launches["fast_serving_fixed"] = _launches_of(
         lambda: serve(series["anchor3_relax1"]))
     _require_launched("fast serving, fixed", launches["fast_serving_fixed"],
                       SERVING_KERNELS, dict(per_batch, ransac_adaptive=0))
+    _require_launched("fast serving, fixed", launches["fast_serving_fixed"],
+                      exact=_fine_warps(launches["fast_serving_fixed"]))
     outs["anchor3_relax1_adaptive4096"], launches["fast_serving_adaptive"] = _launches_of(
         lambda: serve(series["anchor3_relax1_adaptive4096"]))
     _require_launched("fast serving, adaptive", launches["fast_serving_adaptive"],
                       [k for k in FAST_KERNELS if k != "ransac_score"],
-                      dict(per_batch, ransac_score=0))
+                      dict(per_batch, ransac_score=0,
+                           **_fine_warps(launches["fast_serving_adaptive"])))
 
     for name, out in outs.items():
         require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), f"{name}: H21 shape")
@@ -1167,9 +1318,11 @@ def phase_fast_modes(card, exact_pairs_s):
     aligner = RansacFlowAligner(align, resnet, "cuda", adaptive_chunk=MH_CHUNK, **ANCHOR)
     api, launches["align_images"] = _launches_of(lambda: aligner.align_images(src_img, tgt_img))
     _require_launched("align_images", launches["align_images"],
-                      ("mutual_argmax", "ransac_adaptive", "warp_sample", "correlation_volume",
-                       "head_epilogues", "compose_tail", "blur_pool"),
-                      {"anchor_resample": n_scales, "ransac_score": 0, "lanczos_pyramid": 0})
+                      ("mutual_argmax", "ransac_adaptive", "warp_homography",
+                       "correlation_volume", "head_epilogues", "compose_tail", "blur_pool"),
+                      {"anchor_resample": n_scales, "ransac_score": 0, "lanczos_pyramid": 0,
+                       # warped_fine is the one grid-form warp
+                       **_fine_warps(launches["align_images"], grid_form=1)})
     require(api["H21"] is not None, "align_images found no homography")
     for key in ("flow", "match", "warped_coarse", "warped_fine"):
         require(bool(np.isfinite(api[key]).all()), f"align_images: {key} is not finite")
@@ -1191,7 +1344,7 @@ def phase_fast_modes(card, exact_pairs_s):
     coarse = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=MH_N_ITER, min_size=480,
                            seed=MH_SEED, rematch_per_call=True, **ANCHOR)
     kw = dict(max_coarse=MH_MAX_COARSE, mask_region_th=0.01, cycle_match=False)
-    loop_kernels = ("mutual_argmax", "ransac_score", "warp_sample", "correlation_volume",
+    loop_kernels = ("mutual_argmax", "ransac_score", "warp_homography", "correlation_volume",
                     "head_epilogues", "compose_tail", "blur_pool")
     _, launches["loop_set_pair_anchor"] = _launches_of(
         lambda: coarse.set_pair(_to_pil(srcs_np[0]), _to_pil(tgts_np[0])))
@@ -1200,13 +1353,15 @@ def phase_fast_modes(card, exact_pairs_s):
     host, launches["loop_relax1_host"] = _launches_of(
         lambda: multi_homography_predict(coarse, align_mh, **kw))
     _require_launched("host loop, relax 1", launches["loop_relax1_host"], loop_kernels,
-                      {"anchor_resample": 0, "ransac_adaptive": 0})
+                      {"anchor_resample": 0, "ransac_adaptive": 0,
+                       **_fine_warps(launches["loop_relax1_host"])})
     fused, launches["loop_relax1_device"] = _launches_of(
         lambda: multi_homography_predict_fused(
             coarse, align_mh, generator=torch.Generator(device="cuda").manual_seed(MH_SEED),
             **kw))
     _require_launched("device loop, relax 1", launches["loop_relax1_device"], loop_kernels,
-                      {"anchor_resample": 0, "ransac_adaptive": 0})
+                      {"anchor_resample": 0, "ransac_adaptive": 0,
+                       **_fine_warps(launches["loop_relax1_device"])})
     require(host is not None and fused is not None, "relaxed loops found nothing")
     gap = _h_error(host["coarse_h"][0], fused["coarse_h"][0])
     require(gap < 0.01, f"relaxed loops: the host loop's first H is {gap} from the device's")
@@ -1340,7 +1495,7 @@ def phase_sky(card):
                          aligner.num_cached_matches))
     launches["sky_hook"] = hook
     _require_launched("--segNet hook", hook, SKY_KERNELS,
-                      {"ppm_pool": len(SkySegmenter.IMG_SIZES) * N_PAIRS})
+                      {"ppm_pool": len(SkySegmenter.IMG_SIZES) * N_PAIRS, **_fine_warps(hook)})
     partial = [k for k, b in enumerate(bg_share) if 0.0 < b < 1.0]
     require(partial, f"sky loop: no pair has a partial mask: bg shares {bg_share}")
     require(any(kept[k][0] < kept[k][1] for k in partial),
@@ -1475,9 +1630,10 @@ def _family(name):
 
 def _profile_step(step, reps=3):
     """Device time of `reps` steps from a torch.profiler trace: device ms per
-    step, its share of the traced wall time, the split by kernel family and
-    the top kernels. (The trace slows the host: the untraced step time is
-    the CUDA-event median.)"""
+    step, its share of the traced wall time, the split by kernel family, the
+    top kernels and every hand kernel (K11 on the step's own grids among
+    them). (The trace slows the host: the untraced step time is the
+    CUDA-event median.)"""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1497,7 +1653,9 @@ def _profile_step(step, reps=3):
     return {"traced_wall_ms": wall_ms, "device_ms": device,
             "families_ms": {k: round(v, 4) for k, v in
                             sorted(families.items(), key=lambda kv: -kv[1])},
-            "top": [(name[:60], round(ms, 4)) for name, ms in rows[:15]]}
+            "top": [(name[:60], round(ms, 4)) for name, ms in rows[:15]],
+            "hand_kernels_ms": {name.split("(float")[0][:70]: round(ms, 5) for name, ms in rows
+                                if _family(name) == "hand kernels"}}
 
 
 def _cli_entry_point(tmp):
@@ -1547,6 +1705,7 @@ def phase_train(card):
     import tempfile
 
     from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.kernels import warp_sample
     from ransacflow_tpu_torch.train import train_step
 
     small = check_train_step_against_cpu()
@@ -1559,9 +1718,12 @@ def phase_train(card):
     step = lambda: train_step(nets, opt, *batch, **_stage_kwargs(3))  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    warp_sample.reset_tile_counts()
     first = step()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    shared, glob = warp_sample.tile_counts("cuda").tolist()
+    k11_share = shared / (shared + glob)
     require(all(launches[k] > 0 for k in TRAIN_KERNELS),
             f"training path: kernel not launched: {launches}")
     first = {k: float(v) for k, v in first.items()}
@@ -1589,7 +1751,8 @@ def phase_train(card):
           f"(min {min(times):.3f}, max {max(times):.3f}) = "
           f"{TRAIN_PAIRS / (step_ms / 1e3):.3f} trained pairs/s; peak memory "
           f"{peak_gb:.2f} GB; first step {first}; step 15 {last}; launches "
-          f"{launches} on {card}", flush=True)
+          f"{launches}; K11 tiles through shared memory in the first step "
+          f"{shared} of {shared + glob} ({k11_share:.4f}) on {card}", flush=True)
     print(f"(f) one step in the profiler: {profile}", flush=True)
     del nets, opt, batch
 
@@ -1608,7 +1771,7 @@ def phase_train(card):
     print(f"(f) cli.train --stage 3 NoVal, 2 steps at full width: {cli}", flush=True)
     return launches, {"step_ms": step_ms, "step_ms_all": times,
                       "pairs_s": TRAIN_PAIRS / (step_ms / 1e3), "peak_gb": peak_gb,
-                      "profile": profile}
+                      "k11_shared_tile_share": k11_share, "profile": profile}
 
 
 SOURCES = {
@@ -1622,6 +1785,8 @@ SOURCES = {
                         "ransacflow_tpu/ops/ransac.py:194"),
     "warp_sample": ("cuda", "ransacflow_tpu_torch/csrc/warp_sample.cu",
                     "ransacflow_tpu/ops/sampler.py:240"),
+    "warp_homography": ("cuda", "ransacflow_tpu_torch/csrc/warp_sample.cu",
+                        "ransacflow_tpu/ops/homography.py:32"),
     "correlation_volume": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
                            "ransacflow_tpu/ops/correlation.py:21"),
     "head_epilogues": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",

@@ -30,7 +30,8 @@ KERNELS = {
     "mutual_argmax": matching.KERNEL,                  # K2
     "ransac_score": ransac.KERNEL,                     # K3
     "ransac_adaptive": ransac_adaptive.KERNEL,         # K4
-    "warp_sample": warp_sample.KERNEL,                 # K5
+    "warp_sample": warp_sample.KERNEL,                 # K5, grid form
+    "warp_homography": warp_sample.KERNEL_HOMOGRAPHY,  # K5, homography form
     "correlation_volume": correlation.KERNEL,          # K6
     "correlation_volume_bwd": correlation.KERNEL_BWD,  # K6 backward
     "head_epilogues": heads.KERNEL,                    # K7

@@ -11,7 +11,10 @@ headers, which keeps a build to seconds.
 Each entry point takes pointers and the stream as `ctypes.c_void_p`, launches
 on that stream, allocates nothing, and returns `cudaGetLastError()`;
 `Kernel.__call__` raises when that is not 0 and counts the launches that
-succeeded.
+succeeded. The launch path is kept light, since the kernels run microseconds
+on the card: a `Kernel` binds its symbol once, pointers and the stream pass
+as Python ints, and the device is switched only when it is not the current
+one.
 """
 
 import ctypes
@@ -100,18 +103,26 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
 
     def __call__(self, device, *args):
         """Launch on `device` (its current stream is among `args`)."""
-        lib = library()
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(device):  # the context the launch goes to
+        fn = self._fn or self._bind()
+        if device.index == torch.cuda.current_device():
             err = fn(*args)
+        else:
+            with torch.cuda.device(device):  # the context the launch goes to
+                err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
-                               f"{lib.rf_error_string(err).decode()}")
+                               f"{library().rf_error_string(err).decode()}")
         self.launches += 1
 
 
@@ -144,10 +155,11 @@ def forbid_grad(name, *tensors):
 
 
 def ptr(t):
-    """Device pointer of a tensor, as ctypes wants it."""
-    return ctypes.c_void_p(t.data_ptr())
+    """Device pointer of a tensor, an int that ctypes passes as c_void_p."""
+    return t.data_ptr()
 
 
 def stream(t):
-    """PyTorch's current stream on the tensor's device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on the tensor's device, as an int (no
+    `torch.cuda.Stream` object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -15,9 +15,8 @@ from ransacflow_tpu_torch.models.convert import (
     load_alignment_checkpoint,
     load_resnet50_trunk,
 )
-from ransacflow_tpu_torch.ops.homography import warp_grid
 from ransacflow_tpu_torch.pipeline.coarse import CoarseAligner
-from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask
+from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask_homography
 
 QUICK_START = dict(nb_scale=7, n_iter=10000, tolerance=0.05, transform="homography",
                    min_size=400, scale_r=1.2, resize_mode="max", rematch_per_call=True)
@@ -72,15 +71,15 @@ class RansacFlowAligner:
             return {"H21": None}
         ht, wt = c.tgt_array.shape[:2]
         src = c.put(c.src_array)[None]
-        flow_coarse = warp_grid(c.put(H)[None], ht, wt)
         featt = fine_features(self.params, c.put(c.tgt_array)[None])
-        out = pred_flow_mask(self.params, src, featt, flow_coarse,
-                             cycle_match=cycle_match, kernel_size=self.kernel_size)
+        out = pred_flow_mask_homography(self.params, src, featt, c.put(H)[None], (ht, wt),
+                                        cycle_match=cycle_match,
+                                        kernel_size=self.kernel_size)
         return {
             "H21": H,
             "flow": out["flow"][0].cpu().numpy(),
             "match": out["match"].cpu().numpy(),
-            "warped_coarse": warp_sample(src, flow_coarse)[0].cpu().numpy(),
+            "warped_coarse": out["warped"][0].cpu().numpy(),
             "warped_fine": warp_sample(src, out["flow"].contiguous())[0].cpu().numpy(),
             "target": c.tgt_array,
         }

@@ -3,15 +3,16 @@
 
 `params` is the dict of the three alignment networks: 'netFeatCoarse',
 'netFlowCoarse', 'netMatch' (see `pipeline.init_alignment_params`). The
-source warp is kernel 5, the correlations kernel 6, the head epilogues
-kernel 7 and the compose tail kernel 8.
+source warp is kernel 5 (on the alignment paths its homography form, which
+also writes the coarse grid), the correlations kernel 6, the head
+epilogues kernel 7 and the compose tail kernel 8.
 """
 
 import torch
 
 from ransacflow_tpu_torch.kernels.compose import compose_tail
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume
-from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
+from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
 from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
 from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
 from ransacflow_tpu_torch.models.layers import l2_normalize
@@ -30,7 +31,29 @@ def pred_flow_mask(params, src, featt, flow_coarse, cycle_match=False,
     Returns dict: flow (1, Ht, Wt, 2) composed grid, match (Ht, Wt),
     flow_down8 (1, Ht/8, Wt/8, 2), match_down8 (1, Ht/8, Wt/8, 2).
     """
-    src_warp = warp_sample(src, flow_coarse)
+    return _after_warp(params, warp_sample(src, flow_coarse), featt, flow_coarse,
+                       cycle_match, kernel_size)
+
+
+@torch.inference_mode()
+def pred_flow_mask_homography(params, src, featt, H, out_hw, cycle_match=False,
+                              kernel_size=7):
+    """`pred_flow_mask` at the grid `warp_grid(H, *out_hw)`, the warp and
+    that grid from one launch of kernel 5 (`warp_homography`).
+
+    H: (1, 3, 3) homography (target -> source normalized coordinates) on
+    the device of `src`; out_hw: the target's (Ht, Wt). Returns the dict of
+    `pred_flow_mask` and 'warped', the warped source (1, Ht, Wt, 3).
+    """
+    src_warp, flow_coarse = warp_homography(src, H, out_hw)
+    out = _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size)
+    out["warped"] = src_warp
+    return out
+
+
+def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size):
+    """The fine stage from the warped source on (features, correlations,
+    heads, compose tail)."""
     feats = l2_normalize(feature_extractor(params["netFeatCoarse"], src_warp))
 
     corr12 = correlation_volume(featt, feats, kernel_size)

@@ -14,12 +14,11 @@ scales' bank rows resampled from the nearest anchor by kernel 12),
 import torch
 
 from ransacflow_tpu_torch.kernels.pyramid import device_pyramid  # noqa: F401  (K1)
-from ransacflow_tpu_torch.ops.grid import feature_cell_coords
-from ransacflow_tpu_torch.ops.homography import warp_grid
+from ransacflow_tpu_torch.ops.grid import feature_cell_coords, normalized_grid
 from ransacflow_tpu_torch.ops.matching import mutual_matching
 from ransacflow_tpu_torch.ops.ransac import ransac_homography, ransac_homography_adaptive
 from ransacflow_tpu_torch.pipeline.bank import anchor_bank, bank_coords, coarse_features
-from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask
+from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask_homography
 
 
 def _coarse_match(resnet, pyramid, target, anchor_stride=0, relax_cells=0):
@@ -54,17 +53,18 @@ def _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size):
     ht, wt = target.shape[1:3]
     eye = torch.eye(3, dtype=res.H21.dtype, device=res.H21.device)
     h_used = torch.where(res.found, res.H21, eye)
-    flow_coarse = warp_grid(h_used[None], ht, wt)
     src = pyramid[len(pyramid) // 2]
-    out = pred_flow_mask(align, src, fine_features(align, target), flow_coarse,
-                         cycle_match=cycle_match, kernel_size=kernel_size)
+    out = pred_flow_mask_homography(align, src, fine_features(align, target),
+                                    h_used[None], (ht, wt), cycle_match=cycle_match,
+                                    kernel_size=kernel_size)
     foundf = res.found.to(out["match"].dtype)
     return {
         "H21": h_used,
         "found": res.found,
         "num_inliers": res.num_inliers,
         # an absolute sampling grid: the identity grid is its no-op
-        "flow": torch.where(res.found, out["flow"], warp_grid(eye[None], ht, wt)),
+        "flow": torch.where(res.found, out["flow"],
+                            normalized_grid(ht, wt, h_used.device)[None]),
         "match": out["match"] * foundf,
         # the raw stride-8 residual: zeros are its no-op
         "flow_down8": out["flow_down8"] * foundf,

@@ -13,7 +13,6 @@ device-resident `_fused_multi_homo` behind `multi_homography_predict_fused`.
 import numpy as np
 import torch
 
-from ransacflow_tpu_torch.ops.homography import warp_grid
 from ransacflow_tpu_torch.ops.ransac import (
     ransac_homography,
     ransac_homography_adaptive,
@@ -23,7 +22,7 @@ from ransacflow_tpu_torch.pipeline.coarse import (
     _mask_to_cells,
     _match_masked,
 )
-from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask
+from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask_homography
 
 
 @torch.inference_mode()
@@ -58,9 +57,8 @@ def multi_homography_predict(coarse, params, max_coarse=10, mask_region_th=0.01,
         H, _ = coarse.get_coarse(fg_mask)
         if H is None:
             break
-        flow_coarse = warp_grid(coarse.put(H)[None], ht, wt)
-        out = pred_flow_mask(params, src, featt, flow_coarse,
-                             cycle_match=cycle_match, kernel_size=kernel_size)
+        out = pred_flow_mask_homography(params, src, featt, coarse.put(H)[None], (ht, wt),
+                                        cycle_match=cycle_match, kernel_size=kernel_size)
         match_fine = out["match"].cpu().numpy()
         if (match_fine * (1.0 - fg_mask)).mean() > mask_region_th or nb_coarse == 0:
             hs.append(H)
@@ -144,8 +142,8 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
                                     generator=generator)
             n_evaluated[slot].fill_(n_iter)
         h_used = torch.where(res.found, res.H21, eye)
-        out = pred_flow_mask(params, src, featt_fine, warp_grid(h_used[None], ht, wt),
-                             cycle_match=cycle_match, kernel_size=kernel_size)
+        out = pred_flow_mask_homography(params, src, featt_fine, h_used[None], (ht, wt),
+                                        cycle_match=cycle_match, kernel_size=kernel_size)
         newly = out["match"] * (1.0 - fg)
         accept = res.found & ((newly.mean() > mask_region_th) | (count == 0))
         c = count.long().view(1)
