@@ -14,15 +14,19 @@ Phases, each of which must pass:
       version at its path's shapes (K1 the serving pyramid, K5's homography
       form the fine stage's 480x640 warp, K12 a serving pair's four anchor
       resamples, K13 the sky mask's conv5 maps, the backward kernels and
-      K9-K11 the full-width training step's; K11 at the step's three calls,
-      each on a per-pixel-noise grid and an upsampled random flow's grid,
-      with the share of its tiles that splatted through shared memory, at
-      least 90% on the latter at C = 1 and 2), with max
+      K9-K11 the full-width training step's; K9 forward and backward at the
+      step's three calls (the stem, layer2's and layer3's downsample); K8
+      also across resolutions, a 368x1232 coarse grid composed at 375x1242;
+      K11 at the step's three calls, each on a per-pixel-noise grid and an
+      upsampled random flow's grid, with the share of its tiles that
+      splatted through shared memory, at least 90% on the latter at C = 1
+      and 2), with max
       error, paired times (CUDA events and profiler device time), the time
       of one PyTorch call that computes the same function where there is one
       (`library_ms`), and the least time the card could take for the work
       (`bound_ms`: bytes over 3.35 TB/s or operations over 67 TFLOP/s fp32,
-      whichever is larger); K4 runs under sync-debug 'error';
+      whichever is larger) and its share of the device time; K4 runs under
+      sync-debug 'error';
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
@@ -464,33 +468,44 @@ def check_head_epilogues(gen):
                 7 * flow_logits.numel() + 4 * match_logits.numel()), **library(None)}
 
 
+KITTI_COARSE_HW, KITTI_OUT_HW = (368, 1232), (375, 1242)  # fineSize grid, the GT's size
+
+
 def check_compose_tail(gen):
     """K8 at 480x640 from the 60x80 maps, both cycle_match values, grids on
-    the border included; matchability is compared off the in-bounds step."""
+    the border included; and across resolutions (suffix `_cross`), a
+    368x1232 coarse grid composed at 375x1242 as KITTI's second pass does.
+    Matchability is compared off the in-bounds step."""
     from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 
-    flow8 = 0.04 * torch.randn((1, 60, 80, 2), generator=gen, device="cuda")
-    m12 = torch.rand((1, 60, 80, 1), generator=gen, device="cuda")
-    m21 = torch.rand((1, 60, 80, 1), generator=gen, device="cuda")
     out = {"max_abs_err": 0.0}
-    for warped in (False, True):
-        coarse = _homography_grid(*TARGET_HW, warped)
-        for cycle in (False, True):
-            flow, match = compose_tail(flow8, m12, m21, coarse, cycle)
-            flow_r, match_r = compose_tail_ref(flow8, m12, m21, coarse, cycle)
-            torch.cuda.synchronize()
-            off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
-            err = max((flow - flow_r).abs().max().item(),
-                      (match - match_r)[off].abs().max().item())
-            require(err <= 1e-5, f"compose_tail (cycle {cycle}): max abs err {err}")
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-    for cycle, suffix in ((False, ""), (True, "_cycle")):
-        out.update(paired_ms(lambda: compose_tail(flow8, m12, m21, coarse, cycle),
-                             lambda: compose_tail_ref(flow8, m12, m21, coarse, cycle),
-                             suffix=suffix))
-    # per output pixel: three 4-tap upsamplings, the grid sample (~60)
-    out.update(bound(nbytes(flow8, m12, m21, coarse, flow, match), 60 * match.numel()))
-    out.update(library(None))
+    cases = (("", TARGET_HW, None), ("_cross", KITTI_COARSE_HW, KITTI_OUT_HW))
+    for suffix, coarse_hw, out_hw in cases:
+        h8, w8 = coarse_hw[0] // 8, coarse_hw[1] // 8
+        flow8 = 0.04 * torch.randn((1, h8, w8, 2), generator=gen, device="cuda")
+        m12 = torch.rand((1, h8, w8, 1), generator=gen, device="cuda")
+        m21 = torch.rand((1, h8, w8, 1), generator=gen, device="cuda")
+        for warped in (False, True):
+            coarse = _homography_grid(*coarse_hw, warped)
+            for cycle in (False, True):
+                flow, match = compose_tail(flow8, m12, m21, coarse, cycle, out_hw)
+                flow_r, match_r = compose_tail_ref(flow8, m12, m21, coarse, cycle, out_hw)
+                torch.cuda.synchronize()
+                require(flow.shape == flow_r.shape and match.shape == match_r.shape,
+                        f"compose_tail{suffix}: shapes {flow.shape} {flow_r.shape}")
+                off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
+                err = max((flow - flow_r).abs().max().item(),
+                          (match - match_r)[off].abs().max().item())
+                require(err <= 1e-5, f"compose_tail{suffix} (cycle {cycle}): max abs err {err}")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+        for cycle, c_suffix in ((False, ""), (True, "_cycle")):
+            out.update(paired_ms(lambda: compose_tail(flow8, m12, m21, coarse, cycle, out_hw),
+                                 lambda: compose_tail_ref(flow8, m12, m21, coarse, cycle, out_hw),
+                                 suffix=suffix + c_suffix))
+        # per output pixel: three 4-tap upsamplings, the grid sample (~60)
+        out.update(bound(nbytes(flow8, m12, m21, coarse, flow, match), 60 * match.numel(),
+                         suffix))
+        out.update(library(None, suffix))
     return out
 
 
@@ -503,15 +518,17 @@ def _grads(out, inputs, g):
     return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
-def _backward_check(name, kernel_fn, plain_fn, inputs, tol, gen):
+def _backward_check(name, kernel_fn, plain_fn, inputs, tol, gen, suffix=""):
     """Forward and backward of `kernel_fn` against `plain_fn` on `inputs`
     (each requiring grad): max errors and paired times of the backward.
     Each input's cotangent is held to `tol` times the larger of 1 and the
-    plain one's largest magnitude (fp32 rounding grows with the values)."""
+    plain one's largest magnitude (fp32 rounding grows with the values).
+    The output's cotangent comes in the memory format of the kernel's
+    output, as the training step hands it back (K9's channels-last)."""
     ks = [x.detach().clone().requires_grad_() for x in inputs]
     ps = [x.detach().clone().requires_grad_() for x in inputs]
     out_k, out_p = kernel_fn(*ks), plain_fn(*ps)
-    g = torch.randn(out_p.shape, generator=gen, device="cuda")
+    g = torch.empty_like(out_k).normal_(generator=gen)
     d_k = torch.autograd.grad(out_k, ks, g, retain_graph=True)
     d_p = torch.autograd.grad(out_p, ps, g, retain_graph=True)
     torch.cuda.synchronize()
@@ -521,7 +538,7 @@ def _backward_check(name, kernel_fn, plain_fn, inputs, tol, gen):
     for e, s in zip(errs, scales):
         require(e <= tol * s, f"{name}: backward max abs err {e} > {tol} * {s}")
     return {"max_abs_err": max(errs), "grad_scale": max(scales),
-            **paired_ms(_grads(out_k, ks, g), _grads(out_p, ps, g))}
+            **paired_ms(_grads(out_k, ks, g), _grads(out_p, ps, g), suffix=suffix)}
 
 
 def check_pyramid(gen):
@@ -545,28 +562,47 @@ def check_pyramid(gen):
             **bound(nbytes(src, *got[1:]), ops), **library(None)}
 
 
+# K9's three calls in a training step, channels-last as the feature
+# extractor hands them over: the stem (after conv1 and the 2x2 max-pool),
+# layer2.0.downsample and layer3.0.downsample (models/feature_extractor.py)
+K9_CALLS = (("", 64, TRAIN_IMG - 1), ("_layer2", 64, TRAIN_IMG // 2),
+            ("_layer3", 128, TRAIN_IMG // 4))
+
+
 def check_blur_pool(gen):
-    """K9 at the training stem: (32, 64, 223, 223) in channels-last memory,
-    as the feature extractor hands it over; forward and backward."""
+    """K9 forward and backward at the training step's three calls, batch 32.
+    The rows' own keys are the stem's; the others carry their suffix. The
+    library call is reflect pad + grouped `F.conv2d` (cuDNN's depthwise
+    convolution), and for the backward its autograd."""
+    import torch.nn.functional as F
+
     from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
 
-    x = torch.rand((TRAIN_FEAT[0], 64, TRAIN_IMG - 1, TRAIN_IMG - 1), generator=gen,
-                   device="cuda").contiguous(memory_format=torch.channels_last)
-    filt = binomial_filter(64, 3, "cuda")
-    y = blur_pool(x, filt)
-    err = (y - blur_pool_ref(x, filt)).abs().max().item()
-    require(err <= 1e-6, f"blur_pool: max abs err {err} > 1e-6")  # 9 exact taps
-    fwd = {"max_abs_err": err, **paired_ms(lambda: blur_pool(x, filt),
-                                           lambda: blur_pool_ref(x, filt)),
-           **bound(nbytes(x, y), 18 * y.numel()),
-           **library(lambda: torch.nn.functional.conv2d(
-               torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect"), filt, stride=2,
-               groups=64))}
-    bwd = _backward_check("blur_pool_bwd", lambda a: blur_pool(a, filt),
-                          lambda a: blur_pool_ref(a, filt), [x], 1e-5, gen)
-    # the output's cotangent read, the input's written; 9 taps each
-    bwd.update(bound(nbytes(y, x), 18 * y.numel()))
-    bwd.update(library(None))
+    fwd, bwd = {"max_abs_err": 0.0}, {"max_abs_err": 0.0, "grad_scale": 0.0}
+    for suffix, c, hw in K9_CALLS:
+        x = torch.rand((TRAIN_FEAT[0], c, hw, hw), generator=gen,
+                       device="cuda").contiguous(memory_format=torch.channels_last)
+        filt = binomial_filter(c, 3, "cuda")
+        lib = lambda a: F.conv2d(F.pad(a, (1, 1, 1, 1), mode="reflect"),  # noqa: E731
+                                 filt, stride=2, groups=c)
+        y = blur_pool(x, filt)
+        err = (y - blur_pool_ref(x, filt)).abs().max().item()
+        require(err <= 1e-6, f"blur_pool{suffix}: max abs err {err} > 1e-6")  # 9 exact taps
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        fwd.update(paired_ms(lambda: blur_pool(x, filt), lambda: blur_pool_ref(x, filt),
+                             suffix=suffix))
+        fwd.update(bound(nbytes(x, y), 18 * y.numel(), suffix))
+        fwd.update(library(lambda: lib(x), suffix))
+        got = _backward_check("blur_pool_bwd" + suffix, lambda a: blur_pool(a, filt),
+                              lambda a: blur_pool_ref(a, filt), [x], 1e-5, gen, suffix)
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], got.pop("max_abs_err"))
+        bwd["grad_scale"] = max(bwd["grad_scale"], got.pop("grad_scale"))
+        bwd.update(got)
+        # the output's cotangent read, the input's written; 9 taps each
+        bwd.update(bound(nbytes(y, x), 18 * y.numel(), suffix))
+        x_lib = x.detach().clone().requires_grad_()
+        y_lib = lib(x_lib)
+        bwd.update(library(_grads(y_lib, [x_lib], torch.randn_like(y_lib)), suffix))
     return fwd, bwd
 
 
@@ -841,6 +877,10 @@ def phase_kernels():
     for names, check in checks:
         got = check(gen)
         for name, r in zip(names, got if len(names) > 1 else (got,)):
+            for key in [k for k in r if k.startswith("bound_ms")]:
+                suffix = key[len("bound_ms"):]  # share: bound over device time
+                dev = r.get("device_ms" + suffix)
+                r["share" + suffix] = r[key] / dev if dev else None
             results[name] = r
             print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
     return results
@@ -1833,7 +1873,7 @@ def main():
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
                 **{key: results[name][key] for key in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "device_ms", "plain_device_ms", "library_device_ms")}}
+                    "device_ms", "plain_device_ms", "library_device_ms", "share")}}
                for name, (route, src, rep) in SOURCES.items()]
     print(json.dumps({"multihomo": readings, "train": train_readings,
                       "fast_modes": fast_readings, "sky": sky_readings,

@@ -20,19 +20,22 @@ from ransacflow_tpu_torch.models.layers import l2_normalize
 
 @torch.inference_mode()
 def pred_flow_mask(params, src, featt, flow_coarse, cycle_match=False,
-                   kernel_size=7):
+                   kernel_size=7, out_hw=None):
     """Fine stage for one coarse hypothesis.
 
     src: (1, Hs, Ws, 3) source in [0, 1]; featt: (1, Ht/8, Wt/8, 256)
     L2-normalized target fine features; flow_coarse: (1, Ht, Wt, 2) coarse
     sampling grid (target -> source); cycle_match: multiply match12 by the
-    back-warped match21.
+    back-warped match21; out_hw: optional (H, W) to upsample and compose
+    at instead of the coarse grid's (KITTI composes its second pass at the
+    ground truth's size while warping at fineSize).
 
-    Returns dict: flow (1, Ht, Wt, 2) composed grid, match (Ht, Wt),
-    flow_down8 (1, Ht/8, Wt/8, 2), match_down8 (1, Ht/8, Wt/8, 2).
+    Returns dict: flow (1, H, W, 2) composed grid, match (H, W),
+    flow_down8 (1, Ht/8, Wt/8, 2), match_down8 (1, Ht/8, Wt/8, 2); (H, W)
+    is out_hw, else (Ht, Wt).
     """
     return _after_warp(params, warp_sample(src, flow_coarse), featt, flow_coarse,
-                       cycle_match, kernel_size)
+                       cycle_match, kernel_size, out_hw)
 
 
 @torch.inference_mode()
@@ -42,8 +45,10 @@ def pred_flow_mask_homography(params, src, featt, H, out_hw, cycle_match=False,
     that grid from one launch of kernel 5 (`warp_homography`).
 
     H: (1, 3, 3) homography (target -> source normalized coordinates) on
-    the device of `src`; out_hw: the target's (Ht, Wt). Returns the dict of
-    `pred_flow_mask` and 'warped', the warped source (1, Ht, Wt, 3).
+    the device of `src`; out_hw: the target's (Ht, Wt), the size of the
+    warp grid, at which the flow is also composed (not `pred_flow_mask`'s
+    optional compose size). Returns the dict of `pred_flow_mask` and
+    'warped', the warped source (1, Ht, Wt, 3).
     """
     src_warp, flow_coarse = warp_homography(src, H, out_hw)
     out = _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size)
@@ -51,9 +56,10 @@ def pred_flow_mask_homography(params, src, featt, H, out_hw, cycle_match=False,
     return out
 
 
-def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size):
+def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
+                out_hw=None):
     """The fine stage from the warped source on (features, correlations,
-    heads, compose tail)."""
+    heads, compose tail at `out_hw`, else at the grid's size)."""
     feats = l2_normalize(feature_extractor(params["netFeatCoarse"], src_warp))
 
     corr12 = correlation_volume(featt, feats, kernel_size)
@@ -64,7 +70,7 @@ def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size):
     match21_down8 = net_matchability(params["netMatch"], corr21, up8=False)
 
     flow12, match = compose_tail(flow_down8, match12_down8, match21_down8,
-                                 flow_coarse, cycle_match)
+                                 flow_coarse, cycle_match, out_hw)
     return {
         "flow": flow12,
         "match": match[0],

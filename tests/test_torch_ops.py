@@ -151,6 +151,30 @@ def _banks(rng, c=16, n_a=70, n_b=30):
     return a, b, valid_b
 
 
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_correlation_cotangents_in_neighbourhood_form(rng, k):
+    """The form K6's backward kernel computes: with k - 1 = 2p, offset
+    kk-1-d is offset d reversed, so both cotangents are neighbourhood sums
+    like the forward,
+      dx[b,i,j,c] = sum_d g[b,i,j,d] * y[b, i+di-p, j+dj-p, c],
+      dy[b,i,j,c] = sum_d g[b, i+di-p, j+dj-p, kk-1-d] * x[b, i+di-p, j+dj-p, c],
+    zeros outside the map; equal to autograd of the plain version (fp64)."""
+    b, h, w, c, p, kk = 2, 6, 13, 5, k // 2, k * k
+    x, y = (torch.from_numpy(rng.randn(b, h, w, c)).requires_grad_() for _ in range(2))
+    g = torch.from_numpy(rng.randn(b, h, w, kk))
+    dx_ref, dy_ref = torch.autograd.grad(correlation_volume_ref(x, y, k), (x, y), g)
+    pad = lambda a: torch.nn.functional.pad(a.detach(), (0, 0, p, p, p, p))  # noqa: E731
+    y_pad, x_pad, g_pad = pad(y), pad(x), pad(g)
+    dx, dy = torch.zeros_like(dx_ref), torch.zeros_like(dy_ref)
+    for d in range(kk):
+        di, dj = divmod(d, k)
+        nb = lambda a: a[:, di:di + h, dj:dj + w]  # noqa: E731  the neighbour (di, dj)
+        dx += g[..., d:d + 1] * nb(y_pad)
+        dy += nb(g_pad)[..., kk - 1 - d:kk - d] * nb(x_pad)
+    torch.testing.assert_close(dx, dx_ref, atol=1e-12, rtol=0)
+    torch.testing.assert_close(dy, dy_ref, atol=1e-12, rtol=0)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_mutual_matching_ref(rng, masked):
     a, b, valid_b = _banks(rng)
@@ -242,15 +266,20 @@ def _compose_inputs(rng, b=1, h8=5, w8=7, identity=True):
     return flow8, m12, m21, coarse
 
 
-def _jax_compose_tail(flow8, m12, m21, coarse, cycle_match):
-    """`ransacflow_tpu/pipeline/fine.py:61-92` on JAX arrays."""
-    ht, wt = coarse.shape[1:3]
+def _jax_compose_tail(flow8, m12, m21, coarse, cycle_match, out_hw=None):
+    """`ransacflow_tpu/pipeline/fine.py:46,61-92` on JAX arrays."""
+    ht, wt = out_hw if out_hw is not None else coarse.shape[1:3]
     up = lambda x: jsampler.interpolate_bilinear(jnp.asarray(x), ht, wt)  # noqa: E731
     flow_up = jnp.clip(up(flow8) + jgrid.normalized_grid(ht, wt)[None], -1.0, 1.0)
-    flow12 = jsampler.grid_sample(jnp.asarray(coarse), flow_up)
     match = up(m12)
-    if cycle_match:
-        match = match * jsampler.grid_sample(up(m21), flow_up)
+    if cycle_match and (ht, wt) == coarse.shape[1:3]:
+        sampled = jsampler.grid_sample(
+            jnp.concatenate([jnp.asarray(coarse), up(m21)], axis=-1), flow_up)
+        flow12, match = sampled[..., :2], match * sampled[..., 2:3]
+    else:
+        flow12 = jsampler.grid_sample(jnp.asarray(coarse), flow_up)
+        if cycle_match:
+            match = match * jsampler.grid_sample(up(m21), flow_up)
     inb = ((flow12[..., 0:1] >= -1) & (flow12[..., 0:1] <= 1)
            & (flow12[..., 1:2] >= -1) & (flow12[..., 1:2] <= 1))
     return flow12, (match * inb)[..., 0]
@@ -264,13 +293,22 @@ def test_warp_sample_ref_matches_jax(rng):
     close(warp_sample_ref(t(img), t(g)), jsampler.grid_sample(jnp.asarray(img), jnp.asarray(g)))
 
 
-@pytest.mark.parametrize("cycle_match", [True, False])
-def test_compose_tail_ref_matches_jax(rng, cycle_match):
-    """Kernel 8's plain version, grids exactly on the border included."""
+# (cycle_match, out_hw): out_hw None keeps the cases' first ids; the others
+# compose above and below the 40 x 56 coarse grid
+COMPOSE_CASES = [pytest.param(c, None, id=str(c)) for c in (True, False)] + [
+    pytest.param(c, hw, id=f"{c}-{hw[0]}x{hw[1]}")
+    for c in (True, False) for hw in ((47, 61), (24, 33))]
+
+
+@pytest.mark.parametrize("cycle_match,out_hw", COMPOSE_CASES)
+def test_compose_tail_ref_matches_jax(rng, cycle_match, out_hw):
+    """Kernel 8's plain version, grids exactly on the border included, at
+    the coarse grid's size and across resolutions (out_hw)."""
     for identity in (True, False):
         args = _compose_inputs(rng, b=1, identity=identity)
-        flow12, match = compose_tail_ref(*map(t, args), cycle_match)
-        ref_flow, ref_match = _jax_compose_tail(*args, cycle_match)
+        flow12, match = compose_tail_ref(*map(t, args), cycle_match, out_hw)
+        ref_flow, ref_match = _jax_compose_tail(*args, cycle_match, out_hw)
+        assert flow12.shape == ref_flow.shape and match.shape == ref_match.shape
         close(flow12, ref_flow)
         close(match, ref_match)
 
@@ -392,15 +430,23 @@ def test_head_epilogue_kernels_on_card(cuda, rng):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cycle_match", [True, False])
 def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
+    """K8 against its plain version at the coarse grid's size (out_hw None
+    bit for bit the same as out_hw equal to it) and across resolutions,
+    above and below the 40 x 56 coarse grid."""
     for identity in (True, False):
         args = [x.to(cuda) for x in map(t, _compose_inputs(rng, b=2, identity=identity))]
-        flow, match = compose_tail(*args, cycle_match)
-        flow_r, match_r = compose_tail_ref(*args, cycle_match)
-        torch.testing.assert_close(flow, flow_r, atol=1e-5, rtol=0)
-        # the in-bounds mask is a step at |flow12| = 1: compare off it
-        off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
-        torch.testing.assert_close(match[off], match_r[off], atol=1e-5, rtol=0)
-        assert off.float().mean() > 0.8
+        for out_hw in (None, (47, 61), (24, 33), (40, 56)):
+            flow, match = compose_tail(*args, cycle_match, out_hw)
+            flow_r, match_r = compose_tail_ref(*args, cycle_match, out_hw)
+            assert flow.shape == flow_r.shape and match.shape == match_r.shape
+            torch.testing.assert_close(flow, flow_r, atol=1e-5, rtol=0)
+            # the in-bounds mask is a step at |flow12| = 1: compare off it
+            off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
+            torch.testing.assert_close(match[off], match_r[off], atol=1e-5, rtol=0)
+            assert off.float().mean() > 0.8
+        default, same = compose_tail(*args, cycle_match), compose_tail(*args, cycle_match, (40, 56))
+        for a, b in zip(default, same):
+            assert torch.equal(a, b)
 
 
 def _forward_only_calls(rng, device):
@@ -479,12 +525,17 @@ def test_pyramid_kernel_on_card(cuda, rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hw", [(223, 223), (24, 31), (112, 112)])
+@pytest.mark.parametrize("hw", [(223, 223), (24, 31), (112, 112), (2, 3), (3, 2), (4, 5),
+                                (5, 4), (2, 2), (3, 3), (31, 24), (112, 223), (223, 112)])
+@pytest.mark.parametrize("channels", [5, 64])
 @pytest.mark.parametrize("channels_last", [False, True])
-def test_blur_pool_kernels_on_card(cuda, rng, hw, channels_last):
+def test_blur_pool_kernels_on_card(cuda, rng, hw, channels, channels_last):
+    """K9 forward and backward against autograd of the plain version; the
+    backward's closed-form taps at every edge case: odd and even sizes from
+    2 up, the scalar (C = 5) and float4 (C = 64, channels-last) paths."""
     fmt = torch.channels_last if channels_last else torch.contiguous_format
-    x = t(rng.randn(2, 5, *hw).astype(np.float32)).to(cuda).contiguous(memory_format=fmt)
-    filt = binomial_filter(5, 3, cuda)
+    x = t(rng.randn(2, channels, *hw).astype(np.float32)).to(cuda).contiguous(memory_format=fmt)
+    filt = binomial_filter(channels, 3, cuda)
     xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
     yk, yr = blur_pool(xk, filt), blur_pool_ref(xr, filt)
     assert yk.grad_fn is not None and yk.is_contiguous(memory_format=fmt)
@@ -525,11 +576,16 @@ def test_grid_sample_kernels_on_card(cuda, rng, channels):
 
 
 @pytest.mark.gpu
-def test_correlation_backward_kernel_on_card(cuda, rng):
-    x = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
-    y = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
-    for k in (7, 3):
-        g = torch.randn((2, 13, 21, k * k), device=cuda)
+@pytest.mark.parametrize("shape", [(2, 13, 21, 40), (2, 9, 37, 256), (1, 5, 3, 6)])
+def test_correlation_backward_kernel_on_card(cuda, rng, shape):
+    """K6's backward against autograd of the plain version: C = 40 and 256
+    (one and two channel chunks, C = 6 not a multiple of 4), W narrower
+    than one 32-column tile and wider, k up to 11, both cotangents in one
+    launch and each side alone."""
+    x = t(rng.randn(*shape).astype(np.float32)).to(cuda)
+    y = t(rng.randn(*shape).astype(np.float32)).to(cuda)
+    for k in (7, 3, 11, 1):
+        g = torch.randn((*shape[:3], k * k), device=cuda)
         xk, yk, xr, yr = (a.clone().requires_grad_() for a in (x, y, x, y))
         kernels.reset_launch_counts()
         correlation_volume(xk, yk, k).backward(g)
@@ -537,10 +593,13 @@ def test_correlation_backward_kernel_on_card(cuda, rng):
         correlation_volume_ref(xr, yr, k).backward(g)
         torch.testing.assert_close(xk.grad, xr.grad, atol=1e-4, rtol=0)
         torch.testing.assert_close(yk.grad, yr.grad, atol=1e-4, rtol=0)
-    # one side only: the other gets no cotangent
-    yk = y.clone().requires_grad_()
-    correlation_volume(x, yk, 7).sum().backward()
-    assert yk.grad is not None
+        # one side only: the other gets no cotangent
+        for side in (0, 1):
+            ins = [x, y]
+            ins[side] = ins[side].clone().requires_grad_()
+            correlation_volume(*ins, k).backward(g)
+            want = (xr, yr)[side].grad
+            torch.testing.assert_close(ins[side].grad, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu

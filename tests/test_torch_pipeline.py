@@ -73,8 +73,15 @@ def test_device_pyramid(rng):
         close(ours, ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("cycle_match", [True, False])
-def test_pred_flow_mask(rng, nets, cycle_match):
+# (cycle_match, out_hw): out_hw None keeps the cases' first ids; the others
+# compose above the 64 x 64 coarse grid (KITTI's second pass) and below it
+FINE_CASES = [pytest.param(c, None, id=str(c)) for c in (True, False)] + [
+    pytest.param(c, hw, id=f"{c}-{hw[0]}x{hw[1]}")
+    for c in (True, False) for hw in ((75, 83), (40, 56))]
+
+
+@pytest.mark.parametrize("cycle_match,out_hw", FINE_CASES)
+def test_pred_flow_mask(rng, nets, cycle_match, out_hw):
     _, ja, _, align = nets
     src = rng.rand(1, 64, 64, 3).astype(np.float32)
     tgt = rng.rand(1, 64, 64, 3).astype(np.float32)
@@ -83,9 +90,10 @@ def test_pred_flow_mask(rng, nets, cycle_match):
     featt = jfine.fine_features(ja, jnp.asarray(tgt))
     close(fine.fine_features(align, t(tgt)), featt, atol=1e-5)
     ref = jfine.pred_flow_mask(ja, jnp.asarray(src), featt, flow_coarse,
-                               cycle_match=cycle_match)
+                               cycle_match=cycle_match, out_hw=out_hw)
     ours = fine.pred_flow_mask(align, t(src), t(featt), t(flow_coarse),
-                               cycle_match=cycle_match)
+                               cycle_match=cycle_match, out_hw=out_hw)
+    assert ours["match"].shape == (out_hw or (64, 64))
     for key in ("flow", "match", "flow_down8", "match_down8"):
         assert ours[key].shape == ref[key].shape
         close(ours[key], ref[key], atol=ATOL_MAPS)
