@@ -11,9 +11,11 @@ Phases, each of which must pass:
   (c) kernels: each hand-written kernel (K1-K13, K5 in its grid and its
       homography form, the backward kernels of K6, K7, K9 and K10 under
       their own names, and K2 with relax_cells 1) against its plain PyTorch
-      version at its path's shapes (K1 the serving pyramid, K5's homography
-      form the fine stage's 480x640 warp, K12 a serving pair's four anchor
-      resamples, K13 the sky mask's conv5 maps, the backward kernels and
+      version at its path's shapes (K1 the serving pyramid, K6 forward the
+      fine stage's (1, 60, 80, 256) and the training step's (32, 28, 28,
+      256), its pair form the fine stage's and bit for bit the kernel's two
+      volumes, K5's homography form the fine stage's 480x640 warp, K12 a
+      serving pair's four anchor resamples, K13 the sky mask's conv5 maps, the backward kernels and
       K9-K11 the full-width training step's; K9 forward and backward at the
       step's three calls (the stem, layer2's and layer3's downsample); K8
       also across resolutions, a 368x1232 coarse grid composed at 375x1242;
@@ -32,7 +34,8 @@ Phases, each of which must pass:
       seeded weights), checked for finite outputs, against the plain CPU path
       on a small pair, and for launches of its kernels: lanczos_pyramid (K1),
       mutual_argmax (K2), ransac_score (K3), warp_homography (K5, one per
-      pair, and no grid-form warp_sample), correlation_volume (K6),
+      pair, and no grid-form warp_sample), correlation_pair (K6's pair
+      form: both volumes, one per pair, and no single correlation_volume),
       head_epilogues (K7), compose_tail (K8) and blur_pool (K9); prints
       pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
@@ -76,8 +79,10 @@ Phases, each of which must pass:
       (e); launches of ppm_pool (K13) and the loop's kernels.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
-alignment path warps through warp_homography: one launch per compose_tail
-launch, and no grid-form warp_sample but align_images' warped_fine.
+alignment path warps through warp_homography and correlates through
+correlation_pair: one launch each per compose_tail launch, no
+correlation_volume, and no grid-form warp_sample but align_images'
+warped_fine.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -103,7 +108,7 @@ MH_N_ITER, MH_CHUNK, MH_MAX_COARSE = 50000, 4096, 10  # bench.py bench_multihomo
 MH_SEED = 7  # pair k of the device loop draws from seed MH_SEED + k
 ACCEPT_WEIGHTS = "scripts/assets/accept_weights.npz"
 SERVING_KERNELS = ("lanczos_pyramid", "mutual_argmax", "ransac_score", "warp_homography",
-                   "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
+                   "correlation_pair", "head_epilogues", "compose_tail", "blur_pool")
 MULTIHOMO_KERNELS = SERVING_KERNELS + ("ransac_adaptive",)
 TRAIN_KERNELS = ("warp_sample", "grid_sample_bwd", "correlation_volume",
                  "correlation_volume_bwd", "head_epilogues", "head_epilogues_bwd",
@@ -218,22 +223,43 @@ def _normalized(shape, dim, gen):
 
 
 def check_correlation(gen):
+    """K6 forward at the fine stage's (1, 60, 80, 256) and, suffix `_train`,
+    the training step's (32, 28, 28, 256); its pair form (both fine-stage
+    volumes from one launch) at the fine stage's shape, whose corr(y, x)
+    must equal the kernel's own corr(y, x) bit for bit. k = 7."""
     from ransacflow_tpu_torch.kernels.correlation import (
-        correlation_volume, correlation_volume_ref)
+        correlation_pair, correlation_pair_ref, correlation_volume, correlation_volume_ref)
 
-    x = _normalized(CORR_SHAPE, -1, gen)
-    y = _normalized(CORR_SHAPE, -1, gen)
-    err = 0.0
-    for a, b in ((x, y), (y, x)):  # corr12 and corr21
-        got = correlation_volume(a, b, 7)
+    vol, pair = {}, {}
+    for suffix, shape in (("", CORR_SHAPE), ("_train", (*TRAIN_FEAT, 256))):
+        x = _normalized(shape, -1, gen)
+        y = _normalized(shape, -1, gen)
+        got = correlation_volume(x, y, 7)
         torch.cuda.synchronize()
-        err = max(err, (got - correlation_volume_ref(a, b, 7)).abs().max().item())
-    # fp32 sums of 256 products of unit-norm vectors, in another order
-    require(err <= 1e-4, f"correlation: max abs err {err} > 1e-4")
-    return {"max_abs_err": err,
-            **paired_ms(lambda: correlation_volume(x, y, 7),
-                        lambda: correlation_volume_ref(x, y, 7)),
-            **bound(nbytes(x, y, got), 2 * got.numel() * x.shape[-1]), **library(None)}
+        err = (got - correlation_volume_ref(x, y, 7)).abs().max().item()
+        # fp32 sums of 256 products of unit-norm vectors, in another order
+        require(err <= 1e-4, f"correlation{suffix}: max abs err {err} > 1e-4")
+        vol.update({"max_abs_err" + suffix: err,
+                    **paired_ms(lambda: correlation_volume(x, y, 7),
+                                lambda: correlation_volume_ref(x, y, 7), suffix=suffix),
+                    **bound(nbytes(x, y, got), 2 * got.numel() * x.shape[-1], suffix),
+                    **library(None, suffix)})
+        if suffix:
+            continue
+        xy, yx = correlation_pair(x, y, 7)
+        want = correlation_pair_ref(x, y, 7)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip((xy, yx), want))
+        require(err <= 1e-4, f"correlation_pair: max abs err {err} > 1e-4")
+        require(torch.equal(xy, got) and torch.equal(yx, correlation_volume(y, x, 7)),
+                "correlation_pair: not bit for bit the two volumes' kernel")
+        # x, y and both volumes move; the operations are one volume's
+        pair.update({"max_abs_err": err,
+                     **paired_ms(lambda: correlation_pair(x, y, 7),
+                                 lambda: correlation_pair_ref(x, y, 7)),
+                     **bound(nbytes(x, y, xy, yx), 2 * xy.numel() * x.shape[-1]),
+                     **library(None)})
+    return vol, pair
 
 
 def check_matching(gen):
@@ -858,7 +884,7 @@ def phase_kernels():
     """Each kernel's check, its line printed as soon as it passes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = ((("lanczos_pyramid",), check_pyramid),
-              (("correlation_volume",), check_correlation),
+              (("correlation_volume", "correlation_pair"), check_correlation),
               (("mutual_argmax",), check_matching),
               (("ransac_score",), check_ransac),
               (("ransac_adaptive",), check_ransac_adaptive),
@@ -976,10 +1002,13 @@ def _require_launched(path, launches, names=(), exact=None):
                                   f"expected {n}; {launches}")
 
 
-def _fine_warps(launches, grid_form=0):
-    """The warp counts an alignment path must show: one warp_homography per
-    fine pass (one per compose_tail launch), and `grid_form` warp_sample."""
-    return {"warp_homography": launches["compose_tail"], "warp_sample": grid_form}
+def _per_fine_pass(launches, grid_form=0):
+    """The counts a fine pass fixes on an alignment path: per fine pass (one
+    per compose_tail launch) one warp_homography and one correlation_pair
+    (both volumes), no single correlation_volume, and `grid_form`
+    warp_sample."""
+    return {"warp_homography": launches["compose_tail"], "warp_sample": grid_form,
+            "correlation_pair": launches["compose_tail"], "correlation_volume": 0}
 
 
 def phase_serving(card):
@@ -1004,7 +1033,7 @@ def phase_serving(card):
     out, launches = _launches_of(serve)
     _require_launched("serving path", launches, SERVING_KERNELS,
                       {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0,
-                       "compose_tail": N_PAIRS, **_fine_warps(launches)})
+                       "compose_tail": N_PAIRS, **_per_fine_pass(launches)})
     ht, wt = TARGET_HW
     require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), "H21 shape")
     require(tuple(out["flow"].shape) == (N_PAIRS, 1, ht, wt, 2), "flow shape")
@@ -1054,7 +1083,7 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
     grid built by warp_grid and sampled by K5's grid form, 'warp' K5's
     homography form, whose image and grid the later stages take."""
     from ransacflow_tpu_torch.kernels.compose import compose_tail
-    from ransacflow_tpu_torch.kernels.correlation import correlation_volume
+    from ransacflow_tpu_torch.kernels.correlation import correlation_pair
     from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
     from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
     from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
@@ -1099,8 +1128,7 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
                 src_warp, grid = got
         feats = stage("fine_features", lambda: l2_normalize(
             feature_extractor(align["netFeatCoarse"], src_warp)))
-        corr12, corr21 = stage("correlation", lambda: (
-            correlation_volume(featt_fine, feats, 7), correlation_volume(feats, featt_fine, 7)))
+        corr12, corr21 = stage("correlation", lambda: correlation_pair(featt_fine, feats, 7))
         flow8, m12, m21 = stage("heads", lambda: (
             net_flow_coarse(align["netFlowCoarse"], corr12, up8=False),
             net_matchability(align["netMatch"], corr12, up8=False),
@@ -1167,10 +1195,11 @@ def phase_multihomo(card):
         outs[name], launches[f"multihomo_{name}"] = _launches_of(lambda: run(chunk))
     no_k3 = tuple(k for k in MULTIHOMO_KERNELS if k != "ransac_score")
     _require_launched("multi-homography loop, adaptive", launches["multihomo_adaptive"],
-                      no_k3, {"ransac_score": 0, **_fine_warps(launches["multihomo_adaptive"])})
+                      no_k3, {"ransac_score": 0,
+                              **_per_fine_pass(launches["multihomo_adaptive"])})
     _require_launched("multi-homography loop, fixed", launches["multihomo_fixed"],
                       SERVING_KERNELS, {"ransac_adaptive": 0,
-                                        **_fine_warps(launches["multihomo_fixed"])})
+                                        **_per_fine_pass(launches["multihomo_fixed"])})
     for name, out in outs.items():  # one warp per slot run: a slot run evaluated > 0
         slots = int((out["n_evaluated"] > 0).sum())
         require(launches[f"multihomo_{name}"]["warp_homography"] == slots,
@@ -1241,7 +1270,7 @@ ANCHOR = dict(anchor_stride=3, relax_cells=1)  # bench.py's anchor serving serie
 FAST_KERNELS = SERVING_KERNELS + ("anchor_resample", "ransac_adaptive")
 # the loop from PIL images: no device pyramid (K1), adaptive RANSAC (no K3)
 SKY_KERNELS = ("ppm_pool", "mutual_argmax", "ransac_adaptive", "warp_homography",
-               "correlation_volume", "head_epilogues", "compose_tail", "blur_pool")
+               "correlation_pair", "head_epilogues", "compose_tail", "blur_pool")
 
 
 def _to_pil(a):
@@ -1324,13 +1353,13 @@ def phase_fast_modes(card, exact_pairs_s):
     _require_launched("fast serving, fixed", launches["fast_serving_fixed"],
                       SERVING_KERNELS, dict(per_batch, ransac_adaptive=0))
     _require_launched("fast serving, fixed", launches["fast_serving_fixed"],
-                      exact=_fine_warps(launches["fast_serving_fixed"]))
+                      exact=_per_fine_pass(launches["fast_serving_fixed"]))
     outs["anchor3_relax1_adaptive4096"], launches["fast_serving_adaptive"] = _launches_of(
         lambda: serve(series["anchor3_relax1_adaptive4096"]))
     _require_launched("fast serving, adaptive", launches["fast_serving_adaptive"],
                       [k for k in FAST_KERNELS if k != "ransac_score"],
                       dict(per_batch, ransac_score=0,
-                           **_fine_warps(launches["fast_serving_adaptive"])))
+                           **_per_fine_pass(launches["fast_serving_adaptive"])))
 
     for name, out in outs.items():
         require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), f"{name}: H21 shape")
@@ -1359,10 +1388,10 @@ def phase_fast_modes(card, exact_pairs_s):
     api, launches["align_images"] = _launches_of(lambda: aligner.align_images(src_img, tgt_img))
     _require_launched("align_images", launches["align_images"],
                       ("mutual_argmax", "ransac_adaptive", "warp_homography",
-                       "correlation_volume", "head_epilogues", "compose_tail", "blur_pool"),
+                       "correlation_pair", "head_epilogues", "compose_tail", "blur_pool"),
                       {"anchor_resample": n_scales, "ransac_score": 0, "lanczos_pyramid": 0,
                        # warped_fine is the one grid-form warp
-                       **_fine_warps(launches["align_images"], grid_form=1)})
+                       **_per_fine_pass(launches["align_images"], grid_form=1)})
     require(api["H21"] is not None, "align_images found no homography")
     for key in ("flow", "match", "warped_coarse", "warped_fine"):
         require(bool(np.isfinite(api[key]).all()), f"align_images: {key} is not finite")
@@ -1384,7 +1413,7 @@ def phase_fast_modes(card, exact_pairs_s):
     coarse = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=MH_N_ITER, min_size=480,
                            seed=MH_SEED, rematch_per_call=True, **ANCHOR)
     kw = dict(max_coarse=MH_MAX_COARSE, mask_region_th=0.01, cycle_match=False)
-    loop_kernels = ("mutual_argmax", "ransac_score", "warp_homography", "correlation_volume",
+    loop_kernels = ("mutual_argmax", "ransac_score", "warp_homography", "correlation_pair",
                     "head_epilogues", "compose_tail", "blur_pool")
     _, launches["loop_set_pair_anchor"] = _launches_of(
         lambda: coarse.set_pair(_to_pil(srcs_np[0]), _to_pil(tgts_np[0])))
@@ -1394,14 +1423,14 @@ def phase_fast_modes(card, exact_pairs_s):
         lambda: multi_homography_predict(coarse, align_mh, **kw))
     _require_launched("host loop, relax 1", launches["loop_relax1_host"], loop_kernels,
                       {"anchor_resample": 0, "ransac_adaptive": 0,
-                       **_fine_warps(launches["loop_relax1_host"])})
+                       **_per_fine_pass(launches["loop_relax1_host"])})
     fused, launches["loop_relax1_device"] = _launches_of(
         lambda: multi_homography_predict_fused(
             coarse, align_mh, generator=torch.Generator(device="cuda").manual_seed(MH_SEED),
             **kw))
     _require_launched("device loop, relax 1", launches["loop_relax1_device"], loop_kernels,
                       {"anchor_resample": 0, "ransac_adaptive": 0,
-                       **_fine_warps(launches["loop_relax1_device"])})
+                       **_per_fine_pass(launches["loop_relax1_device"])})
     require(host is not None and fused is not None, "relaxed loops found nothing")
     gap = _h_error(host["coarse_h"][0], fused["coarse_h"][0])
     require(gap < 0.01, f"relaxed loops: the host loop's first H is {gap} from the device's")
@@ -1535,7 +1564,7 @@ def phase_sky(card):
                          aligner.num_cached_matches))
     launches["sky_hook"] = hook
     _require_launched("--segNet hook", hook, SKY_KERNELS,
-                      {"ppm_pool": len(SkySegmenter.IMG_SIZES) * N_PAIRS, **_fine_warps(hook)})
+                      {"ppm_pool": len(SkySegmenter.IMG_SIZES) * N_PAIRS, **_per_fine_pass(hook)})
     partial = [k for k, b in enumerate(bg_share) if 0.0 < b < 1.0]
     require(partial, f"sky loop: no pair has a partial mask: bg shares {bg_share}")
     require(any(kept[k][0] < kept[k][1] for k in partial),
@@ -1829,6 +1858,8 @@ SOURCES = {
                         "ransacflow_tpu/ops/homography.py:32"),
     "correlation_volume": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
                            "ransacflow_tpu/ops/correlation.py:21"),
+    "correlation_pair": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
+                         "ransacflow_tpu/ops/correlation.py:21"),
     "head_epilogues": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",
                        "ransacflow_tpu/models/heads.py:69"),
     "compose_tail": ("cuda", "ransacflow_tpu_torch/csrc/compose.cu",

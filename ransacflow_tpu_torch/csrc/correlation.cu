@@ -8,15 +8,29 @@
 //   with p = k/2 and zeros outside the map.
 //
 // What bounds it on the H100: at the fine-stage shape (1, 60, 80, 256), k=7
-// the kernel reads 2 x 4.9 MB and writes 0.9 MB, and does 60 M multiply-adds,
-// so it is far from both the FLOP and the HBM roofline; what costs is the
-// 49-fold reuse of every y element, which read from device memory per output
-// would make it L2-bound. Design: one block per (row i, tile of 16 output
-// columns). For each chunk of 32 channels the block stages the x tile and
-// the k haloed y rows it needs in shared memory (zeros for the padding),
-// then each thread accumulates its outputs from shared memory. Rows are
-// padded to 33 floats so that neighbouring rows fall in different banks.
-// Simple and right first: no tensor cores, no asynchronous copies.
+// the kernel reads 2 x 4.9 MB and writes 0.9 MB (bound ~0.003 ms by bytes)
+// and does 60 M multiply-adds; at the training step's (32, 28, 28, 256) 315
+// M. Both are far below the fp32 rate: what costs is the 49-fold reuse of
+// every y element, latency and filling 132 SMs with a 60x80 map.
+// Design: one block per (kRows = 2 output rows, kTileJ = 16 output
+// columns, image). A thread owns kCols = 4 adjacent output columns x all k
+// values of dj for one (row, di), over every 8th float4 of each 32-channel
+// chunk (8 lanes share an output: 448 threads at k = 7). For each chunk the
+// block stages, as 16-byte cp.async copies double-buffered against the
+// previous chunk's arithmetic, the x tile and the kRows + k - 1 y rows that
+// its rows read, each once (zeros outside the map, by the copies' zero
+// fill). The thread reads its 4 x float4 once and slides over the kCols + k
+// - 1 y float4 of its row: each serves every (column, dj) pair it meets, 4
+// multiply-adds a pair. The 8 lanes' partial sums are added by a fixed
+// butterfly at the end. Every output sums its channels in the same order
+// (lane g: channels 32 s + 4 g .. + 3 for chunks s in order; then the
+// butterfly), and fmaf is symmetric in its factors, so corr(y, x) at (i', j',
+// kk-1-d) is bit for bit corr(x, y) at (i, j, d) with (i', j') the offset
+// neighbour. The pair form (rf_correlation_pair) writes both volumes from
+// one pass: each value of corr(x, y) also goes to its place in corr(y, x),
+// and the entry of corr(y, x) whose neighbour lies outside the map is 0.
+// Shared memory: two stages of 26 KB at k = 7 (88 KB in all at k = 11),
+// above 48 KB through the opt-in.
 //
 // Its backward (rf_correlation_volume_bwd, the TPU's autodiff of the same
 // op in training) is a gather, with no atomics. Since k - 1 = 2p, the
@@ -29,7 +43,7 @@
 // the neighbour's, in reverse offset order (dy). At the training shape
 // (32, 28, 28, 256), k=7, that is 2 x 315 M multiply-adds over 2 x 26 MB of
 // maps, so it is bound by reuse, not by HBM (bound ~0.03 ms by bytes).
-// Design, tiled as the forward is: one block per (row i, tile of
+// Design: one block per (row i, tile of
 // kBwdTileJ = 32 output columns, image, cotangent: blockIdx.z picks dx or
 // dy, so both run in one launch). The block first stages its weights
 // w[jj][di][dj] (k rows padded to a multiple of 4: 7 KB for k=7, 17 KB for
@@ -53,84 +67,184 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileJ = 16;             // output columns per block
-constexpr int kChunkC = 32;            // channels staged per step
-constexpr int kStride = kChunkC + 1;   // padded shared-memory row
-constexpr int kMaxAcc = 8;             // outputs per thread
+constexpr int kRows = 2;      // output rows per block
+constexpr int kTileJ = 16;    // output columns per block
+constexpr int kCols = 4;      // adjacent output columns per thread
+constexpr int kChunk4 = 8;    // float4s per staged channel chunk (32 channels)
 
-__global__ void __launch_bounds__(kThreads) correlation_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    float* __restrict__ out, int H, int W, int C, int k) {
-  extern __shared__ float smem[];
-  const int p = k / 2;
-  const int kk = k * k;
-  const int span = kTileJ + 2 * p;     // y columns one tile reads
-  float* sx = smem;                    // [kTileJ][kStride]
-  float* sy = smem + kTileJ * kStride; // [k][span][kStride]
+__device__ __forceinline__ void copy16_or_zero(float4* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void copy4_or_zero(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// One chunk of channels [c0, c0 + 32) of the block's x tile [kRows][kTileJ]
+// and y rows [kRows + K - 1][kTileJ + K - 1] into sx, sy (float4 per 4
+// channels, zeros outside the map and past C).
+template <int K, int kThreadsT>
+__device__ __forceinline__ void stage_chunk(
+    float4* sx, float4* sy, const float* xb, const float* yb, int i0, int j0,
+    int c0, int H, int W, int C, bool vec) {
+  constexpr int P = K / 2, SPAN = kTileJ + K - 1;
+  constexpr int NX = kRows * kTileJ * kChunk4;
+  constexpr int N = NX + (kRows + K - 1) * SPAN * kChunk4;
+  for (int e = threadIdx.x; e < N; e += kThreadsT) {
+    const bool is_x = e < NX;
+    const int f = is_x ? e : e - NX;
+    const int l = f % kChunk4, pos = f / kChunk4;
+    const int span = is_x ? kTileJ : SPAN;
+    const int r = pos / span, col = pos - r * span;
+    const int gi = is_x ? i0 + r : i0 + r - P;
+    const int gj = is_x ? j0 + col : j0 + col - P;
+    const int c = c0 + 4 * l;
+    const bool in_map = gi >= 0 && gi < H && gj >= 0 && gj < W;
+    const float* base = is_x ? xb : yb;
+    const float* src = base + (static_cast<size_t>(in_map ? gi : 0) * W + (in_map ? gj : 0)) * C;
+    float4* dst = (is_x ? sx : sy) + f;
+    if (vec) {
+      const bool ok = in_map && c < C;
+      copy16_or_zero(dst, ok ? src + c : base, ok);
+    } else {
+      float* d = reinterpret_cast<float*>(dst);
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = in_map && c + q < C;
+        copy4_or_zero(d + q, ok ? src + c + q : base, ok);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int K, bool PAIR>
+__global__ void __launch_bounds__(kRows * K * 32, K <= 7 ? 2 : 1) correlation_kernel(
+    const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ out,
+    float* __restrict__ out_yx, int H, int W, int C, bool vec) {
+  constexpr int P = K / 2, KK = K * K, SPAN = kTileJ + K - 1;
+  constexpr int kThreadsT = kRows * K * 32;
+  constexpr int STAGE = (kRows * kTileJ + (kRows + K - 1) * SPAN) * kChunk4;  // float4s
+  extern __shared__ float4 smem4[];
 
   const int j0 = blockIdx.x * kTileJ;
-  const int i = blockIdx.y;
+  const int i0 = blockIdx.y * kRows;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int n_out = kTileJ * kk;
-  const float* xb = x + static_cast<size_t>(b) * H * W * C;
-  const float* yb = y + static_cast<size_t>(b) * H * W * C;
+  const int g = tid & 7;                 // the float4 of each chunk this lane sums
+  const int jc = ((tid >> 3) & 3) * kCols;  // the thread's first column in the tile
+  const int il = (tid >> 5) / K;         // its output row in the block
+  const int di = (tid >> 5) % K;         // and its row offset
+  const size_t img = static_cast<size_t>(b) * H * W * C;
+  const float* xb = x + img;
+  const float* yb = y + img;
 
-  float acc[kMaxAcc];
+  float acc[kCols][K];
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kChunkC) {
-    for (int e = tid; e < kTileJ * kChunkC; e += kThreads) {
-      const int jj = e / kChunkC;
-      const int c = e % kChunkC;
-      const int j = j0 + jj;
-      float v = 0.f;
-      if (j < W && c0 + c < C) {
-        v = xb[(static_cast<size_t>(i) * W + j) * C + c0 + c];
-      }
-      sx[jj * kStride + c] = v;
-    }
-    for (int e = tid; e < k * span * kChunkC; e += kThreads) {
-      const int c = e % kChunkC;
-      const int col = (e / kChunkC) % span;
-      const int r = e / (kChunkC * span);
-      const int yi = i + r - p;
-      const int yj = j0 + col - p;
-      float v = 0.f;
-      if (yi >= 0 && yi < H && yj >= 0 && yj < W && c0 + c < C) {
-        v = yb[(static_cast<size_t>(yi) * W + yj) * C + c0 + c];
-      }
-      sy[(r * span + col) * kStride + c] = v;
-    }
-    __syncthreads();
-
+  for (int a = 0; a < kCols; ++a)
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-      const int o = tid + a * kThreads;
-      if (o < n_out) {
-        const int jj = o / kk;
-        const int d = o % kk;
-        const int di = d / k;
-        const int dj = d % k;
-        const float* px = sx + jj * kStride;
-        const float* py = sy + (di * span + jj + dj) * kStride;
-        float s = acc[a];
-#pragma unroll 8
-        for (int c = 0; c < kChunkC; ++c) s = fmaf(px[c], py[c], s);
-        acc[a] = s;
+    for (int dj = 0; dj < K; ++dj) acc[a][dj] = 0.f;
+
+  const int n_chunks = (C + 4 * kChunk4 - 1) / (4 * kChunk4);
+  stage_chunk<K, kThreadsT>(smem4, smem4 + kRows * kTileJ * kChunk4, xb, yb, i0, j0, 0,
+                            H, W, C, vec);
+  for (int s = 0; s < n_chunks; ++s) {
+    float4* sx = smem4 + (s & 1) * STAGE;
+    const float4* sy = sx + kRows * kTileJ * kChunk4;
+    if (s + 1 < n_chunks) {
+      float4* nx = smem4 + ((s + 1) & 1) * STAGE;
+      stage_chunk<K, kThreadsT>(nx, nx + kRows * kTileJ * kChunk4, xb, yb, i0, j0,
+                                (s + 1) * 4 * kChunk4, H, W, C, vec);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // chunk s has landed for every thread
+
+    float4 xv[kCols];
+#pragma unroll
+    for (int a = 0; a < kCols; ++a) xv[a] = sx[(il * kTileJ + jc + a) * kChunk4 + g];
+    // sliding window: staged column jc + pos meets output column jc + a at dj = pos - a
+    const float4* yr = sy + ((il + di) * SPAN + jc) * kChunk4 + g;
+#pragma unroll
+    for (int pos = 0; pos < kCols + K - 1; ++pos) {
+      const float4 v = yr[pos * kChunk4];
+#pragma unroll
+      for (int a = 0; a < kCols; ++a) {
+        const int dj = pos - a;
+        if (dj < 0 || dj >= K) continue;
+        float t = acc[a][dj];
+        t = fmaf(xv[a].x, v.x, t);
+        t = fmaf(xv[a].y, v.y, t);
+        t = fmaf(xv[a].z, v.z, t);
+        t = fmaf(xv[a].w, v.w, t);
+        acc[a][dj] = t;
       }
     }
-    __syncthreads();
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
 
-  // o = jj * kk + d, so a tile's outputs are one contiguous run of memory
-  float* ob = out + ((static_cast<size_t>(b) * H + i) * W + j0) * kk;
+  const int i = i0 + il;
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
-    const int o = tid + a * kThreads;
-    if (o < n_out && j0 + o / kk < W) ob[o] = acc[a];
+  for (int a = 0; a < kCols; ++a) {
+    const int j = j0 + jc + a;
+#pragma unroll
+    for (int dj = 0; dj < K; ++dj) {
+      // the 8 lanes' partial sums, in the same order on every lane
+      float t = acc[a][dj];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      t += __shfl_xor_sync(0xffffffffu, t, 4);
+      if (g != (a * K + dj) % 8 || i >= H || j >= W) continue;
+      const int d = di * K + dj;
+      const size_t o = (static_cast<size_t>(b) * H + i) * W + j;
+      out[o * KK + d] = t;
+      if (PAIR) {
+        const int ni = i + di - P, nj = j + dj - P;
+        if (ni >= 0 && ni < H && nj >= 0 && nj < W) {
+          out_yx[((static_cast<size_t>(b) * H + ni) * W + nj) * KK + KK - 1 - d] = t;
+        } else {
+          out_yx[o * KK + d] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+template <int K, bool PAIR>
+int launch_fwd(const float* x, const float* y, float* out, float* out_yx, int B, int H,
+               int W, int C, cudaStream_t stream) {
+  constexpr int SPAN = kTileJ + K - 1;
+  constexpr size_t smem =
+      2 * sizeof(float4) * (kRows * kTileJ + (kRows + K - 1) * SPAN) * kChunk4;
+  if (smem > 48 * 1024) {  // the opt-in, set on the current device
+    const cudaError_t err = cudaFuncSetAttribute(
+        correlation_kernel<K, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = C % 4 == 0 && aligned(x) && aligned(y);
+  const dim3 grid((W + kTileJ - 1) / kTileJ, (H + kRows - 1) / kRows, B);
+  correlation_kernel<K, PAIR><<<grid, kRows * K * 32, smem, stream>>>(
+      x, y, out, out_yx, H, W, C, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAIR>
+int dispatch_fwd(const float* x, const float* y, float* out, float* out_yx, int B, int H,
+                 int W, int C, int k, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_fwd<1, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    case 3: return launch_fwd<3, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    case 5: return launch_fwd<5, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    case 7: return launch_fwd<7, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    case 9: return launch_fwd<9, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    case 11: return launch_fwd<11, PAIR>(x, y, out, out_yx, B, H, W, C, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -280,17 +394,18 @@ int launch_bwd(const float* x, const float* y, const float* g, float* dx, float*
 
 }  // namespace
 
-// The caller keeps k odd and k <= 11, so that kTileJ * k * k outputs fit
-// kThreads * kMaxAcc accumulators and the tiles fit 48 KB of shared memory.
+// x, y: (B, H, W, C); out: (B, H, W, k*k); k odd, <= 11.
 RF_API int rf_correlation_volume(const float* x, const float* y, float* out,
                                  int B, int H, int W, int C, int k,
                                  cudaStream_t stream) {
-  const int span = kTileJ + 2 * (k / 2);
-  const size_t smem = sizeof(float) * static_cast<size_t>(kTileJ + k * span) *
-                      kStride;
-  const dim3 grid((W + kTileJ - 1) / kTileJ, H, B);
-  correlation_kernel<<<grid, kThreads, smem, stream>>>(x, y, out, H, W, C, k);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_fwd<false>(x, y, out, nullptr, B, H, W, C, k, stream);
+}
+
+// Both volumes of the fine stage from one pass: out = corr(x, y) and
+// out_yx = corr(y, x), each (B, H, W, k*k); k odd, <= 11.
+RF_API int rf_correlation_pair(const float* x, const float* y, float* out, float* out_yx,
+                               int B, int H, int W, int C, int k, cudaStream_t stream) {
+  return dispatch_fwd<true>(x, y, out, out_yx, B, H, W, C, k, stream);
 }
 
 // g: (B, H, W, k*k) the volume's cotangent; dx, dy: (B, H, W, C), either

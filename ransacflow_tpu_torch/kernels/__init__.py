@@ -33,6 +33,7 @@ KERNELS = {
     "warp_sample": warp_sample.KERNEL,                 # K5, grid form
     "warp_homography": warp_sample.KERNEL_HOMOGRAPHY,  # K5, homography form
     "correlation_volume": correlation.KERNEL,          # K6
+    "correlation_pair": correlation.KERNEL_PAIR,       # K6, both fine-stage volumes
     "correlation_volume_bwd": correlation.KERNEL_BWD,  # K6 backward
     "head_epilogues": heads.KERNEL,                    # K7
     "head_epilogues_bwd": heads.KERNEL_BWD,            # K7 backward

@@ -4,14 +4,14 @@
 `params` is the dict of the three alignment networks: 'netFeatCoarse',
 'netFlowCoarse', 'netMatch' (see `pipeline.init_alignment_params`). The
 source warp is kernel 5 (on the alignment paths its homography form, which
-also writes the coarse grid), the correlations kernel 6, the head
-epilogues kernel 7 and the compose tail kernel 8.
+also writes the coarse grid), both correlations one launch of kernel 6's
+pair form, the head epilogues kernel 7 and the compose tail kernel 8.
 """
 
 import torch
 
 from ransacflow_tpu_torch.kernels.compose import compose_tail
-from ransacflow_tpu_torch.kernels.correlation import correlation_volume
+from ransacflow_tpu_torch.kernels.correlation import correlation_pair
 from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
 from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
 from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
@@ -62,11 +62,11 @@ def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
     heads, compose tail at `out_hw`, else at the grid's size)."""
     feats = l2_normalize(feature_extractor(params["netFeatCoarse"], src_warp))
 
-    corr12 = correlation_volume(featt, feats, kernel_size)
+    # corr12 = corr(featt, feats) and corr21 = corr(feats, featt), one launch
+    corr12, corr21 = correlation_pair(featt, feats, kernel_size)
     flow_down8 = net_flow_coarse(params["netFlowCoarse"], corr12, up8=False,
                                  kernel_size=kernel_size)
     match12_down8 = net_matchability(params["netMatch"], corr12, up8=False)
-    corr21 = correlation_volume(feats, featt, kernel_size)
     match21_down8 = net_matchability(params["netMatch"], corr21, up8=False)
 
     flow12, match = compose_tail(flow_down8, match12_down8, match21_down8,

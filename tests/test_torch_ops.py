@@ -29,7 +29,12 @@ from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool
 from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_feats
 from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
 from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
-from ransacflow_tpu_torch.kernels.correlation import correlation_volume, correlation_volume_ref
+from ransacflow_tpu_torch.kernels.correlation import (
+    correlation_pair,
+    correlation_pair_ref,
+    correlation_volume,
+    correlation_volume_ref,
+)
 from ransacflow_tpu_torch.kernels.heads import (
     flow_epilogue,
     flow_epilogue_ref,
@@ -137,6 +142,24 @@ def test_correlation_volume_ref(rng, k):
     ref = jcorr.correlation_volume(jnp.asarray(x), jnp.asarray(y), k)
     close(correlation_volume_ref(t(x), t(y), k), ref)
     close(correlation_volume(t(x), t(y), k), ref)  # CPU -> the plain version
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_correlation_pair_ref_matches_jax(rng, k):
+    """K6's pair form: corr(x, y) and corr(y, x), the second derived from
+    the first by the offset identity, on a non-square map; the CPU wrapper
+    takes the plain version and launches nothing."""
+    x = rng.randn(2, 6, 9, 16).astype(np.float32)
+    y = rng.randn(2, 6, 9, 16).astype(np.float32)
+    xy, yx = correlation_pair_ref(t(x), t(y), k)
+    close(xy, jcorr.correlation_volume(jnp.asarray(x), jnp.asarray(y), k))
+    close(yx, jcorr.correlation_volume(jnp.asarray(y), jnp.asarray(x), k))
+    # the same products summed in the same order
+    torch.testing.assert_close(yx, correlation_volume_ref(t(y), t(x), k), atol=1e-6, rtol=0)
+    kernels.reset_launch_counts()
+    for ours, ref in zip(correlation_pair(t(x), t(y), k), (xy, yx)):
+        torch.testing.assert_close(ours, ref, atol=0, rtol=0)
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def _banks(rng, c=16, n_a=70, n_b=30):
@@ -350,14 +373,30 @@ def test_cpu_tensors_take_the_plain_versions(rng):
 
 
 @pytest.mark.gpu
-def test_correlation_kernel_on_card(cuda, rng):
-    x = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
-    y = t(rng.randn(2, 13, 21, 40).astype(np.float32)).to(cuda)
-    for k in (7, 3, 11):
-        torch.testing.assert_close(correlation_volume(x, y, k),
-                                   correlation_volume_ref(x, y, k), atol=1e-4, rtol=0)
+@pytest.mark.parametrize("shape", [(2, 13, 21, 40), (2, 9, 37, 256), (1, 5, 3, 6),
+                                   (32, 28, 28, 256)])
+def test_correlation_kernel_on_card(cuda, rng, shape):
+    """K6 forward and its pair form against the plain versions: W narrower
+    and wider than a 16-column tile, C = 40 and 256 (one and 8 channel
+    chunks), C = 6 not a multiple of 4, the training shape. The pair is one
+    launch, and its corr(y, x) is the kernel's own corr(y, x) bit for bit."""
+    x = t(rng.randn(*shape).astype(np.float32)).to(cuda)
+    y = t(rng.randn(*shape).astype(np.float32)).to(cuda)
+    for k in (7, 3, 11, 1):
+        xy = correlation_volume(x, y, k)
+        torch.testing.assert_close(xy, correlation_volume_ref(x, y, k), atol=1e-4, rtol=0)
+        kernels.reset_launch_counts()
+        pair = correlation_pair(x, y, k)
+        assert kernels.launch_counts()["correlation_pair"] == 1
+        assert kernels.launch_counts()["correlation_volume"] == 0
+        for got, want in zip(pair, correlation_pair_ref(x, y, k)):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert torch.equal(pair[0], xy)
+        assert torch.equal(pair[1], correlation_volume(y, x, k))
     with pytest.raises(ValueError):
         correlation_volume(x[..., :-1], y[..., 1:], 7)  # not contiguous
+    with pytest.raises(ValueError):
+        correlation_pair(x, y, 13)
 
 
 @pytest.mark.gpu
@@ -457,8 +496,10 @@ def _forward_only_calls(rng, device):
     f8, m12, m21, coarse = (t(a).to(device) for a in _compose_inputs(rng))
     score = t(rng.randn(20, 9).astype(np.float32)).to(device)
     img = t(rng.rand(1, 16, 20, 3).astype(np.float32)).to(device)
+    feat = t(rng.randn(1, 5, 6, 8).astype(np.float32)).to(device)
     g = lambda x: x.clone().requires_grad_()  # noqa: E731
     return [("mutual_argmax", lambda: mutual_argmax(g(score))),
+            ("correlation_pair", lambda: correlation_pair(feat, g(feat), 3)),
             ("ransac_score", lambda: ransac_score(g(m1), m2, valid, s, 0.05)),
             ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, s, 8, 16, 0.05,
                                                         0.999)),
@@ -470,7 +511,8 @@ def _forward_only_calls(rng, device):
 
 
 def test_forward_only_wrappers_raise_under_grad(rng):
-    """K1, K2 (exact and relaxed), K3, K4, K8, K12 and K13 have no backward:
+    """K1, K2 (exact and relaxed), K3, K4, K6's pair form, K8, K12 and K13
+    have no backward:
     under grad mode an input that requires grad raises instead of handing
     back a tensor cut off from the graph; under no_grad they run."""
     for name, call in _forward_only_calls(rng, "cpu"):
@@ -504,6 +546,109 @@ def test_device_pyramid_ref_matches_jax(rng):
         close(ours, ref)
 
 
+SERVING_PYRAMID = ((960, 1280), ((800, 1056), (640, 848), (480, 640), (400, 528),
+                                 (320, 416), (240, 320)))
+# odd sizes: an upscale, one identity axis each way, 4x down, a 1-pixel side
+ODD_PYRAMIDS = (((37, 53), ((45, 61), (37, 20), (9, 53), (10, 14), (1, 7))),
+                ((96, 128), ((80, 106), (48, 64), (24, 32), (120, 160), (96, 64))))
+
+
+def _blocks(plan):
+    """(scale index, scale fields, strip, band, (q0, nq), (lo, n)) of every
+    block of a `pyramid.schedule`, in launch order."""
+    for s, m in enumerate(plan["meta"].tolist()):
+        f = dict(zip(pyramid.META, m))
+        n_bands = -(-f["h"] // f["band_rows"])
+        for blk in range(f["n_strips"] * n_bands):
+            strip, band = blk % f["n_strips"], blk // f["n_strips"]
+            yield (s, f, strip, band, plan["strips"][f["strip"] + 2 * strip:][:2],
+                   plan["bands"][f["band"] + 2 * band:][:2])
+
+
+def _block_taps(plan, f):
+    """The scale's row and column taps as the kernel reads them."""
+    def axis(idx, w_off, t, n):
+        return (plan["starts"][idx:idx + n], plan["counts"][idx:idx + n],
+                plan["weights"][w_off:w_off + n * t].reshape(n, t))
+    return (axis(f["row_idx"], f["row_w"], f["row_t"], f["h"]),
+            axis(f["col_idx"], f["col_w"], f["col_t"], f["w"]))
+
+
+@pytest.mark.parametrize("hw,shapes", [SERVING_PYRAMID, *ODD_PYRAMIDS])
+def test_pyramid_schedule_stages_every_tap(hw, shapes):
+    """K1's schedule: each block's staged input rows [lo, lo + n) hold every
+    vertical tap of its band's rows, its staged floats [q0, q0 + nq) every
+    horizontal tap of its strip's columns, the taps are the plain version's,
+    the blocks tile every scale once, and a block's shared memory fits the
+    budget that puts 4 blocks on an SM (and so the H100's 227 KB)."""
+    H, W = hw
+    plan = pyramid.schedule(H, W, shapes)
+    assert 0 < plan["smem"] <= pyramid.BLOCK_SMEM <= 227 * 1024
+    covered = {s: np.zeros((h, w), np.int32) for s, (h, w) in enumerate(shapes)}
+    for s, f, strip, band, (q0, nq), (lo, n) in _blocks(plan):
+        (rs, rc, rw), (cs, cc, cw) = _block_taps(plan, f)
+        assert n <= H - lo and q0 % 4 == 0 and 0 <= nq <= f["stride"] and q0 + nq <= 3 * W
+        assert pyramid._smem(n, f["band_rows"], f["stride"], f["strip_w"], f["col_t"],
+                             f["row_t"]) <= plan["smem"]
+        ys = range(band * f["band_rows"], min((band + 1) * f["band_rows"], f["h"]))
+        xs = range(strip * f["strip_w"], min((strip + 1) * f["strip_w"], f["w"]))
+        for y in ys:
+            assert rc[y] == 0 or lo <= rs[y] and rs[y] + rc[y] <= lo + n, (f, y)
+        for x in xs:
+            assert cc[x] == 0 or q0 <= 3 * cs[x] and 3 * (cs[x] + cc[x]) <= q0 + nq, (f, x)
+        covered[s][ys.start:ys.stop, xs.start:xs.stop] += 1
+    assert all((c == 1).all() for c in covered.values())
+    for s, (h, w) in enumerate(shapes):
+        f = dict(zip(pyramid.META, plan["meta"][s].tolist()))
+        for (st, ct, wt), (st_ref, ct_ref, wt_ref) in zip(_block_taps(plan, f),
+                                                          (pyramid.taps(H, h), pyramid.taps(W, w))):
+            np.testing.assert_array_equal(st, st_ref)
+            np.testing.assert_array_equal(ct, ct_ref)
+            np.testing.assert_array_equal(wt, wt_ref)
+
+
+def _emulate_pyramid(img, shapes):
+    """A numpy transliteration of `csrc/pyramid.cu`'s index math: each block
+    of the schedule stages its rows (NaN where nothing was staged) and
+    computes its band as the kernel does. Returns the non-identity scales of
+    one (H, W, 3) image."""
+    H, W, _ = img.shape
+    todo = [s for s in shapes if s != (H, W)]
+    plan = pyramid.schedule(H, W, todo)
+    flat = img.reshape(H, W * 3)
+    outs = [np.full((h, w * 3), np.nan, np.float32) for h, w in todo]
+    for s, f, strip, band, (q0, nq), (lo, n) in _blocks(plan):
+        (rs, rc, rw), (cs, cc, cw) = _block_taps(plan, f)
+        rows = np.full((n, f["stride"]), np.nan, np.float32)
+        rows[:, :nq] = flat[lo:lo + n, q0:q0 + nq]
+        y0, x0 = band * f["band_rows"], strip * f["strip_w"]
+        ny, nx = min(f["band_rows"], f["h"] - y0), min(f["strip_w"], f["w"] - x0)
+        tmp = np.zeros((ny, nq), np.float32)
+        for r in range(ny):
+            y = y0 + r
+            for t_ in range(rc[y]):
+                tmp[r] += rw[y, t_] * rows[rs[y] - lo + t_, :nq]
+        for x in range(x0, x0 + nx):
+            for ch in range(3):
+                src = 3 * cs[x] - q0 + ch + 3 * np.arange(cc[x])
+                outs[s][y0:y0 + ny, 3 * x + ch] = (tmp[:, src] * cw[x, :cc[x]]).sum(1)
+    return [o.reshape(h, w, 3) for o, (h, w) in zip(outs, todo)]
+
+
+def test_pyramid_kernel_index_math_emulated(rng):
+    """K1's index math (strips, bands, the staged rows and spans), run in
+    numpy over the schedule, against the plain version: serving ratios at a
+    tenth of the size, an upscale, one identity axis and 4x down."""
+    img = rng.rand(96, 128, 3).astype(np.float32)
+    shapes = [(80, 106), (64, 85), (48, 64), (40, 53), (32, 43), (24, 32), (120, 160),
+              (96, 64), (30, 128), (37, 5)]
+    got = _emulate_pyramid(img, shapes)
+    want = pyramid.device_pyramid_ref(t(img[None]), shapes)
+    for g_, w_ in zip(got, want):
+        assert not np.isnan(g_).any()
+        np.testing.assert_allclose(g_, w_[0].numpy(), atol=1e-5, rtol=0)
+
+
 @pytest.mark.gpu
 def test_forward_only_wrappers_raise_under_grad_on_card(cuda, rng):
     for name, call in _forward_only_calls(rng, cuda):
@@ -512,15 +657,22 @@ def test_forward_only_wrappers_raise_under_grad_on_card(cuda, rng):
 
 
 @pytest.mark.gpu
-def test_pyramid_kernel_on_card(cuda, rng):
-    img = t(rng.rand(2, 96, 128, 3).astype(np.float32)).to(cuda)
-    shapes = [(96, 128), (80, 106), (48, 64), (24, 32), (120, 160), (96, 64)]
+@pytest.mark.parametrize("hw,shapes", [
+    # the serving ratios (0.83 down to 4x down, 24 taps) at a quarter of the size
+    ((240, 320), ((240, 320), (200, 264), (160, 212), (120, 160), (100, 132), (80, 104),
+                  (60, 80))),
+    *ODD_PYRAMIDS])
+def test_pyramid_kernel_on_card(cuda, rng, hw, shapes):
+    """K1 against its plain version, a batch of 4, every scale in one
+    launch; odd sizes take the 4-byte copies (W * 3 not a multiple of 4)."""
+    img = t(rng.rand(4, *hw, 3).astype(np.float32)).to(cuda)
     kernels.reset_launch_counts()
     got = pyramid.device_pyramid(img, shapes)
     assert kernels.launch_counts()["lanczos_pyramid"] == 1  # every scale, one launch
-    assert got[0] is img
-    for g, r in zip(got, pyramid.device_pyramid_ref(img, shapes)):
+    for g, r, shape in zip(got, pyramid.device_pyramid_ref(img, shapes), shapes):
         assert g.shape == r.shape and g.is_contiguous()
+        if tuple(shape) == tuple(hw):
+            assert g is img
         torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
 
 
