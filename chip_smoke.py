@@ -27,8 +27,12 @@ Phases, each of which must pass:
       of one PyTorch call that computes the same function where there is one
       (`library_ms`), and the least time the card could take for the work
       (`bound_ms`: bytes over 3.35 TB/s or operations over 67 TFLOP/s fp32,
-      whichever is larger) and its share of the device time; K4 runs under
-      sync-debug 'error';
+      whichever is larger) and its share of the device time; K3 and K4 are
+      whole fits (draws, solve, score, winner and mask) against their plain
+      versions on the same seed, at 10k and 50k hypotheses (K3) and one
+      block and 13 (K4), timed as the ops a path calls (the seed draw and
+      one launch) and as the kernel alone (`kernel_device_ms`); K4 runs
+      under sync-debug 'error';
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
@@ -119,8 +123,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 # RANSAC arithmetic per (hypothesis, match): the homography applied (15), the
 # divide (2), the squared residual (5) and the tolerance test and count (2);
-# per hypothesis the Hartley normalization and the closed-form 4-point solve
-RANSAC_OPS_PER_MATCH, RANSAC_OPS_PER_SOLVE = 24, 250
+# per hypothesis the draws (Philox4x32-10's 10 rounds of 2 multiplies high
+# and low, 4 xors and 2 key adds, and 4 ranks), the Hartley normalization
+# and the closed-form 4-point solve
+RANSAC_OPS_PER_MATCH, RANSAC_OPS_PER_SOLVE = 24, 350
 
 
 def require(cond, msg):
@@ -315,79 +321,125 @@ def _ransac_matches(gen, inlier_frac=0.6):
     return m1, m2, valid
 
 
+def _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid):
+    """A RANSAC kernel's fit against its plain version's on the same seed:
+    identical sets and winning set, counts that agree on >= 99.9% of the
+    hypotheses (a differing count agrees only when a flip at the tolerance
+    boundary explains it, `kernels.ransac.boundary_flips`: fp32 solves in
+    another order of operations), equal winning count and found, H21 to
+    1e-4, the mask equal off matches within 1e-6 of the tolerance."""
+    from ransacflow_tpu_torch.kernels.ransac import boundary_flips
+    from ransacflow_tpu_torch.ops.homography import reprojection_error
+
+    n_rows = rec_ref.counts.shape[0]
+    require(torch.equal(rec.sets[:n_rows], rec_ref.sets), f"{name}: sets differ")
+    differ, explained = boundary_flips(m1, m2, valid, rec_ref.sets, rec.counts[:n_rows],
+                                       rec_ref.counts, 0.05)
+    agree = 1 - (differ & ~explained).float().mean().item()
+    require(agree >= 0.999, f"{name}: counts agree on only {agree:.5f}")
+    require(int(fit.num_inliers) == int(ref.num_inliers),
+            f"{name}: winning count {int(fit.num_inliers)} vs plain {int(ref.num_inliers)}")
+    require(bool(fit.found) == bool(ref.found), f"{name}: found differs")
+    require(torch.equal(fit.best_sample, ref.best_sample), f"{name}: winning sets differ")
+    err = (fit.H21 - ref.H21).abs().max().item()
+    require(err <= 1e-4, f"{name}: winner H21 max abs err {err} > 1e-4")
+    off = ((reprojection_error(m1, m2, ref.H21[None])[0] - 0.05).abs() > 1e-6)
+    require(torch.equal(fit.inlier_mask[off], ref.inlier_mask[off]), f"{name}: masks differ")
+    return {"max_abs_err": err, "counts_agree": agree,
+            "counts_equal": 1 - differ.float().mean().item(),
+            "counts_differ": int(differ.sum()), "counts_flips": int((differ & explained).sum()),
+            "mask_on_boundary": int((~off).sum())}
+
+
+def _ransac_bound(m1, m2, valid, seed, n_hyp, suffix=""):
+    """The matches and the seed read once, H21, count, set, mask and found
+    written once; the operations of n_hyp hypotheses over the valid matches
+    and of the mask over all of them."""
+    n_valid = int(valid.sum())
+    ops = (n_hyp * (n_valid * RANSAC_OPS_PER_MATCH + RANSAC_OPS_PER_SOLVE)
+           + m1.shape[0] * RANSAC_OPS_PER_MATCH)
+    return bound(nbytes(m1, m2, valid, seed) + 9 * 4 + 5 * 4 + m1.shape[0] + 1, ops, suffix)
+
+
 def check_ransac(gen):
-    from ransacflow_tpu_torch.kernels.ransac import ransac_score, ransac_score_ref
-    from ransacflow_tpu_torch.ops.ransac import sample_minimal_sets
+    """K3 at the serving shape (1200 matches, 10k hypotheses) and, suffix
+    `_50k`, the loop's fixed-count slot (50k): the kernel's fit against the
+    plain version's on the same seed; the whole op timed (the seed draw and
+    one launch, against the seed draw and the plain fit). `gen` gives the
+    matches and one seed; the other seeds come from a generator of this
+    check's own, so that the later checks' inputs do not depend on how
+    often this one draws."""
+    from ransacflow_tpu_torch.kernels.ransac import ransac_fit, ransac_fit_ref
+    from ransacflow_tpu_torch.ops.ransac import draw_seed, ransac_homography
 
     m1, m2, valid = _ransac_matches(gen)
-    samples = sample_minimal_sets(valid, N_ITER, gen)
-
-    H_k, c_k = ransac_score(m1, m2, valid, samples, 0.05)
-    H_r, c_r = ransac_score_ref(m1, m2, valid, samples, 0.05)
-    torch.cuda.synchronize()
-    agree = (c_k == c_r).float().mean().item()
-    # fp32 solves in another order of operations: a match on the tolerance
-    # boundary may flip, so counts must agree on >= 99.9% of hypotheses
-    require(agree >= 0.999, f"ransac: counts agree on only {agree:.5f}")
-    require(c_k.max().item() == c_r.max().item(), "ransac: winning counts differ")
-    best_k, best_r = int(torch.argmax(c_k)), int(torch.argmax(c_r))
-    err = (H_k[best_k] - H_r[best_k]).abs().max().item()
-    if best_k == best_r:
-        require(err <= 1e-4, f"ransac: winner H21 max abs err {err} > 1e-4")
-    require(c_k.max().item() > 0.4 * N_TARGET, "ransac: no good model found")
-    ops = N_ITER * (N_TARGET * RANSAC_OPS_PER_MATCH + RANSAC_OPS_PER_SOLVE)
-    return {"max_abs_err": err, "counts_agree": agree,
-            **paired_ms(lambda: ransac_score(m1, m2, valid, samples, 0.05),
-                        lambda: ransac_score_ref(m1, m2, valid, samples, 0.05)),
-            **bound(nbytes(m1, m2, valid, samples, H_k, c_k), ops), **library(None)}
+    own = torch.Generator(device="cuda").manual_seed(N_ITER)
+    out = {}
+    for suffix, n_iter in (("", N_ITER), ("_50k", MH_N_ITER)):
+        seed = draw_seed(own if suffix else gen, "cuda")
+        fit, rec = ransac_fit(m1, m2, valid, 0.05, n_iter, seed=seed, record=True)
+        ref, rec_ref = ransac_fit_ref(m1, m2, valid, 0.05, n_iter, seed=seed)
+        torch.cuda.synchronize()
+        got = _ransac_against_plain(f"ransac{suffix}", fit, rec, ref, rec_ref, m1, m2, valid)
+        require(int(fit.num_inliers) > 0.4 * N_TARGET, "ransac: no good model found")
+        out.update({k + suffix: v for k, v in got.items()})
+        out.update(paired_ms(
+            lambda: ransac_homography(m1, m2, valid, 0.05, n_iter, generator=own),
+            lambda: ransac_fit_ref(m1, m2, valid, 0.05, n_iter, seed=draw_seed(own, "cuda")),
+            suffix=suffix))
+        out["kernel_device_ms" + suffix] = device_ms(
+            lambda: ransac_fit(m1, m2, valid, 0.05, n_iter, seed=seed))
+        out.update(_ransac_bound(m1, m2, valid, seed, n_iter, suffix))
+        out.update(library(None, suffix))
+    out["max_abs_err"] = max(out["max_abs_err"], out["max_abs_err_50k"])
+    return out
 
 
 def check_ransac_adaptive(gen):
     """K4 at the loop's shape: 1200 matches, blocks of 4096, cap 50k; once
-    with 60% inliers (one block) and once structureless (all 13 blocks).
-    The kernel's call and the whole op run under sync-debug 'error'."""
-    from ransacflow_tpu_torch.kernels.ransac import ransac_score_ref
+    with 60% inliers (one block) and once structureless (all 13 blocks),
+    suffix `_to_cap`. The kernel's fit against the plain version's on the
+    same seed; the kernel's call and the whole op run under sync-debug
+    'error'; the whole op timed against the seed draw and the plain loop,
+    its seeds drawn from a generator of this check's own (see
+    check_ransac)."""
     from ransacflow_tpu_torch.kernels.ransac_adaptive import (
         ransac_adaptive, ransac_adaptive_ref)
-    from ransacflow_tpu_torch.ops.ransac import (
-        ransac_homography_adaptive, sample_minimal_sets)
+    from ransacflow_tpu_torch.ops.ransac import draw_seed, ransac_homography_adaptive
 
-    n_rows = -(-MH_N_ITER // MH_CHUNK) * MH_CHUNK
+    own = torch.Generator(device="cuda").manual_seed(MH_CHUNK)
     out = {"max_abs_err": 0.0}
     for case, frac, want_blocks in (("clean", 0.6, 1), ("structureless", 0.0, 13)):
         m1, m2, valid = _ransac_matches(gen, frac)
-        samples = sample_minimal_sets(valid, n_rows, gen)
-        args = (m1, m2, valid, samples, MH_CHUNK, MH_N_ITER, 0.05, 0.999)
+        seed = draw_seed(gen, "cuda")
+        args = (m1, m2, valid, 0.05, MH_N_ITER, MH_CHUNK, 0.999)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            H, count, sample, blocks = ransac_adaptive(*args)
-            res, n_eval = ransac_homography_adaptive(m1, m2, valid, 0.05, MH_N_ITER,
-                                                     MH_CHUNK, generator=gen)
+            fit, n_eval, rec = ransac_adaptive(*args, seed=seed, record=True)
+            res, n_eval_op = ransac_homography_adaptive(m1, m2, valid, 0.05, MH_N_ITER,
+                                                        MH_CHUNK, generator=gen)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        H_r, count_r, sample_r, blocks_r = ransac_adaptive_ref(*args)
-        require(int(blocks) == int(blocks_r) == want_blocks,
-                f"ransac_adaptive ({case}): {int(blocks)} blocks, plain "
-                f"{int(blocks_r)}, expected {want_blocks}")
-        require(int(count) == int(count_r),
-                f"ransac_adaptive ({case}): count {int(count)} vs plain {int(count_r)}")
-        require(int(n_eval) == want_blocks * MH_CHUNK and bool(res.found),
-                f"ransac_adaptive ({case}): op evaluated {int(n_eval)}")
-        # the winner against the plain solve of the same minimal set
-        H_plain = ransac_score_ref(m1, m2, valid, sample[None], 0.05)[0][0]
-        err = (H - H_plain).abs().max().item()
-        require(err <= 1e-4, f"ransac_adaptive ({case}): H21 max abs err {err}")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        out[f"{case}_same_sample"] = bool(torch.equal(sample, sample_r))
+        ref, n_eval_r, rec_ref = ransac_adaptive_ref(*args, seed=seed)
+        require(int(n_eval) == int(n_eval_r) == want_blocks * MH_CHUNK,
+                f"ransac_adaptive ({case}): {int(n_eval)} evaluated, plain "
+                f"{int(n_eval_r)}, expected {want_blocks} blocks")
+        require(int(n_eval_op) == want_blocks * MH_CHUNK and bool(res.found),
+                f"ransac_adaptive ({case}): op evaluated {int(n_eval_op)}")
+        got = _ransac_against_plain(f"ransac_adaptive ({case})", fit, rec, ref, rec_ref, m1, m2,
+                                    valid)
+        out["max_abs_err"] = max(out["max_abs_err"], got.pop("max_abs_err"))
         suffix = "" if case == "clean" else "_to_cap"
-        out.update(paired_ms(lambda: ransac_adaptive(*args),
-                             lambda: ransac_adaptive_ref(*args), reps=5, suffix=suffix))
+        out.update({k + suffix: v for k, v in got.items()})
+        out.update(paired_ms(
+            lambda: ransac_homography_adaptive(m1, m2, valid, 0.05, MH_N_ITER, MH_CHUNK,
+                                               generator=own),
+            lambda: ransac_adaptive_ref(*args, seed=draw_seed(own, "cuda")),
+            reps=5, suffix=suffix))
+        out["kernel_device_ms" + suffix] = device_ms(lambda: ransac_adaptive(*args, seed=seed))
         # the blocks this run's data needs, not the cap
-        n_hyp = int(blocks) * MH_CHUNK
-        out.update(bound(nbytes(m1, m2, valid, samples[:n_hyp], H, count, sample),
-                         n_hyp * (N_TARGET * RANSAC_OPS_PER_MATCH + RANSAC_OPS_PER_SOLVE),
-                         suffix))
+        out.update(_ransac_bound(m1, m2, valid, seed, want_blocks * MH_CHUNK, suffix))
         out.update(library(None, suffix))
     return out
 

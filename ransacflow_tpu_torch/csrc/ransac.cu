@@ -1,46 +1,124 @@
-// RANSAC homography hypotheses: solve and score, one hypothesis per thread.
+// Fixed-count RANSAC homography fit in one launch: draw, solve, score, pick
+// the winner and write its inlier mask.
 //
-// Replaces: ransacflow_tpu/ops/ransac.py:102 ransac_homography, its solve
-// (_solve_models with ops/homography.py:136 dlt_homography, 'projective')
-// and its count (ops/ransac.py:77 _make_count_chunk). The per-hypothesis
-// steps are in ransac_common.cuh. H (n_iter, 3, 3) and counts (n_iter,)
-// int32 are written; the argmax and the winner's inlier mask stay in torch.
+// Replaces: ransacflow_tpu/ops/ransac.py:102 ransac_homography ('homography',
+// the |det| gate): its draws (_sample_minimal_sets in the valid-first
+// order), its solve (_solve_models with ops/homography.py:136
+// dlt_homography, 'projective'), its count (ops/ransac.py:77
+// _make_count_chunk), the argmax (first index on ties) and the winner's
+// mask (ops/ransac.py:181-182). The per-hypothesis steps and the layout of
+// the work are in ransac_common.cuh.
+//
+// Block b takes hypotheses [b * kHyp, (b + 1) * kHyp), kHyp = 32: it
+// builds the valid-first order, stages the valid matches, draws and solves
+// its kHyp hypotheses (one thread each), scores them (4 a thread, the 32
+// lanes of a warp over every 32nd match), takes one packed atomicMax and
+// writes its best H and set to its slot. The last block to finish (a
+// __threadfence, then an atomic ticket) reads the winner's slot, writes H,
+// count, set, found and the mask over all N matches, and resets the
+// two-word state for the next launch on the stream.
+//
+// It keeps a launch of its own beside the adaptive kernel's cooperative loop
+// (ransac_adaptive.cu), which computes the same fit as one loop block of
+// n_iter hypotheses: run so, that loop read 38% slower at 10k hypotheses
+// and 13% slower at 50k on the H100 (PERF.md).
 //
 // What bounds it on the H100: at the serving shape (10k hypotheses x 1200
-// matches) the work is 12 M point tests, each a few multiply-adds and two
-// divisions: microseconds of arithmetic and almost no memory traffic. The
-// reference materialised (N x n_iter) projection matrices (3 x 48 MB) for
-// it. Here nothing of size N x n_iter exists: the matches are staged tile by
-// tile in shared memory and every thread reads the same match at the same
-// time (a broadcast), so the kernel is bound by instruction latency and by
-// having only ~80-160 blocks; small blocks of 64 threads spread them over
-// more SMs.
+// matches) the work is 12 M point tests of ~35 instructions each, two of
+// them IEEE divisions: ~15 us of issue at the card's fp32 rate, and almost
+// no memory traffic. The design is about keeping that issue rate: 256
+// threads a block, 4 independent chains a thread, shared-memory broadcasts
+// of the matches, and nothing of the fit left to other launches.
 #include "common.cuh"
 #include "ransac_common.cuh"
 
 namespace {
 
-using rf_ransac::kThreads;
+using namespace rf_ransac;
 
-__global__ void __launch_bounds__(kThreads) ransac_score_kernel(
-    const float* __restrict__ m1, const float* __restrict__ m2,
-    const unsigned char* __restrict__ valid, int N,
-    const int* __restrict__ samples, int n_iter, float tol,
-    float* __restrict__ H_out, int* __restrict__ counts) {
-  rf_ransac::score_hypotheses(m1, m2, valid, N, samples, n_iter, tol, H_out,
-                              counts);
+// Hypotheses a thread block takes: a one-off sweep on the H100 read 32
+// within 2% of 16 at 10k hypotheses and 5% ahead of it at 50k, and 64
+// slower at 10k (PERF.md).
+constexpr int kHyp = 32;
+
+struct State {
+  unsigned long long best;  // packed key of the best hypothesis so far
+  unsigned int ticket;      // blocks finished
+};
+
+__global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
+    Problem P, int n_iter, int tile_len, Outputs out, State* state,
+    float* slots) {
+  extern __shared__ int smem[];
+  __shared__ HypBlock<kHyp> hb;
+  __shared__ int warp_sum[kWarps];
+  __shared__ unsigned long long warp_best[kWarps];
+  __shared__ float s_H[9];
+  __shared__ bool s_last;
+
+  int* order = smem;
+  const Tile tile = tile_at(smem, P.N, tile_len);
+  const int n_valid = build_order(P.valid, P.N, order, warp_sum);
+  const bool resident = n_valid <= tile_len;
+  if (resident) stage(P, order, 0, n_valid, tile);
+  const int h0 = blockIdx.x * kHyp;
+  const int n_h = min(kHyp, n_iter - h0);
+  solve<kHyp>(P, order, n_valid, h0, n_h, hb);
+  __syncthreads();
+  int c[Layout<kHyp>::kPer] = {};
+  score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, c);
+  const unsigned long long key = block_best<kHyp>(P, hb, h0, n_h, c, warp_best);
+  if (threadIdx.x == 0) {
+    write_slot(hb, key, h0, slots + static_cast<size_t>(blockIdx.x) * kSlotWords);
+    atomicMax(&state->best, key);
+    __threadfence();
+    s_last = atomicAdd(&state->ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last block: every other block's slot and key are visible
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned long long win = atomicExch(&state->best, 0ull);
+    atomicExch(&state->ticket, 0u);
+    const unsigned h = key_index(win);
+    take_winner(win, slots + static_cast<size_t>(h / kHyp) * kSlotWords, false,
+                n_valid, P.N, true, out, s_H);
+  }
+  __syncthreads();
+  write_mask(P, s_H, true, out.mask, threadIdx.x, kThreads);
+}
+
+cudaError_t launch(const Problem& P, int n_iter, const Outputs& out, void* state,
+                   float* slots, cudaStream_t stream) {
+  const int tile_len = max(1, min(P.N, kTileMax));
+  const size_t smem = shared_bytes(P.N, tile_len);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ransac_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  ransac_fit_kernel<<<(n_iter + kHyp - 1) / kHyp, kThreads, smem, stream>>>(
+      P, n_iter, tile_len, out, static_cast<State*>(state), slots);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// m1, m2: (N, 3) fp32; valid: (N,) bytes; samples: (n_iter, 4) int32 match
-// indices in [0, N); H_out: (n_iter, 9) fp32; counts: (n_iter,) int32.
-RF_API int rf_ransac_score(const float* m1, const float* m2,
-                           const unsigned char* valid, int N,
-                           const int* samples, int n_iter, float tol,
-                           float* H_out, int* counts, cudaStream_t stream) {
-  ransac_score_kernel<<<(n_iter + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(m1, m2, valid, N, samples, n_iter, tol,
-                                  H_out, counts);
-  return static_cast<int>(cudaGetLastError());
+// m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
+// null with samples: (n_iter, 4) int32 match indices in [0, N); counts:
+// (n_iter,) int32 and sets: (n_iter, 4) int32, each optional (null); H: (9,)
+// fp32; ints: (8,) int32 (count, set); mask: (N + 1,) bytes (the mask, then
+// found); state: two zeroed 64-bit words, left zeroed, one per stream;
+// slots: (ceil(n_iter / 32), 16) fp32 scratch.
+RF_API int rf_ransac_fit(const float* m1, const float* m2,
+                         const unsigned char* valid, int N,
+                         const unsigned long long* seed, const int* samples,
+                         int n_iter, float tol, int* counts,
+                         int* sets, float* H, int* ints, unsigned char* mask,
+                         void* state, float* slots, cudaStream_t stream) {
+  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets};
+  const Outputs out{H, ints, mask};
+  return static_cast<int>(launch(P, n_iter, out, state, slots, stream));
 }

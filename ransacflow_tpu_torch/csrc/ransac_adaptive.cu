@@ -1,126 +1,198 @@
-// Adaptive RANSAC: hypotheses scored in chunks until a confidence bound is
-// met, with the stop test on the device.
+// Adaptive RANSAC in one persistent launch: hypotheses in blocks of `chunk`
+// until a confidence bound is met, the stop test on the device.
 //
 // Replaces: ransacflow_tpu/ops/ransac.py:194 ransac_homography_adaptive,
-// the lax.while_loop over chunks (lines 251-295). For chunk c:
-//   1. score: solve and count every hypothesis of the chunk
-//      (ransac_common.cuh, the same device code as the fixed-count kernel);
-//   2. update, one block: the chunk's argmax (first index on ties) replaces
-//      the running best only when its count is strictly greater; then, in
-//      fp32 as the reference, w = best / max(n_valid, 1),
-//      w4 = min(w^4, 1 - 1e-7), denom = min(log1p(-w4), -1e-30),
-//      n_req = log1p(-confidence) / denom, and the done flag is set when
-//      (c + 1) * chunk >= min(n_req, n_iter).
-// The entry point enqueues all ceil(n_iter / chunk) chunks at once. Every
-// kernel reads the done flag first and its blocks return at once when it is
-// set, so the loop ends on the device and the host never waits for it.
+// the lax.while_loop over blocks (lines 251-295) and the winner's mask
+// (lines 297-300). One cooperative launch (cudaLaunchCooperativeKernel, at
+// most the co-resident block count) walks the loop; for loop block c:
+//   1. the grid draws, solves and scores hypotheses c * chunk + i, i <
+//      chunk, with the fixed-count kernel's device code and mapping
+//      (ransac_common.cuh): the index is global, so a fit's sets do not
+//      depend on where the loop stops, and they are the first rows of the
+//      fixed-count fit's sets for the same seed;
+//   2. each thread block takes one packed atomicMax into best[c] of
+//      max(its best key, best[c - 1]): the packed maximum over all loop
+//      blocks so far is the reference's running best, which changes only on
+//      a strictly larger count, the first index on ties. One best slot per
+//      loop block keeps a block that has passed the barrier from raising
+//      the value a slower block is still reading;
+//   3. grid barrier;
+//   4. every block reads best[c] and evaluates the stop test in fp32 as the
+//      reference: w = best / max(n_valid, 1), w4 = min(w^4, 1 - 1e-7),
+//      denom = min(log1p(-w4), -1e-30), n_req = log1p(-confidence) / denom,
+//      stop when (c + 1) * chunk >= min(n_req, n_iter). The value is the
+//      same on every block, so the grid leaves the loop together.
+// Then every block reads the winner's slot and writes its share of the
+// mask; block 0 writes H, count, set, found, the blocks run and the
+// hypotheses evaluated. A winning count of 0 keeps the identity.
 //
-// What bounds it on the H100: a chunk of 4096 hypotheses x 1200 matches is
-// 5 M point tests, a few microseconds of arithmetic, spread over only 64
-// blocks of 64 threads; the chain of 2 launches per chunk then costs more
-// than the work (launch latency, ~13 chunks at the 50k cap). A chunk that
-// is skipped costs one launch and one load. Keeping the stop test on the
-// device is what matters at this size: a host read per chunk would add a
-// full round trip for every chunk. Making one persistent kernel of the loop
-// is later work.
-//
-// State (int32 state[8]): [0] best count, [1..4] best sample (match
-// indices), [5] done, [6] chunks run; best_H (9 floats) beside it.
+// What bounds it on the H100: a block of 4096 hypotheses x 1200 matches is
+// 5 M point tests, a few microseconds of issue; a fit that stops after one
+// block costs one launch, the order and staging of each thread block, one
+// hypothesis block's solve and score, and two grid barriers. Nothing waits
+// on the host, and blocks after the stop cost nothing.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "ransac_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-using rf_ransac::kThreads;
+using namespace rf_ransac;
 
-constexpr int kUpdateThreads = 256;
-enum { kBestCount = 0, kBestSample = 1, kDone = 5, kChunksRun = 6 };
+// Hypotheses a thread block takes: a loop block of 4096 then spans 256
+// thread blocks, about two an SM; a one-off sweep on the H100 read 16
+// fastest of 16, 32 and 64, at one block and to the cap (PERF.md).
+constexpr int kHyp = 16;
 
-__global__ void __launch_bounds__(kThreads) adaptive_score_kernel(
-    const float* __restrict__ m1, const float* __restrict__ m2,
-    const unsigned char* __restrict__ valid, int N,
-    const int* __restrict__ samples, int chunk, float tol,
-    float* __restrict__ H_out, int* __restrict__ counts,
-    const int* __restrict__ state) {
-  if (state[kDone]) return;  // the same value for every thread of the block
-  rf_ransac::score_hypotheses(m1, m2, valid, N, samples, chunk, tol, H_out,
-                              counts);
-}
+struct Loop {
+  int n_chunks, chunk, n_iter;
+  float confidence;
+};
 
-__global__ void __launch_bounds__(kUpdateThreads) adaptive_update_kernel(
-    const float* __restrict__ H, const int* __restrict__ counts, int chunk,
-    const int* __restrict__ samples, const int* __restrict__ n_valid,
-    int evaluated, int n_iter, float confidence, float* __restrict__ best_H,
-    int* __restrict__ state) {
-  if (state[kDone]) return;
-  __shared__ int s_val[kUpdateThreads];
-  __shared__ int s_idx[kUpdateThreads];
-  // argmax, first index on ties: each thread walks its indices upwards and
-  // keeps strictly larger counts; the tree merge prefers the lower index
-  int bv = -1, bi = 0;
-  for (int i = threadIdx.x; i < chunk; i += kUpdateThreads) {
-    const int v = counts[i];
-    if (v > bv) {
-      bv = v;
-      bi = i;
-    }
-  }
-  s_val[threadIdx.x] = bv;
-  s_idx[threadIdx.x] = bi;
-  __syncthreads();
-  for (int stride = kUpdateThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      const int ov = s_val[threadIdx.x + stride];
-      const int oi = s_idx[threadIdx.x + stride];
-      if (ov > s_val[threadIdx.x] ||
-          (ov == s_val[threadIdx.x] && oi < s_idx[threadIdx.x])) {
-        s_val[threadIdx.x] = ov;
-        s_idx[threadIdx.x] = oi;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x != 0) return;
-  const int c_best = s_idx[0];
-  if (counts[c_best] > state[kBestCount]) {
-    state[kBestCount] = counts[c_best];
-    for (int e = 0; e < 9; ++e) best_H[e] = H[c_best * 9 + e];
-    for (int t = 0; t < 4; ++t) state[kBestSample + t] = samples[c_best * 4 + t];
-  }
-  const float w = static_cast<float>(state[kBestCount]) /
-                  static_cast<float>(max(*n_valid, 1));
+__device__ __forceinline__ bool stop_test(int best_count, int n_valid, int evaluated,
+                                          const Loop& L) {
+  const float w = static_cast<float>(best_count) / static_cast<float>(max(n_valid, 1));
   const float w2 = w * w;
   // 1 - 1e-7 rounded to fp32 once, as the reference's constant
   const float w4 = fminf(w2 * w2, static_cast<float>(1.0 - 1e-7));
   const float denom = fminf(log1pf(-w4), -1e-30f);
-  const float n_req = log1pf(-confidence) / denom;
-  state[kDone] = static_cast<float>(evaluated) >=
-                 fminf(n_req, static_cast<float>(n_iter));
-  state[kChunksRun] += 1;
+  const float n_req = log1pf(-L.confidence) / denom;
+  return static_cast<float>(evaluated) >= fminf(n_req, static_cast<float>(L.n_iter));
+}
+
+__global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
+    Problem P, Loop L, int tile_len, Outputs out, unsigned long long* best,
+    float* slots) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int smem[];
+  __shared__ HypBlock<kHyp> hb;
+  __shared__ int warp_sum[kWarps];
+  __shared__ unsigned long long warp_best[kWarps];
+  __shared__ unsigned long long s_best;
+  __shared__ float s_H[9];
+
+  int* order = smem;
+  const Tile tile = tile_at(smem, P.N, tile_len);
+  if (blockIdx.x == 0) {
+    for (int c = threadIdx.x; c < L.n_chunks; c += kThreads) best[c] = 0ull;
+  }
+  const int n_valid = build_order(P.valid, P.N, order, warp_sum);
+  const bool resident = n_valid <= tile_len;
+  if (resident) stage(P, order, 0, n_valid, tile);
+  const int chunk_blocks = (L.chunk + kHyp - 1) / kHyp;
+  grid.sync();  // best[] is zeroed
+
+  unsigned long long running = 0ull;
+  int c = 0;
+  for (;; ++c) {
+    unsigned long long mine = running;
+    for (int j = blockIdx.x; j < chunk_blocks; j += gridDim.x) {
+      const int h0 = c * L.chunk + j * kHyp;
+      const int n_h = min(kHyp, L.chunk - j * kHyp);
+      solve<kHyp>(P, order, n_valid, h0, n_h, hb);
+      __syncthreads();
+      int cnt[Layout<kHyp>::kPer] = {};
+      score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, cnt);
+      const unsigned long long key = block_best<kHyp>(P, hb, h0, n_h, cnt, warp_best);
+      if (threadIdx.x == 0) {
+        write_slot(hb, key, h0,
+                   slots + (static_cast<size_t>(c) * chunk_blocks + j) * kSlotWords);
+        mine = max_u64(mine, key);
+      }
+      __syncthreads();  // hb and the tile are taken again
+    }
+    if (threadIdx.x == 0) atomicMax(best + c, mine);
+    grid.sync();
+    if (threadIdx.x == 0) s_best = __ldcg(best + c);
+    __syncthreads();
+    running = s_best;
+    const int evaluated = (c + 1) * L.chunk;
+    if (c + 1 == L.n_chunks ||
+        stop_test(static_cast<int>(running >> 32), n_valid, evaluated, L)) {
+      break;
+    }
+  }
+
+  const unsigned h = key_index(running);
+  const unsigned cw = h / L.chunk;
+  const unsigned j = (h - cw * L.chunk) / kHyp;
+  if (threadIdx.x == 0) {
+    take_winner(running, slots + (static_cast<size_t>(cw) * chunk_blocks + j) * kSlotWords,
+                true, n_valid, P.N, blockIdx.x == 0, out, s_H);
+    if (blockIdx.x == 0) {
+      out.ints[5] = c + 1;
+      out.ints[6] = (c + 1) * L.chunk;
+    }
+  }
+  __syncthreads();
+  write_mask(P, s_H, (running >> 32) > 0, out.mask, blockIdx.x * kThreads + threadIdx.x,
+             gridDim.x * kThreads);
+}
+
+struct Occupancy {
+  int device = -1;
+  size_t smem = 0;
+  int blocks = 0;  // co-resident blocks on the card
+};
+
+cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
+                   unsigned long long* best, float* slots, cudaStream_t stream) {
+  static Occupancy occ;  // the last query, kept: it costs host time
+  auto kernel = ransac_adaptive_kernel;
+  int tile_len = max(1, min(P.N, kTileMax));
+  size_t smem = shared_bytes(P.N, tile_len);
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess) {
+    return err;
+  }
+  int device;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if (device != occ.device || smem != occ.smem) {
+    int sms, per_sm;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                             smem)) != cudaSuccess) {
+      return err;
+    }
+    occ = {device, smem, sms * per_sm};
+  }
+  const int grid = min((L.chunk + kHyp - 1) / kHyp, occ.blocks);
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  Problem p = P;
+  Loop l = L;
+  Outputs o = out;
+  void* args[] = {&p, &l, &tile_len, &o, &best, &slots};
+  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(grid),
+                                    dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// m1, m2: (N, 3) fp32; valid: (N,) bytes; samples: (n_chunks * chunk, 4)
-// int32 match indices in [0, N); n_valid: () int32 on the device;
-// H: (chunk, 9) fp32 and counts: (chunk,) int32 scratch; best_H: (9,) fp32
-// holding the identity and state: (8,) int32 holding zeros on entry.
+// m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
+// null with samples: (n_chunks * chunk, 4) int32 match indices in [0, N);
+// counts: (n_chunks * chunk,) int32 and sets: (n_chunks * chunk, 4) int32,
+// each optional (null), written for the blocks run; H: (9,) fp32; ints: (8,)
+// int32 (count, set, blocks run, hypotheses evaluated); mask: (N + 1,) bytes
+// (the mask, then found); best: (n_chunks,) 64-bit scratch; slots: (n_chunks
+// * ceil(chunk / 16), 16) fp32 scratch.
 RF_API int rf_ransac_adaptive(const float* m1, const float* m2,
                               const unsigned char* valid, int N,
-                              const int* samples, int n_chunks, int chunk,
-                              int n_iter, float tol, float confidence,
-                              const int* n_valid, float* H, int* counts,
-                              float* best_H, int* state, cudaStream_t stream) {
-  const int blocks = (chunk + kThreads - 1) / kThreads;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int* chunk_samples = samples + static_cast<size_t>(c) * chunk * 4;
-    adaptive_score_kernel<<<blocks, kThreads, 0, stream>>>(
-        m1, m2, valid, N, chunk_samples, chunk, tol, H, counts, state);
-    adaptive_update_kernel<<<1, kUpdateThreads, 0, stream>>>(
-        H, counts, chunk, chunk_samples, n_valid, (c + 1) * chunk, n_iter,
-        confidence, best_H, state);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+                              const unsigned long long* seed, const int* samples,
+                              int n_chunks, int chunk, int n_iter, float tol,
+                              float confidence, int* counts, int* sets, float* H,
+                              int* ints, unsigned char* mask,
+                              unsigned long long* best, float* slots,
+                              cudaStream_t stream) {
+  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets};
+  const Loop L{n_chunks, chunk, n_iter, confidence};
+  const Outputs out{H, ints, mask};
+  return static_cast<int>(launch(P, L, out, best, slots, stream));
 }

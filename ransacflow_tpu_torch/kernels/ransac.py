@@ -1,17 +1,89 @@
-"""Kernel 3: RANSAC hypothesis solve and score (`csrc/ransac.cu`)."""
+"""Kernel 3: the fixed-count RANSAC fit in one launch (`csrc/ransac.cu`):
+draw, solve, score, pick the winner and write its inlier mask.
+
+The draws are Philox4x32-10 of the hypothesis index under a seed tensor
+(`draw_sets_ref` is their plain version, bit for bit the kernel's), so a
+fit needs one seed drawn from the caller's generator and nothing read back.
+"""
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
-from ransacflow_tpu_torch.ops.homography import dlt_homography
+from ransacflow_tpu_torch.ops.homography import dlt_homography, reprojection_error
 
+N_POINTS = 4
 DET_EPS = 1e-6  # kDetEps in the source
-KERNEL = Kernel("rf_ransac_score",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.c_int, ctypes.c_float]
-                + [ctypes.c_void_p] * 3)
+HYP_PER_BLOCK = 32  # kHyp in csrc/ransac.cu: hypotheses a thread block takes at a time
+SLOT_WORDS = 16  # kSlotWords in the source
+# the valid-first order (N ints) and a tile of kTileMax matches must fit in a
+# thread block's shared memory: the kernels' limit (the plain versions take
+# any N)
+MAX_MATCHES = 40960
+KERNEL = Kernel("rf_ransac_fit",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8)
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+class RansacResult(NamedTuple):
+    H21: torch.Tensor          # (3, 3) best model (target -> source)
+    num_inliers: torch.Tensor  # () int32
+    inlier_mask: torch.Tensor  # (N,) bool over the padded match arrays
+    found: torch.Tensor        # () bool: num_inliers > 0 and enough matches
+    best_sample: torch.Tensor  # (4,) match indices of the winning set
+
+
+class Record(NamedTuple):
+    """Per hypothesis, for checks: its count and its set of match indices."""
+    counts: torch.Tensor  # (rows,) int32
+    sets: torch.Tensor    # (rows, 4) int32
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit words of m * x, m < 2**32 an int and x an int64
+    tensor of 32-bit values, exact in int64 by 16-bit halves."""
+    p_hi = m * (x >> 16)
+    t = ((p_hi & 0xFFFF) << 16) + m * (x & 0xFFFF)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123's constants and rounds) in int64 tensor ops.
+    counter: 4 int64 tensors of 32-bit values; key: 2 of them. Returns the
+    4 output words, as `csrc/ransac_common.cuh` philox4x32_10."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def draw_sets_ref(valid, seed, n_rows, first=0):
+    """Plain version of the kernels' draws: (n_rows, 4) int32 match indices
+    of hypotheses first .. first + n_rows. Hypothesis h takes Philox4x32-10
+    of counter (h, 0, 0, 0) under key (seed low word, seed high word); word
+    x becomes rank min(floor(fp32((x >> 8) * 2^-24) * fp32(n_valid)),
+    n_valid - 1) of the stable valid-first order (index 0 when no match is
+    valid). seed: (1,) int64 in [0, 2**62) on valid's device."""
+    dev = valid.device
+    h = torch.arange(first, first + n_rows, dtype=torch.int64, device=dev)
+    zero = torch.zeros_like(h)
+    words = philox4x32((h, zero, zero, zero), (seed & _MASK32, seed >> 32))
+    order = torch.argsort((~valid).to(torch.uint8), stable=True)
+    bound = valid.sum().clamp_min(1)
+    u = (torch.stack(words, dim=1) >> 8).to(torch.float32) * 2.0 ** -24
+    rank = torch.minimum((u * bound).floor().long(), bound - 1)
+    return order[rank].to(torch.int32)
 
 
 def ransac_score_ref(match1, match2, valid, samples, tolerance):
@@ -33,22 +105,120 @@ def ransac_score_ref(match1, match2, valid, samples, tolerance):
     return H, hit.sum(dim=0).to(torch.int32) * ok
 
 
-def ransac_score(match1, match2, valid, samples, tolerance):
-    """`ransac_score_ref` for CPU tensors, the kernel for CUDA ones.
-    `samples` must lie in [0, N). Forward only: raises when a match array
-    requires grad under grad mode."""
-    forbid_grad("ransac_score", match1, match2)
-    if match1.device.type == "cpu":
-        return ransac_score_ref(match1, match2, valid, samples, tolerance)
+def boundary_flips(match1, match2, valid, sets, counts, counts_ref, tolerance,
+                   window=1e-5):
+    """For checks of a kernel's per-hypothesis counts against the plain
+    version's on the same sets: (differ, explained) bool (rows,). A count
+    that differs is explained when it differs by no more than the valid
+    matches whose residual under the plain version's H lies within `window`
+    of the tolerance. Two fp32 solves of one set differ in their last bits
+    (up to ~1e-6 in H), which moves a residual by a few times that and flips
+    a match that close to the tolerance; 1e-5 covers that."""
+    differ = counts != counts_ref
+    rows = differ.nonzero()[:, 0]
+    explained = torch.zeros_like(differ)
+    if rows.numel():
+        H, _ = ransac_score_ref(match1, match2, valid, sets[rows], tolerance)
+        ex, ey, ez = (match2 @ H[:, r, :].T for r in range(3))  # (N, rows)
+        du = ex / ez - match1[:, 0:1]
+        dv = ey / ez - match1[:, 1:2]
+        near = (((du * du + dv * dv).sqrt() - tolerance).abs() <= window) & valid[:, None]
+        explained[rows] = (counts[rows] - counts_ref[rows]).abs() <= near.sum(dim=0)
+    return differ, explained
+
+
+def winner_mask(match1, match2, valid, H21, tolerance):
+    """The reference's inlier mask of one model (`ops/ransac.py:181-182`)."""
+    return (reprojection_error(match1, match2, H21[None])[0] < tolerance) & valid
+
+
+def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=None):
+    """Plain PyTorch: the sets drawn under `seed` (or `samples`, (n_iter, 4)
+    int32), scored, the argmax (first index on ties) and the winner's mask.
+    Returns (RansacResult, Record)."""
+    sets = draw_sets_ref(valid, seed, n_iter) if samples is None else samples
+    H, counts = ransac_score_ref(match1, match2, valid, sets, tolerance)
+    # a (1,) index gathers on the device; a 0-d tensor index is read back
+    best = torch.argmax(counts).view(1)
+    best_H = H.index_select(0, best)[0]
+    n_inl = counts.index_select(0, best)[0]
+    found = (n_inl > 0) & (valid.sum() >= N_POINTS)
+    return (RansacResult(best_H, n_inl, winner_mask(match1, match2, valid, best_H, tolerance),
+                         found, sets.index_select(0, best)[0]),
+            Record(counts, sets))
+
+
+def check_matches(match1, match2, valid):
+    """The kernels' checks of the match arrays; returns (N, device)."""
     n = match1.shape[0]
-    n_iter = samples.shape[0]
     dev = match1.device
     check(match1, "match1", torch.float32, shape=(n, 3))
     check(match2, "match2", torch.float32, shape=(n, 3), device=dev)
     check(valid, "valid", torch.bool, shape=(n,), device=dev)
-    check(samples, "samples", torch.int32, shape=(n_iter, 4), device=dev)
-    H = torch.empty((n_iter, 3, 3), dtype=torch.float32, device=dev)
-    counts = torch.empty(n_iter, dtype=torch.int32, device=dev)
-    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, ptr(samples), n_iter,
-           tolerance, ptr(H), ptr(counts), stream(match1))
-    return H, counts
+    if n > MAX_MATCHES:
+        raise ValueError(f"{n} matches: the RANSAC kernels take at most {MAX_MATCHES}")
+    return n, dev
+
+
+def draw_source(seed, samples, n_rows, dev):
+    """Pointer of the seed or of the checked injected sets (exactly one)."""
+    if (seed is None) == (samples is None):
+        raise ValueError("give exactly one of seed and samples")
+    if samples is not None:
+        check(samples, "samples", torch.int32, shape=(n_rows, N_POINTS), device=dev)
+        return None, ptr(samples)
+    check(seed, "seed", torch.int64, shape=(1,), device=dev)
+    return ptr(seed), None
+
+
+def outputs(n, dev):
+    """(H (9,) fp32, ints (8,) int32, mask and found (N + 1,) bool) and the
+    RansacResult viewing them."""
+    H = torch.empty(9, dtype=torch.float32, device=dev)
+    ints = torch.empty(8, dtype=torch.int32, device=dev)
+    flags = torch.empty(n + 1, dtype=torch.bool, device=dev)
+    return H, ints, flags, RansacResult(H.view(3, 3), ints[0], flags[:n], flags[n], ints[1:5])
+
+
+def record_outputs(n_rows, dev):
+    return Record(torch.empty(n_rows, dtype=torch.int32, device=dev),
+                  torch.empty((n_rows, N_POINTS), dtype=torch.int32, device=dev))
+
+
+_STATES = {}
+
+
+def _state(dev, raw_stream):
+    """The kernel's two-word state for a stream: zeroed once, and left
+    zeroed by every launch."""
+    key = (dev.index, raw_stream)
+    state = _STATES.get(key)
+    if state is None:
+        state = _STATES[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return state
+
+
+def ransac_fit(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
+               record=False):
+    """`ransac_fit_ref` for CPU tensors, one launch of the kernel for CUDA
+    ones: the sets drawn under `seed` ((1,) int64 on the device) or read
+    from `samples` ((n_iter, 4) int32 in [0, N)). Returns (RansacResult,
+    Record or None): the Record of every hypothesis when `record`. Nothing
+    is read back. Forward only: raises when a match array requires grad
+    under grad mode."""
+    forbid_grad("ransac_fit", match1, match2)
+    if match1.device.type == "cpu":
+        res, rec = ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed, samples)
+        return res, rec if record else None
+    n, dev = check_matches(match1, match2, valid)
+    seed_ptr, samples_ptr = draw_source(seed, samples, n_iter, dev)
+    H, ints, flags, res = outputs(n, dev)
+    rec = record_outputs(n_iter, dev) if record else None
+    counts_ptr, sets_ptr = (ptr(rec.counts), ptr(rec.sets)) if rec else (None, None)
+    slots = torch.empty(-(-n_iter // HYP_PER_BLOCK) * SLOT_WORDS, dtype=torch.float32,
+                        device=dev)
+    raw_stream = stream(match1)
+    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, seed_ptr, samples_ptr, n_iter,
+           tolerance, counts_ptr, sets_ptr, ptr(H), ptr(ints), ptr(flags),
+           ptr(_state(dev, raw_stream)), ptr(slots), raw_stream)
+    return res, rec

@@ -1,19 +1,20 @@
-"""Kernel 4: adaptive RANSAC, chunks scored until the confidence bound is met
-(`csrc/ransac_adaptive.cu`)."""
+"""Kernel 4: adaptive RANSAC, hypotheses in blocks until the confidence bound
+is met, as one persistent cooperative launch (`csrc/ransac_adaptive.cu`)."""
 
 import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
-from ransacflow_tpu_torch.kernels.ransac import ransac_score_ref
+from ransacflow_tpu_torch.kernels.build import Kernel, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.ransac import (
+    N_POINTS, SLOT_WORDS, RansacResult, Record, check_matches, draw_sets_ref, draw_source,
+    outputs, ransac_score_ref, record_outputs, winner_mask)
 
 KERNEL = Kernel("rf_ransac_adaptive",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                + [ctypes.c_void_p] * 6)
-# state slots of the source
-BEST_COUNT, BEST_SAMPLE, CHUNKS_RUN = 0, slice(1, 5), 6
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 8)
+EVALUATED = 6  # the kernel's ints: count, set (4), blocks run, hypotheses evaluated
+HYP_PER_BLOCK = 16  # kHyp in csrc/ransac_adaptive.cu: hypotheses a thread block takes
 
 
 def _chunk_done(best_count, n_valid, evaluated, n_iter, confidence):
@@ -26,57 +27,68 @@ def _chunk_done(best_count, n_valid, evaluated, n_iter, confidence):
     return evaluated >= torch.clamp_max(n_req, float(n_iter))
 
 
-def ransac_adaptive_ref(match1, match2, valid, samples, chunk, n_iter,
-                        tolerance, confidence):
-    """Plain PyTorch. samples: (n_chunks * chunk, 4) int32 match indices,
-    scored a chunk at a time. Returns (best_H (3, 3), best_count () int32,
-    best_sample (4,) int32, chunks_run () int32): the running best changes
-    only on a strictly larger chunk maximum (first index on ties), and the
-    loop stops once (chunks run) * chunk >= min(n_req, n_iter)."""
+def ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter, chunk, confidence,
+                        seed=None, samples=None):
+    """Plain PyTorch. Hypotheses c * chunk .. (c + 1) * chunk of loop block
+    c are drawn under `seed` (or are rows of `samples`, (ceil(n_iter /
+    chunk) * chunk, 4) int32) and scored; the running best changes only on a
+    strictly larger block maximum (first index on ties), and the loop stops
+    once (blocks run) * chunk >= min(n_req, n_iter). The stop test is read
+    back once a block. Returns (RansacResult, n_evaluated () int32, Record
+    of the hypotheses evaluated)."""
+    dev = match1.device
     n_valid = valid.sum(dtype=torch.int32)
-    best_H = torch.eye(3, dtype=match1.dtype, device=match1.device)
-    best_count = torch.zeros((), dtype=torch.int32, device=match1.device)
-    best_sample = torch.zeros(4, dtype=torch.int32, device=match1.device)
-    chunks_run = 0
-    for c in range(samples.shape[0] // chunk):
-        sets = samples[c * chunk:(c + 1) * chunk]
-        H, counts = ransac_score_ref(match1, match2, valid, sets, tolerance)
-        c_best = torch.argmax(counts)
-        if counts[c_best] > best_count:
-            best_count, best_H, best_sample = counts[c_best], H[c_best], sets[c_best]
-        chunks_run += 1
-        if _chunk_done(best_count, n_valid, chunks_run * chunk, n_iter, confidence):
+    best_H = torch.eye(3, dtype=match1.dtype, device=dev)
+    best_count = torch.zeros((), dtype=torch.int32, device=dev)
+    best_sample = torch.zeros(N_POINTS, dtype=torch.int32, device=dev)
+    counts, sets = [], []
+    for c in range(-(-n_iter // chunk)):
+        block = (draw_sets_ref(valid, seed, chunk, first=c * chunk) if samples is None
+                 else samples[c * chunk:(c + 1) * chunk])
+        H, block_counts = ransac_score_ref(match1, match2, valid, block, tolerance)
+        c_best = torch.argmax(block_counts)
+        if block_counts[c_best] > best_count:
+            best_count, best_H, best_sample = block_counts[c_best], H[c_best], block[c_best]
+        counts.append(block_counts)
+        sets.append(block)
+        if _chunk_done(best_count, n_valid, (c + 1) * chunk, n_iter, confidence):
             break
-    return best_H, best_count, best_sample, torch.tensor(chunks_run, dtype=torch.int32)
+    inliers = winner_mask(match1, match2, valid, best_H, tolerance) & (best_count > 0)
+    found = (best_count > 0) & (n_valid >= N_POINTS)
+    n_eval = torch.tensor(len(counts) * chunk, dtype=torch.int32, device=dev)
+    return (RansacResult(best_H, best_count, inliers, found, best_sample), n_eval,
+            Record(torch.cat(counts), torch.cat(sets)))
 
 
-def ransac_adaptive(match1, match2, valid, samples, chunk, n_iter, tolerance,
-                    confidence):
-    """`ransac_adaptive_ref` for CPU tensors, the kernel for CUDA ones, whose
-    stop test stays on the device: every chunk is enqueued, a chunk after
-    the stop returns at once, and nothing is read back. `samples` must lie
-    in [0, N). Forward only: raises when a match array requires grad under
-    grad mode."""
+def ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk, confidence,
+                    seed=None, samples=None, record=False):
+    """`ransac_adaptive_ref` for CPU tensors, one cooperative launch of the
+    kernel for CUDA ones, which runs the loop, its stop test and the
+    winner's mask on the device: nothing is read back, and blocks after the
+    stop are never run. seed: (1,) int64 on the device; samples: the
+    injected sets instead. Returns (RansacResult, n_evaluated, Record or
+    None): the Record, when `record`, holds ceil(n_iter / chunk) * chunk
+    rows, of which the first n_evaluated are written. Forward only: raises
+    when a match array requires grad under grad mode."""
     forbid_grad("ransac_adaptive", match1, match2)
     if match1.device.type == "cpu":
-        return ransac_adaptive_ref(match1, match2, valid, samples, chunk, n_iter,
-                                   tolerance, confidence)
-    n = match1.shape[0]
-    dev = match1.device
-    if chunk < 1 or samples.shape[0] % chunk:
-        raise ValueError(f"samples: {samples.shape[0]} rows is not a multiple "
-                         f"of chunk {chunk}")
-    check(match1, "match1", torch.float32, shape=(n, 3))
-    check(match2, "match2", torch.float32, shape=(n, 3), device=dev)
-    check(valid, "valid", torch.bool, shape=(n,), device=dev)
-    check(samples, "samples", torch.int32, shape=(samples.shape[0], 4), device=dev)
-    n_valid = valid.sum(dtype=torch.int32)
-    H = torch.empty((chunk, 9), dtype=torch.float32, device=dev)
-    counts = torch.empty(chunk, dtype=torch.int32, device=dev)
-    best_H = torch.eye(3, dtype=torch.float32, device=dev)
-    state = torch.zeros(8, dtype=torch.int32, device=dev)
-    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, ptr(samples),
-           samples.shape[0] // chunk, chunk, n_iter, tolerance, confidence,
-           ptr(n_valid), ptr(H), ptr(counts), ptr(best_H), ptr(state),
-           stream(match1))
-    return best_H, state[BEST_COUNT], state[BEST_SAMPLE], state[CHUNKS_RUN]
+        res, n_eval, rec = ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter,
+                                               chunk, confidence, seed, samples)
+        return res, n_eval, rec if record else None
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    n_chunks = -(-n_iter // chunk)
+    n_rows = n_chunks * chunk
+    n, dev = check_matches(match1, match2, valid)
+    seed_ptr, samples_ptr = draw_source(seed, samples, n_rows, dev)
+    H, ints, flags, res = outputs(n, dev)
+    rec = record_outputs(n_rows, dev) if record else None
+    counts_ptr, sets_ptr = (ptr(rec.counts), ptr(rec.sets)) if rec else (None, None)
+    # best (n_chunks 64-bit words), then the slots of every hypothesis block
+    n_slots = n_chunks * -(-chunk // HYP_PER_BLOCK)
+    scratch = torch.empty(2 * n_chunks + n_slots * SLOT_WORDS, dtype=torch.int32, device=dev)
+    best = ptr(scratch)
+    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, seed_ptr, samples_ptr, n_chunks,
+           chunk, n_iter, tolerance, confidence, counts_ptr, sets_ptr, ptr(H), ptr(ints),
+           ptr(flags), best, best + 8 * n_chunks, stream(match1))
+    return res, ints[EVALUATED], rec

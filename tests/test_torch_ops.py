@@ -42,7 +42,7 @@ from ransacflow_tpu_torch.kernels.heads import (
     match_epilogue_ref,
 )
 from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
-from ransacflow_tpu_torch.kernels.ransac import ransac_score, ransac_score_ref
+from ransacflow_tpu_torch.kernels.ransac import ransac_fit, ransac_fit_ref, ransac_score_ref
 from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_ref
 from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
@@ -234,15 +234,16 @@ def test_ransac_injected_samples(rng):
     ref = jransac.ransac_homography(
         jax.random.PRNGKey(0), jnp.asarray(m1), jnp.asarray(m2), jnp.asarray(valid),
         0.05, n_iter=512, injected_samples=jnp.asarray(samples))
-    ours = ransac.ransac_homography(t(m1), t(m2), t(valid), 0.05, n_iter=512,
-                                    injected_samples=t(samples))
-    assert int(ours.num_inliers) == int(ref.num_inliers) > 20
-    assert bool(ours.found) == bool(ref.found)
-    close(ours.H21, ref.H21, atol=1e-4)
-    np.testing.assert_array_equal(ours.inlier_mask.numpy(), np.asarray(ref.inlier_mask))
-    np.testing.assert_array_equal(ours.best_sample.numpy(), np.asarray(ref.best_sample))
-    _, counts = ransac_score_ref(t(m1), t(m2), t(valid), t(samples), 0.05)
-    assert (counts[:7] == 0).all()
+    op = ransac.ransac_homography(t(m1), t(m2), t(valid), 0.05, n_iter=512,
+                                  injected_samples=t(samples))
+    fit, record = ransac_fit_ref(t(m1), t(m2), t(valid), 0.05, 512, samples=t(samples))
+    for ours in (op, fit):
+        assert int(ours.num_inliers) == int(ref.num_inliers) > 20
+        assert bool(ours.found) == bool(ref.found)
+        close(ours.H21, ref.H21, atol=1e-4)
+        np.testing.assert_array_equal(ours.inlier_mask.numpy(), np.asarray(ref.inlier_mask))
+        np.testing.assert_array_equal(ours.best_sample.numpy(), np.asarray(ref.best_sample))
+    assert (record.counts[:7] == 0).all() and torch.equal(record.sets, t(samples))
 
 
 def test_sampler_draws_valid_indices_and_rejects_duplicates(rng):
@@ -353,14 +354,17 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     score = t(rng.randn(20, 9).astype(np.float32))
     for ours, ref in zip(mutual_argmax(score), mutual_argmax_ref(score)):
         torch.testing.assert_close(ours, ref)
-    m1, m2, valid = _matches(rng, n=32)
-    s = t(rng.randint(0, 32, (16, 4)).astype(np.int32))
-    for ours, ref in zip(ransac_score(t(m1), t(m2), t(valid), s, 0.05),
-                         ransac_score_ref(t(m1), t(m2), t(valid), s, 0.05)):
+    m1, m2, valid = (t(a) for a in _matches(rng, n=32))
+    seed = torch.tensor([12345], dtype=torch.int64)
+    (fit, record), (fit_ref, record_ref) = (
+        ransac_fit(m1, m2, valid, 0.05, 16, seed=seed, record=True),
+        ransac_fit_ref(m1, m2, valid, 0.05, 16, seed=seed))
+    for ours, ref in zip((*fit, *record), (*fit_ref, *record_ref)):
         torch.testing.assert_close(ours, ref, equal_nan=True)
-    for ours, ref in zip(ransac_adaptive(t(m1), t(m2), t(valid), s, 8, 16, 0.05, 0.999),
-                         ransac_adaptive_ref(t(m1), t(m2), t(valid), s, 8, 16, 0.05, 0.999)):
-        torch.testing.assert_close(ours, ref)
+    ours, ref = (ransac_adaptive(m1, m2, valid, 0.05, 16, 8, 0.999, seed=seed, record=True),
+                 ransac_adaptive_ref(m1, m2, valid, 0.05, 16, 8, 0.999, seed=seed))
+    for a, b in zip((*ours[0], *ours[1:2], *ours[2]), (*ref[0], *ref[1:2], *ref[2])):
+        torch.testing.assert_close(a, b, equal_nan=True)
     img, g = t(rng.rand(1, 6, 7, 3).astype(np.float32)), t(_warp_grid_with_border(rng, 1, 4, 5))
     torch.testing.assert_close(warp_sample(img, g), warp_sample_ref(img, g))
     args = tuple(map(t, _compose_inputs(rng)))
@@ -410,43 +414,43 @@ def test_mutual_argmax_kernel_on_card(cuda, rng):
 
 @pytest.mark.gpu
 def test_ransac_score_kernel_on_card(cuda, rng):
+    """Kernel 3 under injected sets, duplicates included, against its plain
+    version: each hypothesis's count, and the winner."""
     m1, m2, valid = _matches(rng, n=1500)
     s = t(rng.randint(0, 1500, (3000, 4)).astype(np.int32))
     s[:5, 2] = s[:5, 3]
-    args = [x.to(cuda) for x in (t(m1), t(m2), t(valid), s)]
-    H_k, c_k = ransac_score(*args, 0.05)
-    H_r, c_r = ransac_score_ref(*args, 0.05)
-    assert (c_k[:5] == 0).all()
-    assert (c_k == c_r).float().mean() >= 0.999
-    ok = c_r > 0
-    torch.testing.assert_close(H_k[ok], H_r[ok], atol=1e-4, rtol=0)
+    m1, m2, valid, s = (x.to(cuda) for x in (t(m1), t(m2), t(valid), s))
+    fit, record = ransac_fit(m1, m2, valid, 0.05, 3000, samples=s, record=True)
+    fit_r, record_r = ransac_fit_ref(m1, m2, valid, 0.05, 3000, samples=s)
+    assert (record.counts[:5] == 0).all() and torch.equal(record.sets, s)
+    assert (record.counts == record_r.counts).float().mean() >= 0.999
+    assert int(fit.num_inliers) == int(fit_r.num_inliers)
+    assert torch.equal(fit.best_sample, fit_r.best_sample)
+    torch.testing.assert_close(fit.H21, fit_r.H21, atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("structured", [True, False])
 def test_ransac_adaptive_kernel_on_card(cuda, rng, structured):
-    """Kernel 4 against its plain version on the same draws, the stop test
-    under sync-debug 'error' (nothing reads back)."""
+    """Kernel 4 against its plain version on the same seed, the op under
+    sync-debug 'error' (nothing reads back): one block, or all 12."""
     m1, m2, valid = _matches(rng, n=1200, inlier_frac=0.6 if structured else 0.0)
     m1, m2, valid = (x.to(cuda) for x in (t(m1), t(m2), t(valid)))
     gen = torch.Generator(device=cuda).manual_seed(0)
+    seed = ransac.draw_seed(torch.Generator(device=cuda).manual_seed(0), cuda)  # the op's
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        samples = ransac.sample_minimal_sets(valid, 12 * 1024, gen)
-        H, count, sample, chunks = ransac_adaptive(m1, m2, valid, samples, 1024,
-                                                   12000, 0.05, 0.999)
         res, n_eval = ransac.ransac_homography_adaptive(m1, m2, valid, 0.05, n_iter=12000,
                                                         chunk=1024, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert bool(res.found) and int(n_eval) % 1024 == 0
-    H_r, count_r, sample_r, chunks_r = ransac_adaptive_ref(m1, m2, valid, samples, 1024,
-                                                           12000, 0.05, 0.999)
-    assert int(count) == int(count_r) and int(chunks) == int(chunks_r)
-    assert int(chunks) == (1 if structured else 12)
-    torch.testing.assert_close(sample, sample_r)
-    torch.testing.assert_close(H, H_r, atol=1e-4, rtol=0)
+    ref, n_eval_r, _ = ransac_adaptive_ref(m1, m2, valid, 0.05, 12000, 1024, 0.999, seed=seed)
+    assert bool(res.found) and int(n_eval) == int(n_eval_r)
+    assert int(n_eval) == (1 if structured else 12) * 1024
+    assert int(res.num_inliers) == int(ref.num_inliers)
+    torch.testing.assert_close(res.best_sample, ref.best_sample)
+    torch.testing.assert_close(res.H21, ref.H21, atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu
@@ -492,7 +496,7 @@ def _forward_only_calls(rng, device):
     """(name, call) of every forward-only wrapper on inputs that require grad."""
     m1, m2, valid = _matches(rng, n=32)
     m1, m2, valid = (t(a).to(device) for a in (m1, m2, valid))
-    s = t(rng.randint(0, 32, (16, 4)).astype(np.int32)).to(device)
+    seed = torch.tensor([7], dtype=torch.int64, device=device)
     f8, m12, m21, coarse = (t(a).to(device) for a in _compose_inputs(rng))
     score = t(rng.randn(20, 9).astype(np.float32)).to(device)
     img = t(rng.rand(1, 16, 20, 3).astype(np.float32)).to(device)
@@ -500,9 +504,9 @@ def _forward_only_calls(rng, device):
     g = lambda x: x.clone().requires_grad_()  # noqa: E731
     return [("mutual_argmax", lambda: mutual_argmax(g(score))),
             ("correlation_pair", lambda: correlation_pair(feat, g(feat), 3)),
-            ("ransac_score", lambda: ransac_score(g(m1), m2, valid, s, 0.05)),
-            ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, s, 8, 16, 0.05,
-                                                        0.999)),
+            ("ransac_fit", lambda: ransac_fit(g(m1), m2, valid, 0.05, 16, seed=seed)),
+            ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, 0.05, 16, 8, 0.999,
+                                                        seed=seed)),
             ("compose_tail", lambda: compose_tail(g(f8), m12, m21, coarse, True)),
             ("device_pyramid", lambda: pyramid.device_pyramid(g(img), [(8, 10)])),
             ("mutual_argmax relaxed", lambda: mutual_argmax(g(score), 1, 3)),
