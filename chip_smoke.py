@@ -10,12 +10,15 @@ Phases, each of which must pass:
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
   (c) kernels: each hand-written kernel (K1-K13, K5 in its grid and its
       homography form, the backward kernels of K6, K7, K9 and K10 under
-      their own names, and K2 with relax_cells 1) against its plain PyTorch
-      version at its path's shapes (K1 the serving pyramid, K6 forward the
+      their own names, and K2 with relax_cells 1 and with the target mask
+      applied in the kernel) against its plain PyTorch version at its
+      path's shapes (K1 the serving pyramid, K2 the serving score bit for
+      bit, K6 forward the
       fine stage's (1, 60, 80, 256) and the training step's (32, 28, 28,
       256), its pair form the fine stage's and bit for bit the kernel's two
       volumes, K5's homography form the fine stage's 480x640 warp, K12 a
-      serving pair's four anchor resamples, K13 the sky mask's conv5 maps, the backward kernels and
+      serving pair's four anchor resamples and its whole 7-scale bank in one
+      launch, K13 the sky mask's conv5 maps, the backward kernels and
       K9-K11 the full-width training step's; K9 forward and backward at the
       step's three calls (the stem, layer2's and layer3's downsample); K8
       also across resolutions, a 368x1232 coarse grid composed at 375x1242;
@@ -74,8 +77,9 @@ Phases, each of which must pass:
       1, adaptive 4096); `python -m ransacflow_tpu_torch.cli.align ...
       --device cuda` in those modes (rc 0, its five outputs); the device
       multi-homography loop with relax_cells 1 against the host loop on (e)'s
-      first pair; launches of the serving kernels, anchor_resample (K12)
-      and ransac_adaptive (K4);
+      first pair; launches of the serving kernels, anchor_resample (K12, one
+      per bank) and ransac_adaptive (K4); the device kernels of one
+      rematching call, printed: the score GEMM and K2, no elementwise pass;
   (h) sky mask: `SkySegmenter` on the card against the CPU on a small image,
       then a seeded one at full width (5 scales of a 480x640 image, ms per
       image), and the `--segNet` hook (`cli.common.build_sky_fn` ->
@@ -269,36 +273,72 @@ def check_correlation(gen):
 
 
 def check_matching(gen):
-    """K2 at the serving shape (13065 x 1200), exact reciprocity with a
-    planted tie, then relax_cells=1 on the 30 x 40 target grid."""
-    from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
+    """K2 at the serving shape (13065 x 1200), every output bit for bit
+    against its plain version: the raw score with planted ties (rows of one
+    warp and of other chunks of `kernels/matching.schedule`) and a NaN in a
+    masked column, exact (no suffix), relax_cells=1 on the 30
+    x 40 target grid (`_relaxed`), the mask applied by the kernel as it
+    reads (`_masked`, `_masked_relaxed`: checked, not timed), and nB = 1199
+    with the mask (4-byte loads, `_nb1199`)."""
+    from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref, schedule
 
+    _, rows, _, _ = schedule(N_BANK, N_TARGET, True,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+    # bank rows 57, 57 + 8 (the same warp of one chunk) and 57 + rows (the
+    # next chunk) tie exactly as the best source of target 5; rows 300 and
+    # 12001 tie as target 6's
+    tie5 = (57, 57 + 8, 57 + rows)
+    require(57 // rows == 65 // rows, "planted ties: rows 57 and 65 not in one chunk")
     feat_a = _normalized((N_CHANNELS, N_BANK), 0, gen)
     feat_b = _normalized((N_CHANNELS, N_TARGET), 0, gen)
-    feat_a[:, 101] = feat_a[:, 57]  # bank rows 57 and 101 tie exactly ...
-    feat_b[:, 5] = feat_a[:, 57]    # ... as the best source of target 5
+    feat_a[:, list(tie5[1:])] = feat_a[:, 57:58]
+    feat_b[:, 5] = feat_a[:, 57]
+    feat_a[:, 12001] = feat_a[:, 300]
+    feat_b[:, 6] = feat_a[:, 300]
     valid_b = torch.rand(N_TARGET, generator=gen, device="cuda") > 0.1
-    valid_b[5] = True
-    score = (feat_a.T @ feat_b) * valid_b.float()[None, :]
-    require(score[57, 5].item() == score[101, 5].item(), "planted tie is not exact")
+    valid_b[5] = valid_b[6] = True
+    valid_b[8] = False
+    score = feat_a.T @ feat_b
+    score[77, 8] = float("nan")  # masked, it stays NaN: row 77 and target 8 match
+    require(len({score[r, 5].item() for r in tie5}) == 1
+            and score[300, 6].item() == score[12001, 6].item(), "planted ties are not exact")
+    cases = (("", (score, 0, None, None)), ("_relaxed", (score, 1, 40, None)),
+             ("_masked", (score, 0, None, valid_b)), ("_masked_relaxed", (score, 1, 40, valid_b)),
+             ("_nb1199", (score[:, :1199].contiguous(), 0, None, valid_b[:1199])))
     out = {}
-    for relax, suffix in ((0, ""), (1, "_relaxed")):
-        args = (score, relax, 40 if relax else None)
+    for suffix, args in cases:
         got = mutual_argmax(*args)
         want = mutual_argmax_ref(*args)
         torch.cuda.synchronize()
-        for name, g, w in zip(("best_src", "best_tgt", "valid"), got[:3], want[:3]):
-            require(torch.equal(g, w), f"matching{suffix}: {name} differs from the plain version")
-        require(got[0][5].item() == 57, "matching: the tie did not go to the lowest index")
-        require(not got[2][~valid_b].any().item(), "matching: a masked target matched")
-        out["max_abs_err" + suffix] = (got[3] - want[3]).abs().max().item()
+        for name, g, w in zip(("best_src", "best_tgt", "valid", "pair_score"), got, want):
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32)) if g.is_floating_point() \
+                else torch.equal(g, w)
+            require(same, f"matching{suffix}: {name} differs from the plain version")
+        require(got[0][5].item() == 57 and got[0][6].item() == 300,
+                f"matching{suffix}: a tie did not go to the lowest index")
+        if args[3] is not None:
+            lone = ~args[3]
+            lone[8] = False  # the masked NaN column matches, as in the reference
+            require(not got[2][lone].any().item(), f"matching{suffix}: a masked target matched")
+        out["max_abs_err" + suffix] = torch.where(torch.isnan(want[3]), 0.0,
+                                                  (got[3] - want[3]).abs()).max().item()
         out["n_valid" + suffix] = int(got[2].sum())
+        if suffix == "_masked_relaxed":
+            continue
         out.update(paired_ms(lambda: mutual_argmax(*args), lambda: mutual_argmax_ref(*args),
                              suffix=suffix))
-        # the score read once; a comparison per element for each argmax
-        out.update(bound(nbytes(score, *got), 2 * score.numel(), suffix))
-        out.update(library(lambda: (torch.argmax(score, 0), torch.argmax(score, 1)), suffix))
+        # the score (and the mask) read once; a comparison per element for each argmax
+        out.update(bound(nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got),
+                         2 * args[0].numel(), suffix))
+        s, mask = args[0], args[3]
+        if mask is None:
+            out.update(library(lambda: (torch.argmax(s, 0), torch.argmax(s, 1)), suffix))
+        else:  # the mask as its own pass, then both argmaxes
+            out.update(library(lambda: [torch.argmax(m, d) for m in (s * mask[None],)
+                                        for d in (0, 1)], suffix))
     require(out["n_valid_relaxed"] >= out["n_valid"], "matching: relaxing lost matches")
+    if out["device_ms"] and out["device_ms_masked"]:
+        out["masked_over_unmasked"] = out["device_ms_masked"] / out["device_ms"]
     return out
 
 
@@ -856,52 +896,67 @@ def check_masked_ssim(gen):
     return fwd, bwd
 
 
-SERVING_RESAMPLES = (((60, 80), (50, 66)), ((30, 40), (40, 53)), ((30, 40), (25, 33)),
-                     ((15, 20), (20, 26)))  # a serving pair's K12 calls at stride 3
+def _resample_ops(pairs):
+    """A multiply-add per tap and channel for each resampled (in, out) grid
+    pair, and the normalization (3 per element) for every out grid."""
+    from ransacflow_tpu_torch.kernels.anchor_resample import bilinear_weights
+    from ransacflow_tpu_torch.kernels.pyramid import taps
+
+    ops = 0
+    for (h, w), (fh, fw) in pairs:
+        if (h, w) != (fh, fw):
+            ops += 2 * N_CHANNELS * (int(taps(h, fh, bilinear_weights)[1].sum())
+                                     * int(taps(w, fw, bilinear_weights)[1].sum()))
+        ops += 3 * N_CHANNELS * fh * fw
+    return ops
 
 
 def check_anchor_resample(gen):
     """K12 at a serving pair's four resamples (anchors 0, 3, 6 of the 7-scale
-    pyramid), 1024 channels; the rows written into one bank as the path does."""
+    pyramid), 1024 channels, as one call of four scales (the keys without
+    suffix, the four resamples timed before the bank form existed); then,
+    suffix `_bank`, the whole bank of a serving pair at anchor stride 3 as
+    `pipeline.bank.anchor_bank` builds it: 7 scales, the anchors' identity
+    rows included, one launch."""
     import torch.nn.functional as F
 
     from ransacflow_tpu_torch.kernels.anchor_resample import (
-        anchor_resample_feats, anchor_resample_feats_ref, bilinear_weights)
-    from ransacflow_tpu_torch.kernels.pyramid import taps
+        anchor_resample_bank, anchor_resample_bank_ref)
+    from ransacflow_tpu_torch.pipeline.bank import nearest_anchors
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
-    maps = [3 * torch.randn((1, h, w, N_CHANNELS), generator=gen, device="cuda")
-            for (h, w), _ in SERVING_RESAMPLES]
-    sizes = [fh * fw for _, (fh, fw) in SERVING_RESAMPLES]
-    bank = torch.empty((sum(sizes), N_CHANNELS), device="cuda")
+    def lib(maps, grids):  # F.interpolate agrees with JAX's resize (tests/test_torch_fastmodes.py)
+        return [F.normalize(fmap.permute(0, 3, 1, 2) if fmap.shape[1:3] == grid else
+                            F.interpolate(fmap.permute(0, 3, 1, 2), size=grid, mode="bilinear",
+                                          align_corners=False, antialias=True), dim=1)
+                for fmap, grid in zip(maps, grids)]
 
-    def kernel():
-        offset = 0
-        for fmap, (_, (fh, fw)), n in zip(maps, SERVING_RESAMPLES, sizes):
-            anchor_resample_feats(fmap, fh, fw, out=bank[offset:offset + n])
-            offset += n
-        return bank
-
-    def plain():
-        return torch.cat([anchor_resample_feats_ref(fmap, fh, fw)
-                          for fmap, (_, (fh, fw)) in zip(maps, SERVING_RESAMPLES)])
-
-    def lib():  # F.interpolate agrees with JAX's resize (tests/test_torch_fastmodes.py)
-        return [F.normalize(F.interpolate(fmap.permute(0, 3, 1, 2), size=(fh, fw),
-                                          mode="bilinear", align_corners=False,
-                                          antialias=True), dim=1)
-                for fmap, (_, (fh, fw)) in zip(maps, SERVING_RESAMPLES)]
-
-    err = (kernel() - plain()).abs().max().item()
-    torch.cuda.synchronize()
-    # unit rows from fp32 sums of <= 9 taps in another order
-    require(err <= 1e-5, f"anchor_resample: max abs err {err} > 1e-5")
-    ops = 0  # a multiply-add per tap and channel, and the normalization
-    for (h, w), (fh, fw) in SERVING_RESAMPLES:
-        n_taps = (int(taps(h, fh, bilinear_weights)[1].sum())
-                  * int(taps(w, fw, bilinear_weights)[1].sum()))
-        ops += N_CHANNELS * (2 * n_taps + 3 * fh * fw)
-    return {"max_abs_err": err, **paired_ms(kernel, plain),
-            **bound(nbytes(*maps, bank), ops), **library(lib)}
+    shapes = pyramid_shapes()
+    nearest = nearest_anchors(shapes, 3)
+    anchors = {i: 3 * torch.randn((1, h // 16, w // 16, N_CHANNELS), generator=gen,
+                                  device="cuda")
+               for i, (h, w) in enumerate(shapes) if i in nearest}
+    out = {}
+    for suffix, scales in (("", [j for j, i in enumerate(nearest) if i != j]),
+                           ("_bank", list(range(len(shapes))))):
+        maps = {k: anchors[nearest[j]] for k, j in enumerate(scales)}
+        sub = [shapes[j] for j in scales]
+        order = list(range(len(scales)))
+        grids = [(h // 16, w // 16) for h, w in sub]
+        bank = torch.empty((sum(h * w for h, w in grids), N_CHANNELS), device="cuda")
+        kernel = lambda: anchor_resample_bank(maps, sub, order, out=bank)  # noqa: E731
+        plain = lambda: anchor_resample_bank_ref(maps, sub, order)  # noqa: E731
+        err = (kernel() - plain()).abs().max().item()
+        torch.cuda.synchronize()
+        # unit rows from fp32 sums of <= 9 taps in another order
+        require(err <= 1e-5, f"anchor_resample{suffix}: max abs err {err} > 1e-5")
+        inputs = list({id(m): m for m in maps.values()}.values())  # each map read once
+        pairs = [(tuple(maps[k].shape[1:3]), grid) for k, grid in enumerate(grids)]
+        out.update({"max_abs_err" + suffix: err, "scales" + suffix: len(scales),
+                    **paired_ms(kernel, plain, suffix=suffix),
+                    **bound(nbytes(*inputs, bank), _resample_ops(pairs), suffix),
+                    **library(lambda: lib(list(maps.values()), grids), suffix)})
+    return out
 
 
 def check_ppm_pool(gen):
@@ -1362,6 +1417,47 @@ def _align_cli(tmp, src, tgt):
     return {"seconds": seconds, "H21": np.load(f"{tmp}/out/H21.npy").tolist()}
 
 
+def _rematch_trace(coarse):
+    """One rematching call (`pipeline.coarse._match_masked` with a partial
+    mask, as every slot of a rematching loop makes it) under the profiler:
+    its device kernels are the score GEMM and K2's two, and no elementwise
+    pass multiplies the score by the mask. Returns their names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ransacflow_tpu_torch.pipeline.coarse import _match_masked
+
+    keep = torch.rand(coarse._featt.shape[0], generator=torch.Generator(device="cuda")
+                      .manual_seed(3), device="cuda") > 0.3
+
+    def rematch():
+        return _match_masked(coarse._bank, coarse._featt, keep, None, None, True,
+                             coarse.relax_cells, coarse.feat_w)
+
+    _, launches = _launches_of(rematch)
+    _require_launched("rematch", launches, exact={"mutual_argmax": 1})
+    # a session may miss its first launches (the score GEMM, or all of them):
+    # a spin kernel goes first, then three calls, and a session that did not
+    # record all three kernels of a call is taken again
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100000)
+            for _ in range(3):
+                rematch()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.self_device_time_total > 0 and "spin_kernel" not in e.key})
+        if all(any(k in n for n in names) for k in ("gemm", "chunk_kernel", "merge_kernel")):
+            break
+    print(f"(g) one rematching call, device kernels: {names}", flush=True)
+    require(all(any(k in n for n in names) for k in ("gemm", "chunk_kernel", "merge_kernel")),
+            f"rematch: the GEMM and K2's two kernels not all in the trace: {names}")
+    require(len(names) == 3, f"rematch: kernels besides the GEMM and K2's two: {names}")
+    require(not any("elementwise" in n.lower() or "MulFunctor" in n for n in names),
+            f"rematch: an elementwise pass over the score: {names}")
+    return names
+
+
 def phase_fast_modes(card, exact_pairs_s):
     """(g) The opt-in fast modes through the public entry points: a small
     pair against the CPU, the serving batch of (d) at anchor stride 3 with
@@ -1382,7 +1478,6 @@ def phase_fast_modes(card, exact_pairs_s):
     print(f"(g) small pair, anchor 3 + relax 1, card vs CPU (coarse matches identical), "
           f"max abs err: {small}", flush=True)
     shapes = pyramid_shapes()
-    n_scales = len(shapes)
     rng = np.random.RandomState(0)  # the pairs of (d)
     sources = torch.from_numpy(_blocky(rng, N_PAIRS, *shapes[0])).cuda()
     targets = torch.from_numpy(_blocky(rng, N_PAIRS, *TARGET_HW)).cuda()[:, None]
@@ -1396,9 +1491,8 @@ def phase_fast_modes(card, exact_pairs_s):
         pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
         return fused_align_batch(resnet, align, pyramids, targets, gen, n_iter=N_ITER, **kw)
 
-    # every scale of every pair is one K12 launch (an identity one at an anchor)
-    per_batch = {"anchor_resample": n_scales * N_PAIRS, "lanczos_pyramid": 1,
-                 "compose_tail": N_PAIRS}
+    # each pair's bank is one K12 launch (every scale, the anchors' own included)
+    per_batch = {"anchor_resample": N_PAIRS, "lanczos_pyramid": 1, "compose_tail": N_PAIRS}
     launches, outs = {}, {}
     outs["anchor3_relax1"], launches["fast_serving_fixed"] = _launches_of(
         lambda: serve(series["anchor3_relax1"]))
@@ -1441,7 +1535,7 @@ def phase_fast_modes(card, exact_pairs_s):
     _require_launched("align_images", launches["align_images"],
                       ("mutual_argmax", "ransac_adaptive", "warp_homography",
                        "correlation_pair", "head_epilogues", "compose_tail", "blur_pool"),
-                      {"anchor_resample": n_scales, "ransac_score": 0, "lanczos_pyramid": 0,
+                      {"anchor_resample": 1, "ransac_score": 0, "lanczos_pyramid": 0,
                        # warped_fine is the one grid-form warp
                        **_per_fine_pass(launches["align_images"], grid_form=1)})
     require(api["H21"] is not None, "align_images found no homography")
@@ -1470,7 +1564,7 @@ def phase_fast_modes(card, exact_pairs_s):
     _, launches["loop_set_pair_anchor"] = _launches_of(
         lambda: coarse.set_pair(_to_pil(srcs_np[0]), _to_pil(tgts_np[0])))
     _require_launched("set_pair, anchor mode", launches["loop_set_pair_anchor"],
-                      exact={"anchor_resample": 7, "mutual_argmax": 0})  # rematch: none cached
+                      exact={"anchor_resample": 1, "mutual_argmax": 0})  # rematch: none cached
     host, launches["loop_relax1_host"] = _launches_of(
         lambda: multi_homography_predict(coarse, align_mh, **kw))
     _require_launched("host loop, relax 1", launches["loop_relax1_host"], loop_kernels,
@@ -1484,6 +1578,7 @@ def phase_fast_modes(card, exact_pairs_s):
                       {"anchor_resample": 0, "ransac_adaptive": 0,
                        **_per_fine_pass(launches["loop_relax1_device"])})
     require(host is not None and fused is not None, "relaxed loops found nothing")
+    readings["rematch_kernels"] = _rematch_trace(coarse)
     gap = _h_error(host["coarse_h"][0], fused["coarse_h"][0])
     require(gap < 0.01, f"relaxed loops: the host loop's first H is {gap} from the device's")
     readings["loop_relax1"] = {"host_homographies": int(host["coarse_h"].shape[0]),

@@ -1,37 +1,62 @@
-// Mutual nearest-neighbour epilogue of the matching score matrix.
+// Mutual nearest-neighbour epilogue of the matching score matrix, with the
+// target mask folded in.
 //
 // Replaces: the argmax/reciprocity part of
 // ransacflow_tpu/ops/matching.py:24 mutual_matching, exact or relaxed
-// reciprocity. The score GEMM before it stays a torch.matmul, as it was a
-// plain jnp.dot in the reference.
+// reciprocity, validB applied as score * validB. The score GEMM before it
+// stays a torch.matmul, as it was a plain jnp.dot in the reference.
 //
-// Given score (nA, nB) fp32, row-major:
-//   best_src[j]   = argmax_i score[i, j]   (nB,)  best source per target
-//   best_tgt[i]   = argmax_j score[i, j]   (nA,)  best target per source
-//   pair_score[j] = score[best_src[j], j]
+// Given the raw score (nA, nB) fp32, row-major, and an optional (nB,) 0/1
+// mask m (s = score * m, the product taken per element as the reference
+// takes it: a masked NaN or inf stays NaN, a masked negative is -0.0):
+//   best_src[j]   = argmax_i s[i, j]   (nB,)  best source per target
+//   best_tgt[i]   = argmax_j s[i, j]   (nA,)  best target per source
+//   pair_score[j] = s[best_src[j], j]
 //   valid[j]      = mutual(best_tgt[best_src[j]], j)  and  pair_score[j] != 0
 // where mutual(back, j) is back == j (relax_cells = 0), or, with
 // relax_cells > 0, the Chebyshev distance of the two cells on the target's
 // row-major grid of width grid_w is <= relax_cells (cells, not flat
 // indices: no wrap across a row edge).
-// with argmax in jnp.argmax / torch.argmax order: NaN counts as the largest
-// value and ties go to the lowest index. Every reduction compares
-// (value, -index) explicitly, so the result does not depend on the order in
-// which threads meet.
+// Argmax is in jnp.argmax / torch.argmax order: NaN counts as the largest
+// value and ties go to the lowest index. Partial results cross threads and
+// blocks as 64-bit keys, (order-preserving image of the value) << 32 |
+// ~index, so that max over keys is that order (-0.0 keyed as +0.0): the
+// result does not depend on the order in which warps or blocks finish.
 //
 // What bounds it on the H100: at the serving shape (13065 x 1200) the score
-// is 63 MB, so the epilogue is a pure HBM stream (two passes, ~38 us at
-// 3.35 TB/s). Design: the row argmax gives one warp to each row (coalesced
-// along the row); the column argmax splits the rows into n_split ranges so
-// that ~1200 blocks stream the matrix with 32 neighbouring columns per warp,
-// and a last small kernel merges the partial results per column and applies
-// the reciprocity test. The three launches share the caller's stream, which
-// orders them.
+// is 63 MB, more than the 50 MB L2, so the epilogue is one HBM stream of
+// the score (~19 us at 3.35 TB/s). Design: the score is read once. A block
+// of 8 warps takes a chunk of rows and a slice of at most 1280 columns (one
+// slice up to nB = 1280); a warp takes every 8th row of the chunk, each
+// lane 16-byte loads of its columns (every 32nd float4 of the row), so the
+// row's argmax is a warp shuffle and each lane keeps its columns' running
+// argmax over the warp's rows in registers. Those registers leave room for
+// half a row's loads in flight a lane, so a warp also asks L2 for its next
+// row (one bulk prefetch) while it reduces this one: a one-row prefetch
+// read fastest of one, two and four rows ahead. The mask is staged once per
+// block in shared memory as 0/1 floats, a 16-byte read and 4 products per
+// float4 of the score (a per-lane bit mask cost more instructions and read
+// slower); to make room for the products, the masked pass compares with
+// `>` alone and takes a row with a NaN or an inf in it again with the NaN
+// rule. At the end the block's 8 warps meet in shared memory and the
+// block writes one key per column of its slice. About two blocks an SM run
+// in one wave, so the chunks' keys are ~2 MB. A second, small launch takes
+// the max of each column's keys (a warp per column at the end), applies
+// the reciprocity test and writes the outputs (and, with several slices,
+// merges the rows' slice keys). Both launches share the caller's stream,
+// which orders them; nothing is read back.
 #include "common.cuh"
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int kWarps = 8;          // warps of a chunk block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSlice = 1280;    // columns of a slice (MAX_SLICE in kernels/matching.py)
+constexpr int kMergeCols = 32;     // columns of a merge block (one a warp at the end)
+constexpr int kMergeLanes = 32;    // chunk lanes of a merge block (its warps)
 
 // true when (v, i) comes before (bv, bi) in argmax order
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -42,96 +67,264 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return i < bi;
 }
 
-constexpr int kRowWarps = 8;
-constexpr int kColTile = 32;
-constexpr int kRowLanes = 8;
-constexpr int kMergeThreads = 256;
-
-__global__ void __launch_bounds__(kRowWarps * 32) row_argmax_kernel(
-    const float* __restrict__ score, int nA, int nB, int* __restrict__ best_tgt) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (r >= nA) return;  // uniform across the warp
-  const float* row = score + static_cast<size_t>(r) * nB;
-  float bv = -INFINITY;
-  int bi = nB;  // sentinel: any real index wins the tie
-  for (int j = lane; j < nB; j += 32) {
-    const float v = row[j];
-    if (better(v, j, bv, bi)) {
-      bv = v;
-      bi = j;
-    }
+// the running argmax of a stream whose indices only grow: a later index
+// takes the place only of a smaller value, and NaN only of a non-NaN
+__device__ __forceinline__ void take_later(float v, int i, float& bv, int& bi) {
+  if (v > bv || (isnan(v) && !isnan(bv))) {
+    bv = v;
+    bi = i;
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (better(ov, oi, bv, bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if (lane == 0) best_tgt[r] = bi;
 }
 
-__global__ void __launch_bounds__(kColTile * kRowLanes) col_partial_kernel(
-    const float* __restrict__ score, int nA, int nB, int rows_per_split,
-    float* __restrict__ part_v, int* __restrict__ part_i) {
-  __shared__ float sv[kRowLanes][kColTile];
-  __shared__ int si[kRowLanes][kColTile];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int j = blockIdx.x * kColTile + tx;
-  const int s = blockIdx.y;
-  const int r0 = s * rows_per_split;
-  const int r1 = min(nA, r0 + rows_per_split);
-  float bv = -INFINITY;
-  int bi = nA;  // sentinel
-  if (j < nB) {
-    for (int r = r0 + ty; r < r1; r += kRowLanes) {
-      const float v = score[static_cast<size_t>(r) * nB + j];
-      if (better(v, r, bv, bi)) {
-        bv = v;
-        bi = r;
+__device__ __forceinline__ unsigned long long make_key(float v, int i) {
+  unsigned b;
+  if (isnan(v)) {
+    b = 0xFFFFFFFFu;
+  } else {
+    const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+    b = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  }
+  return (static_cast<unsigned long long>(b) << 32) | static_cast<unsigned>(~i);
+}
+
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return static_cast<int>(~static_cast<unsigned>(key & 0xFFFFFFFFull));
+}
+
+template <int kVec>
+struct Load;
+template <>
+struct Load<4> {
+  __device__ __forceinline__ static void get(const float* p, float* v) {
+    set(__ldcs(reinterpret_cast<const float4*>(p)), v);  // streamed: read once
+  }
+  __device__ __forceinline__ static void get_shared(const float* p, float* v) {
+    set(*reinterpret_cast<const float4*>(p), v);
+  }
+  __device__ __forceinline__ static void set(float4 a, float* v) {
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+};
+template <>
+struct Load<1> {
+  __device__ __forceinline__ static void get(const float* p, float* v) { v[0] = __ldcs(p); }
+  __device__ __forceinline__ static void get_shared(const float* p, float* v) { v[0] = *p; }
+};
+
+// An L2 prefetch of `n` floats from p, as one bulk request (16-byte aligned
+// rows of a multiple of 4 floats) or one request per 128-byte line.
+template <int kVec>
+__device__ __forceinline__ void prefetch_l2(const float* p, int n) {
+  if (kVec == 4) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(n * 4) : "memory");
+  } else {
+    for (int i = 0; i < n; i += 32) asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
+  }
+}
+
+// One row of the lane's columns into their running argmaxes (bv, bi) and
+// the row's (rv, ri), with torch.argmax's NaN rule (kExact), or with `>`
+// alone, exact for every value but NaN, returning a probe that is NaN when
+// the lane met a NaN or an inf (a sum of x * 0): the caller then runs the
+// row again in the exact order (a row applied twice changes no result of
+// the first pass but for NaN).
+template <int kVec, bool kMasked, bool kExact, int kUnits>
+__device__ __forceinline__ float scan_row(const float* row, const float* smask, int lane,
+                                          int ng, int c0, int r, float (&bv)[kUnits][kVec],
+                                          int (&bi)[kUnits][kVec], float& rv, int& ri) {
+  constexpr int kHalf = (kUnits + 1) / 2;
+  float probe = 0.f;
+  // the lane's loads in two halves: half the registers, and a half's loads
+  // still all in flight together
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[kHalf][kVec];
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const int q = lane + 32 * (h * kHalf + k);
+      if (h * kHalf + k < kUnits && q < ng) Load<kVec>::get(row + q * kVec, v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const int u = h * kHalf + k;
+      const int q = lane + 32 * u;
+      if (u < kUnits && q < ng) {
+        float m[kVec];
+        if (kMasked) Load<kVec>::get_shared(smask + q * kVec, m);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float x = kMasked ? v[k][e] * m[e] : v[k][e];
+          const int col = c0 + q * kVec + e;
+          if (kExact) {
+            take_later(x, r, bv[u][e], bi[u][e]);
+            take_later(x, col, rv, ri);
+          } else {
+            if (x > bv[u][e]) {
+              bv[u][e] = x;
+              bi[u][e] = r;
+            }
+            if (x > rv) {
+              rv = x;
+              ri = col;
+            }
+            probe = fmaf(x, 0.f, probe);
+          }
+        }
       }
     }
   }
-  sv[ty][tx] = bv;
-  si[ty][tx] = bi;
+  return probe;
+}
+
+// One block: the rows [r0, r0 + rows_per_block) of the slice
+// [c0, c0 + slice_w) (blockIdx = (chunk, slice)). kVec = 4 needs nB % 4 == 0
+// and a 16-byte aligned score (then every row and slice starts aligned).
+// Writes col_key[chunk * nB + j] for the slice's columns and, per row, the
+// row's best over the slice: its index into best_tgt (one slice) or its key
+// into row_key[r * n_slices + slice].
+template <int kVec, bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2) chunk_kernel(
+    const float* __restrict__ score, const unsigned char* __restrict__ valid_b, int nA,
+    int nB, int rows_per_block, int slice_w, unsigned long long* __restrict__ col_key,
+    unsigned long long* __restrict__ row_key, int* __restrict__ best_tgt) {
+  constexpr int kUnits = kMaxSlice / (32 * kVec);  // loads of a lane per row
+  extern __shared__ unsigned long long smem[];     // [kWarps][slice_w] keys, then the mask
+  float* smask = reinterpret_cast<float*>(smem + kWarps * slice_w);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int slice = blockIdx.y, n_slices = gridDim.y;
+  const int c0 = slice * slice_w;
+  const int cw = min(slice_w, nB - c0);
+  const int ng = cw / kVec;  // the slice's loads per row
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(nA, r0 + rows_per_block);
+  const int first = r0 + warp;
+  // the warp's first row on its way to L2 before anything else waits
+  if (lane == 0 && first < r1) prefetch_l2<kVec>(score + static_cast<size_t>(first) * nB + c0, cw);
+  if (kMasked) {
+    for (int j = threadIdx.x; j < cw; j += kThreads) smask[j] = valid_b[c0 + j] ? 1.f : 0.f;
+    __syncthreads();
+  }
+
+  // a lane's columns: c0 + (lane + 32 k) * kVec + e
+  float bv[kUnits][kVec];
+  int bi[kUnits][kVec];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      bv[k][e] = -INFINITY;
+      bi[k][e] = first < r1 ? first : 0x7FFFFFFF;  // no row: loses every tie
+    }
+  }
+  for (int r = first; r < r1; r += kWarps) {
+    const float* row = score + static_cast<size_t>(r) * nB + c0;
+    // the warp's next row on its way to L2 while this one is reduced
+    if (lane == 0 && r + kWarps < r1) prefetch_l2<kVec>(row + static_cast<size_t>(kWarps) * nB, cw);
+    const int r_init = lane < ng ? c0 + lane * kVec : 0x7FFFFFFF;
+    float rv = -INFINITY;
+    int ri = r_init;
+    // with the mask, `>` alone and a second pass in the exact order for a
+    // row with a NaN or an inf in it: the product's instructions leave no
+    // room for the NaN rule on every value (both read faster this way with
+    // the mask and slower without it, or with 4-byte loads)
+    constexpr bool kFast = kMasked && kVec == 4;
+    const float probe = scan_row<kVec, kMasked, !kFast, kUnits>(row, smask, lane, ng, c0, r,
+                                                                bv, bi, rv, ri);
+    if (kFast && __any_sync(0xffffffffu, probe != probe)) {
+      rv = -INFINITY;
+      ri = r_init;
+      scan_row<kVec, kMasked, true, kUnits>(row, smask, lane, ng, c0, r, bv, bi, rv, ri);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, rv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, ri, off);
+      if (better(ov, oi, rv, ri)) {
+        rv = ov;
+        ri = oi;
+      }
+    }
+    if (lane == 0) {
+      if (n_slices == 1) {
+        best_tgt[r] = ri;
+      } else {
+        row_key[static_cast<size_t>(r) * n_slices + slice] = make_key(rv, ri);
+      }
+    }
+  }
+
+  // the warps' column argmaxes meet in shared memory; the block's goes out
+  unsigned long long* mine = smem + warp * slice_w;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int q = lane + 32 * k;
+    if (q < ng) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) mine[q * kVec + e] = make_key(bv[k][e], bi[k][e]);
+    }
+  }
   __syncthreads();
-  if (ty == 0 && j < nB) {
-    for (int t = 1; t < kRowLanes; ++t) {
-      if (better(sv[t][tx], si[t][tx], bv, bi)) {
-        bv = sv[t][tx];
-        bi = si[t][tx];
-      }
-    }
-    part_v[static_cast<size_t>(s) * nB + j] = bv;
-    part_i[static_cast<size_t>(s) * nB + j] = bi;
+  unsigned long long* out = col_key + static_cast<size_t>(blockIdx.x) * nB + c0;
+  for (int j = threadIdx.x; j < cw; j += kThreads) {
+    unsigned long long key = smem[j];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) key = max(key, smem[w * slice_w + j]);
+    out[j] = key;
   }
 }
 
-__global__ void __launch_bounds__(kMergeThreads) merge_kernel(
-    const float* __restrict__ score, int nB, int n_split,
-    const float* __restrict__ part_v, const int* __restrict__ part_i,
-    const int* __restrict__ best_tgt, int relax_cells, int grid_w,
-    int* __restrict__ best_src, unsigned char* __restrict__ valid,
-    float* __restrict__ pair_score) {
-  const int j = blockIdx.x * kMergeThreads + threadIdx.x;
-  if (j >= nB) return;
-  float bv = part_v[j];
-  int bi = part_i[j];
-  for (int s = 1; s < n_split; ++s) {
-    const float v = part_v[static_cast<size_t>(s) * nB + j];
-    const int i = part_i[static_cast<size_t>(s) * nB + j];
-    if (better(v, i, bv, bi)) {
-      bv = v;
-      bi = i;
+// the best target of row r over its slices' keys
+__device__ __forceinline__ int row_best(const unsigned long long* __restrict__ row_key,
+                                        int r, int n_slices) {
+  unsigned long long key = 0ull;
+  for (int s = 0; s < n_slices; ++s) {
+    key = max(key, row_key[static_cast<size_t>(r) * n_slices + s]);
+  }
+  return key_index(key);
+}
+
+// Blocks [0, ceil(nB / kMergeCols)): a column's key over the chunks, then
+// the reciprocity test and the outputs. With several slices, the blocks
+// after them merge each row's slice keys into best_tgt.
+__global__ void __launch_bounds__(kMergeCols * kMergeLanes) merge_kernel(
+    const float* __restrict__ score, const unsigned char* __restrict__ valid_b, int nA,
+    int nB, int n_chunks, int n_slices, const unsigned long long* __restrict__ col_key,
+    const unsigned long long* __restrict__ row_key, int relax_cells, int grid_w,
+    int* __restrict__ best_src, int* __restrict__ best_tgt,
+    unsigned char* __restrict__ valid, float* __restrict__ pair_score) {
+  __shared__ unsigned long long part[kMergeLanes][kMergeCols + 1];
+  const int n_col_blocks = (nB + kMergeCols - 1) / kMergeCols;
+  if (static_cast<int>(blockIdx.x) >= n_col_blocks) {
+    const int r = (blockIdx.x - n_col_blocks) * blockDim.x + threadIdx.x;
+    if (r < nA) best_tgt[r] = row_best(row_key, r, n_slices);
+    return;
+  }
+  const int tx = threadIdx.x % kMergeCols, ty = threadIdx.x / kMergeCols;
+  const int col = blockIdx.x * kMergeCols + tx;  // the column this thread's loads take
+  unsigned long long key = 0ull;
+  if (col < nB) {
+#pragma unroll 4
+    for (int c = ty; c < n_chunks; c += kMergeLanes) {
+      key = max(key, col_key[static_cast<size_t>(c) * nB + col]);
     }
   }
-  const float ps = score[static_cast<size_t>(bi) * nB + j];
+  part[ty][tx] = key;
+  __syncthreads();
+  // warp ty takes column ty of the block: a shuffle over the 32 chunk lanes
+  key = part[tx][ty];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+  const int j = blockIdx.x * kMergeCols + ty;
+  if (tx != 0 || j >= nB) return;
+  const int bi = key_index(key);
+  float ps = score[static_cast<size_t>(bi) * nB + j];
+  if (valid_b != nullptr) ps *= valid_b[j] ? 1.f : 0.f;
   best_src[j] = bi;
   pair_score[j] = ps;
-  const int back = best_tgt[bi];
+  const int back = n_slices == 1 ? best_tgt[bi] : row_best(row_key, bi, n_slices);
   bool mutual = back == j;
   if (relax_cells > 0) {
     const int d_row = abs(back / grid_w - j / grid_w);
@@ -141,28 +334,53 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(
   valid[j] = (mutual && ps != 0.f) ? 1 : 0;
 }
 
+template <int kVec, bool kMasked>
+cudaError_t launch_chunks(const float* score, const unsigned char* valid_b, int nA, int nB,
+                          int n_chunks, int rows_per_block, int n_slices, int slice_w,
+                          unsigned long long* col_key, unsigned long long* row_key,
+                          int* best_tgt, cudaStream_t stream) {
+  const int smem = kWarps * slice_w * 8 + (kMasked ? slice_w * 4 : 0);
+  if (smem > 48 * 1024) {  // the opt-in, set on the current device
+    const cudaError_t err = cudaFuncSetAttribute(
+        chunk_kernel<kVec, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  chunk_kernel<kVec, kMasked><<<dim3(n_chunks, n_slices), kThreads, smem, stream>>>(
+      score, valid_b, nA, nB, rows_per_block, slice_w, col_key, row_key, best_tgt);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// part_v / part_i: caller-allocated scratch of n_split * nB entries.
-// Needs nA >= 1, nB >= 1, 1 <= n_split <= nA, and grid_w >= 1 when
+// score (nA, nB) fp32 row-major; valid_b (nB,) 0/1 bytes or null (no mask).
+// The wrapper's schedule (kernels/matching.schedule): n_chunks blocks of
+// rows_per_block rows by n_slices slices of slice_w columns (slice_w <=
+// 1280, a multiple of 4 when vec). vec: nB % 4 == 0 and score 16-byte
+// aligned. keys: caller-allocated scratch of n_chunks * nB column keys,
+// then nA * n_slices row keys when n_slices > 1. grid_w >= 1 when
 // relax_cells > 0.
-RF_API int rf_mutual_argmax(const float* score, int nA, int nB, int n_split,
-                            int relax_cells, int grid_w,
-                            float* part_v, int* part_i, int* best_src,
-                            int* best_tgt, unsigned char* valid,
-                            float* pair_score, cudaStream_t stream) {
-  const int rows_per_split = (nA + n_split - 1) / n_split;
-  row_argmax_kernel<<<(nA + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
-                      stream>>>(score, nA, nB, best_tgt);
-  cudaError_t err = cudaGetLastError();
+RF_API int rf_mutual_argmax(const float* score, const unsigned char* valid_b, int nA,
+                            int nB, int n_chunks, int rows_per_block, int n_slices,
+                            int slice_w, int vec, int relax_cells, int grid_w,
+                            unsigned long long* keys, int* best_src, int* best_tgt,
+                            unsigned char* valid, float* pair_score,
+                            cudaStream_t stream) {
+  if (slice_w > kMaxSlice || slice_w < 1 || (vec && slice_w % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned long long* col_key = keys;
+  unsigned long long* row_key = keys + static_cast<size_t>(n_chunks) * nB;
+  const bool masked = valid_b != nullptr;
+  const auto launch = vec ? (masked ? launch_chunks<4, true> : launch_chunks<4, false>)
+                          : (masked ? launch_chunks<1, true> : launch_chunks<1, false>);
+  const cudaError_t err = launch(score, valid_b, nA, nB, n_chunks, rows_per_block, n_slices,
+                                 slice_w, col_key, row_key, best_tgt, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nB + kColTile - 1) / kColTile, n_split);
-  col_partial_kernel<<<grid, dim3(kColTile, kRowLanes), 0, stream>>>(
-      score, nA, nB, rows_per_split, part_v, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<<<(nB + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
-                 stream>>>(score, nB, n_split, part_v, part_i, best_tgt,
-                           relax_cells, grid_w, best_src, valid, pair_score);
+  const int n_col_blocks = (nB + kMergeCols - 1) / kMergeCols;
+  constexpr int kMergeThreads = kMergeCols * kMergeLanes;
+  const int n_row_blocks = n_slices > 1 ? (nA + kMergeThreads - 1) / kMergeThreads : 0;
+  merge_kernel<<<n_col_blocks + n_row_blocks, kMergeThreads, 0, stream>>>(
+      score, valid_b, nA, nB, n_chunks, n_slices, col_key, row_key, relax_cells, grid_w,
+      best_src, best_tgt, valid, pair_score);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""Kernel 12: the anchor mode's feature resample and L2 normalization
-(`csrc/anchor_resample.cu`)."""
+"""Kernel 12: the anchor mode's feature bank, every scale's resample and L2
+normalization in one launch (`csrc/anchor_resample.cu`)."""
 
 import ctypes
 
@@ -10,12 +10,17 @@ from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, 
 from ransacflow_tpu_torch.kernels.pyramid import taps, resize_weights
 from ransacflow_tpu_torch.models.layers import l2_normalize
 
-KERNEL = Kernel("rf_anchor_resample",
-                [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-                + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                + [ctypes.c_void_p] * 2)
-MAX_CHANNELS = 2048  # kThreads * kPerThread in the source
-_taps_on_device = {}  # (in, out, device) -> (start, count, weights, T)
+KERNEL = Kernel("rf_anchor_resample_bank",
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+MAX_CHANNELS = 2048     # 32 lanes x 16 float4s in the source
+MAX_SCALES = 16         # kMaxScales: rows of the per-scale table
+MAX_SMEM = 227 * 1024   # kMaxSmem: shared memory a block can have on the H100
+TILE = 8                # kWarps: cells of a block (a resampled scale's output row tile)
+# the per-scale fields of `bank_plan`'s meta, in the order of the source's enum
+META = ("in", "h", "w", "fh", "fw", "row_idx", "row_w", "row_t", "col_idx", "col_w",
+        "col_t", "cell0", "identity", "tiles_x", "span_idx")
+_plans = {}  # (anchor sizes, grids, device) -> plan with its taps on the device
 
 
 def triangle(x):
@@ -42,38 +47,152 @@ def anchor_resample_feats_ref(fmap, fh, fw):
     return l2_normalize(x).reshape(fh * fw, c)
 
 
-def _axis(in_size, out_size, device):
-    key = (in_size, out_size, device)
-    if key not in _taps_on_device:
-        start, count, w = taps(in_size, out_size, bilinear_weights)
-        _taps_on_device[key] = (torch.from_numpy(start).to(device),
-                                torch.from_numpy(count).to(device),
-                                torch.from_numpy(np.ascontiguousarray(w)).to(device),
-                                w.shape[1])
-    return _taps_on_device[key]
+def anchor_resample_bank_ref(maps, shapes, nearest, stride=16):
+    """Plain PyTorch: the (nA, C) bank of `shapes` ((H, W) per scale), scale
+    j's rows `anchor_resample_feats_ref` of `maps[nearest[j]]` (a (1, h, w,
+    C) pre-normalization map) at its grid (H // stride, W // stride)."""
+    return torch.cat([anchor_resample_feats_ref(maps[i], h // stride, w // stride)
+                      for (h, w), i in zip(shapes, nearest)])
+
+
+def _spans(cs, cc):
+    """(first input column, columns) that each tile of TILE output columns
+    reads ((0, 0) when none reads a column)."""
+    out = []
+    for x0 in range(0, len(cs), TILE):
+        live = cc[x0:x0 + TILE] > 0
+        if not live.any():
+            out.append((0, 0))
+            continue
+        lo = int(cs[x0:x0 + TILE][live].min())
+        out.append((lo, int((cs[x0:x0 + TILE] + cc[x0:x0 + TILE])[live].max()) - lo))
+    return out
+
+
+def _interleave(a, b):
+    """a and b merged, each spread evenly over the result (a first)."""
+    out, ia, ib = [], 0, 0
+    while ia < len(a) or ib < len(b):
+        if ib == len(b) or (ia < len(a) and ia * len(b) <= ib * len(a)):
+            out.append(a[ia])
+            ia += 1
+        else:
+            out.append(b[ib])
+            ib += 1
+    return out
+
+
+def bank_plan(in_sizes, grids):
+    """K12's launch plan, as numpy arrays: scale j resamples an (h, w) =
+    in_sizes[j] map to its (fh, fw) = grids[j]. An identity scale's block
+    takes TILE consecutive rows of the bank; a resampled scale's block takes
+    TILE neighbouring cells of one output row (tiles_x a row) and stages the
+    row taps of the tile's span of input columns. Returns meta (one row of
+    META fields per scale; "in", the input pointer, is 0 here and set per
+    call), the packed taps (starts, counts, weights: per resampled scale its
+    rows', then its columns'), spans ((first input column, columns) per tile
+    of each resampled scale), order (the job of each block, (scale << 24) |
+    block of the scale: the resampled blocks, bound by L2, spread evenly
+    among the identity ones, bound by HBM), n_cells and max_span (input
+    columns a block stages at most)."""
+    meta, starts, counts, weights, spans = [], [], [], [], []
+    jobs = {True: [], False: []}  # identity -> its blocks' jobs
+    n = dict.fromkeys(("idx", "w", "span", "cell0", "max_span"), 0)
+    for j, ((h, w), (fh, fw)) in enumerate(zip(in_sizes, grids)):
+        m = dict.fromkeys(META, 0)
+        m.update(h=h, w=w, fh=fh, fw=fw, cell0=n["cell0"], identity=int((h, w) == (fh, fw)))
+        if m["identity"]:
+            n_blocks = -(-fh * fw // TILE)
+        else:
+            rs, rc, rw = taps(h, fh, bilinear_weights)
+            cs, cc, cw = taps(w, fw, bilinear_weights)
+            tiles = _spans(cs, cc)
+            m.update(row_idx=n["idx"], row_w=n["w"], row_t=rw.shape[1], col_idx=n["idx"] + fh,
+                     col_w=n["w"] + rw.size, col_t=cw.shape[1], tiles_x=len(tiles),
+                     span_idx=n["span"])
+            starts += [rs, cs]
+            counts += [rc, cc]
+            weights += [rw.ravel(), cw.ravel()]
+            spans.append(np.array(tiles, np.int32).ravel())
+            n["idx"] += fh + fw
+            n["w"] += rw.size + cw.size
+            n["span"] += 2 * len(tiles)
+            n["max_span"] = max(n["max_span"], max(k for _, k in tiles))
+            n_blocks = fh * len(tiles)
+        jobs[bool(m["identity"])] += [(j << 24) | b for b in range(n_blocks)]
+        meta.append([m[f] for f in META])
+        n["cell0"] += fh * fw
+    cat = lambda parts, dtype: (np.concatenate(parts).astype(dtype) if parts  # noqa: E731
+                                else np.zeros(1, dtype))
+    return {"meta": np.array(meta, np.int64), "starts": cat(starts, np.int32),
+            "counts": cat(counts, np.int32), "weights": cat(weights, np.float32),
+            "spans": cat(spans, np.int32),
+            "order": np.array(_interleave(jobs[False], jobs[True]), np.int32),
+            "n_cells": n["cell0"], "max_span": n["max_span"]}
+
+
+def _plan(in_sizes, grids, device):
+    """`bank_plan` with its taps on the device (the per-scale table stays on
+    the host: the launch passes it as a kernel parameter), built once per
+    sizes and device and kept."""
+    key = (in_sizes, grids, device)
+    if key not in _plans:
+        plan = bank_plan(in_sizes, grids)
+        for name in ("starts", "counts", "weights", "spans", "order"):
+            plan[name] = torch.from_numpy(plan[name]).to(device)
+        _plans[key] = plan
+    return _plans[key]
+
+
+def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
+    """`anchor_resample_bank_ref` for CPU maps; for CUDA ones, the kernel
+    writes every scale's rows, identity ones included, in one launch.
+    maps: indexable by the anchor indices of `nearest` (a dict or a list),
+    each a contiguous (1, h, w, C) fp32 map; shapes: (H, W) per scale;
+    nearest: the anchor index per scale (`pipeline.bank.nearest_anchors`).
+    `out`: an optional contiguous (nA, C) place for the bank. At most
+    MAX_SCALES scales. Forward only."""
+    srcs = [maps[i] for i in nearest]
+    if not 1 <= len(srcs) <= MAX_SCALES or len(shapes) != len(srcs):
+        raise ValueError(f"anchor_resample_bank: {len(shapes)} scales and {len(srcs)} "
+                         f"anchors; expected the same number, 1 to {MAX_SCALES}")
+    forbid_grad("anchor_resample_bank", *srcs)
+    if srcs[0].device.type == "cpu":
+        bank = anchor_resample_bank_ref(maps, shapes, nearest, stride)
+        return bank if out is None else out.copy_(bank)
+    dev, c = srcs[0].device, srcs[0].shape[-1]
+    for j, fmap in enumerate(srcs):
+        check(fmap, f"maps[{nearest[j]}]", torch.float32, ndim=4, device=dev)
+        if fmap.shape[0] != 1 or fmap.shape[-1] != c or fmap.numel() >= 2**31:
+            raise ValueError(f"maps[{nearest[j]}]: shape {tuple(fmap.shape)}, expected "
+                             f"(1, h, w, {c}) with fewer than 2^31 elements")
+        if ptr(fmap) % 16:
+            raise ValueError(f"maps[{nearest[j]}]: must be 16-byte aligned")
+    if c % 4 or c > MAX_CHANNELS:
+        raise ValueError(f"anchor_resample_bank: C = {c}, expected a multiple of 4 "
+                         f"<= {MAX_CHANNELS}")
+    plan = _plan(tuple(tuple(m.shape[1:3]) for m in srcs),
+                 tuple((h // stride, w // stride) for h, w in shapes), dev)
+    n_cells, smem = plan["n_cells"], plan["max_span"] * c * 4
+    if n_cells * c >= 2**31:
+        raise ValueError("anchor_resample_bank: the bank must hold fewer than 2^31 elements")
+    if smem > MAX_SMEM:
+        raise ValueError(f"anchor_resample_bank: a tile stages {plan['max_span']} input "
+                         f"columns, {smem} bytes of shared memory > {MAX_SMEM}")
+    if out is None:
+        out = torch.empty((n_cells, c), dtype=torch.float32, device=dev)
+    check(out, "out", torch.float32, shape=(n_cells, c), device=dev)
+    if ptr(out) % 16:
+        raise ValueError("out: must be 16-byte aligned")
+    meta = plan["meta"].copy()
+    meta[:, 0] = [ptr(m) for m in srcs]
+    KERNEL(dev, meta.ctypes.data, len(srcs), ptr(plan["starts"]), ptr(plan["counts"]),
+           ptr(plan["weights"]), ptr(plan["spans"]), ptr(plan["order"]), len(plan["order"]),
+           c, ptr(out), smem, stream(out))
+    return out
 
 
 def anchor_resample_feats(fmap, fh, fw, out=None):
-    """`anchor_resample_feats_ref` for a CPU tensor; for a CUDA one, the
-    kernel (taps built once per size pair and kept on the device). `out`:
-    an optional contiguous (fh * fw, C) place to write the rows, such as a
-    slice of the caller's bank. Forward only."""
-    forbid_grad("anchor_resample_feats", fmap)
-    if fmap.device.type == "cpu":
-        rows = anchor_resample_feats_ref(fmap, fh, fw)
-        return rows if out is None else out.copy_(rows)
-    check(fmap, "fmap", torch.float32, ndim=4)
-    _, h, w, c = fmap.shape
-    if fmap.shape[0] != 1 or c > MAX_CHANNELS:
-        raise ValueError(f"fmap: shape {tuple(fmap.shape)}, expected (1, h, w, C <= "
-                         f"{MAX_CHANNELS})")
-    if fmap.numel() >= 2**31 or fh * fw * c >= 2**31:
-        raise ValueError("anchor_resample_feats: tensors must hold fewer than 2^31 elements")
-    if out is None:
-        out = torch.empty((fh * fw, c), dtype=torch.float32, device=fmap.device)
-    check(out, "out", torch.float32, shape=(fh * fw, c), device=fmap.device)
-    rs, rc, rw, rt = _axis(h, fh, fmap.device)
-    cs, cc, cw, ct = _axis(w, fw, fmap.device)
-    KERNEL(fmap.device, ptr(fmap), w, c, fh, fw, ptr(rs), ptr(rc), ptr(rw), rt,
-           ptr(cs), ptr(cc), ptr(cw), ct, ptr(out), stream(fmap))
-    return out
+    """One map's rows: `anchor_resample_bank` of one (fh, fw) scale.
+    `out`: an optional contiguous (fh * fw, C) place for the rows."""
+    return anchor_resample_bank([fmap], [(fh, fw)], [0], out, stride=1)

@@ -33,7 +33,9 @@ def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     """Mutual NN matching between L2-normalized banks featA (C, nA) and
     featB (C, nB). A pair (i, j) is kept iff i is the argmax of column j, j
     the argmax of row i, and the score is nonzero; ties go to the lowest
-    index. Masked target cells (validB False) score 0.
+    index. Masked target cells (validB False) score 0: the (nB,) bool mask
+    goes to the epilogue with the raw score, which applies it as it reads
+    (no pass of its own over the score).
 
     relax_cells > 0 (the anchor mode's companion): the back-match of j may
     land within this Chebyshev radius of j, in cells of the row-major target
@@ -41,13 +43,14 @@ def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     on a masked cell (score 0, when every unmasked score of the source row
     is negative) still validates its unmasked neighbours.
     """
-    best_src, _, valid, pair_score = mutual_argmax(_score(featA, featB, validB),
-                                                   relax_cells, grid_w)
+    best_src, _, valid, pair_score = mutual_argmax(featA.T @ featB, relax_cells, grid_w,
+                                                   validB)
     return MatchResult(best_src, valid, pair_score)
 
 
 def mutual_matching_ref(featA, featB, validB=None, relax_cells=0, grid_w=None):
-    """`mutual_matching` through the plain epilogue, on any device."""
+    """`mutual_matching` through the plain epilogue, on any device, the
+    score multiplied by the mask first."""
     best_src, _, valid, pair_score = mutual_argmax_ref(_score(featA, featB, validB),
                                                        relax_cells, grid_w)
     return MatchResult(best_src, valid, pair_score)

@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_feats
+from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_bank
 from ransacflow_tpu_torch.models.layers import l2_normalize
 from ransacflow_tpu_torch.models.resnet50 import imagenet_preprocess, resnet50_layer3
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
@@ -47,17 +47,9 @@ def anchor_bank(resnet, images, anchor_stride, stride=16):
     """The anchor mode's (nA, 1024) bank of (1, H, W, 3) `images`: the trunk
     runs on the anchor scales only, and each scale's L2-normalized rows are
     its nearest anchor's pre-normalization map resampled to the scale's grid
-    (kernel 12, an identity resize for the anchors themselves), written in
-    place into the bank."""
+    (an identity for the anchors themselves), every scale in one launch of
+    kernel 12."""
     shapes = [tuple(im.shape[1:3]) for im in images]
     nearest = nearest_anchors(shapes, anchor_stride)
     maps = {i: coarse_feat_map(resnet, images[i]) for i in sorted(set(nearest))}
-    cells = [(h // stride) * (w // stride) for h, w in shapes]
-    c = maps[nearest[0]].shape[-1]
-    bank = torch.empty((sum(cells), c), dtype=torch.float32, device=images[0].device)
-    offset = 0
-    for (h, w), n, i in zip(shapes, cells, nearest):
-        anchor_resample_feats(maps[i], h // stride, w // stride,
-                              out=bank[offset:offset + n])
-        offset += n
-    return bank
+    return anchor_resample_bank(maps, shapes, nearest, stride=stride)

@@ -27,7 +27,10 @@ from ransacflow_tpu.pipeline import fused as jfused
 from ransacflow_tpu.pipeline import init_alignment_params as j_init_align
 from ransacflow_tpu_torch import kernels
 from ransacflow_tpu_torch.cli import align as cli_align
+from ransacflow_tpu_torch.kernels import anchor_resample
 from ransacflow_tpu_torch.kernels.anchor_resample import (
+    anchor_resample_bank,
+    anchor_resample_bank_ref,
     anchor_resample_feats,
     anchor_resample_feats_ref,
 )
@@ -109,6 +112,112 @@ def test_interpolate_antialias_agrees_with_jax_bilinear(rng):
                             align_corners=False, antialias=True)
         lib = F.normalize(lib, dim=1).permute(0, 2, 3, 1).reshape(fh * fw, 32)
         close(lib, _jax_resample(fmap, fh, fw), atol=1e-5)
+
+
+def _serving_anchor_maps(rng, stride, channels=8):
+    """The 7-scale serving pyramid's shapes, JAX's nearest anchor of each
+    scale (`ransacflow_tpu/pipeline/fused.py:105-111`) and numpy-seeded
+    pre-normalization maps of the anchors at their grids."""
+    shapes = pyramid_shapes()
+    anchors = list(range(0, len(shapes), stride))
+    log_scale = [0.5 * np.log(float(h * w)) for h, w in shapes]
+    nearest = [min(anchors, key=lambda a: abs(log_scale[a] - log_scale[j]))
+               for j in range(len(shapes))]
+    maps = {i: (3 * rng.randn(1, shapes[i][0] // 16, shapes[i][1] // 16, channels)
+                ).astype(np.float32) for i in sorted(set(nearest))}
+    return shapes, nearest, maps
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+def test_anchor_resample_bank_ref_matches_jax(rng, stride):
+    """K12's bank: every scale's rows of its nearest anchor's map, resized
+    where the grid differs and L2-normalized, concatenated in scale order
+    (`ransacflow_tpu/pipeline/fused.py:105-120`). Stride 1: all identity."""
+    shapes, nearest, maps = _serving_anchor_maps(rng, stride)
+    ref = np.concatenate([_jax_resample(maps[i], h // 16, w // 16)
+                          for (h, w), i in zip(shapes, nearest)])
+    tmaps = {i: t(m) for i, m in maps.items()}
+    for fn in (anchor_resample_bank_ref, anchor_resample_bank):
+        ours = fn(tmaps, shapes, nearest)
+        assert ours.shape == ref.shape
+        close(ours, ref, atol=1e-5)
+    assert nearest == bank.nearest_anchors(shapes, stride)
+
+
+def _walk_bank_plan(plan, srcs, channels):
+    """The bank that K12's launch writes from `plan`, each block walked in
+    `order` exactly as the kernel indexes it: the descriptor table, the
+    packed taps and spans, the bank offsets. Every row is written once."""
+    meta = {f: plan["meta"][:, k] for k, f in enumerate(anchor_resample.META)}
+    starts, counts, weights, spans = (torch.from_numpy(plan[k]) for k in
+                                      ("starts", "counts", "weights", "spans"))
+    bank = torch.full((plan["n_cells"], channels), float("nan"))
+    written = torch.zeros(plan["n_cells"], dtype=torch.int32)
+
+    def put(cell, v):
+        bank[cell] = v / torch.sqrt((v * v).sum()).clamp_min(1e-12)
+        written[cell] += 1
+
+    for job in plan["order"].tolist():
+        s, b = job >> 24, job & 0xFFFFFF
+        m = {f: int(v[s]) for f, v in meta.items()}
+        rows = srcs[s].reshape(-1, channels)  # (h * w, C), channels last
+        if m["identity"]:
+            for local in range(b * anchor_resample.TILE, (b + 1) * anchor_resample.TILE):
+                if local < m["fh"] * m["fw"]:
+                    put(m["cell0"] + local, rows[local])
+            continue
+        y, tx = divmod(b, m["tiles_x"])
+        xa, n_span = spans[m["span_idx"] + 2 * tx:m["span_idx"] + 2 * tx + 2].tolist()
+        r0, nr = int(starts[m["row_idx"] + y]), int(counts[m["row_idx"] + y])
+        wr = weights[m["row_w"] + y * m["row_t"]:][:nr]
+        stage = torch.zeros((n_span, channels))
+        for i in range(nr):  # row taps in tap order
+            stage += wr[i] * rows[(r0 + i) * m["w"] + xa:(r0 + i) * m["w"] + xa + n_span]
+        for x in range(tx * anchor_resample.TILE, (tx + 1) * anchor_resample.TILE):
+            if x >= m["fw"]:
+                break
+            x0, nc = int(starts[m["col_idx"] + x]) - xa, int(counts[m["col_idx"] + x])
+            wc = weights[m["col_w"] + x * m["col_t"]:][:nc]
+            acc = torch.zeros(channels)
+            for j in range(nc):
+                acc += wc[j] * stage[x0 + j]
+            put(m["cell0"] + y * m["fw"] + x, acc)
+    assert (written == 1).all()
+    return bank
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+def test_anchor_bank_plan_walked_as_the_kernel(rng, stride):
+    """The plan that K12's one launch reads, walked by plain torch exactly as
+    the kernel indexes it, gives `anchor_resample_bank_ref`; the resampled
+    tiles spread among the identity ones, and a tile stages at most 11 input
+    columns (44 KB of shared memory at C = 1024)."""
+    shapes, nearest, maps = _serving_anchor_maps(rng, stride)
+    srcs = [t(maps[i]) for i in nearest]
+    grids = [(h // 16, w // 16) for h, w in shapes]
+    plan = anchor_resample.bank_plan([tuple(m.shape[1:3]) for m in srcs], grids)
+    ours = _walk_bank_plan(plan, srcs, 8)
+    ref = anchor_resample_bank_ref({i: t(m) for i, m in maps.items()}, shapes, nearest)
+    torch.testing.assert_close(ours, ref, atol=1e-6, rtol=0)
+    identity = plan["meta"][:, anchor_resample.META.index("identity")]
+    kinds = [int(identity[job >> 24]) for job in plan["order"].tolist()]
+    if 0 < sum(kinds) < len(kinds):
+        assert kinds[0] == 0 and 0 < sum(kinds[:len(kinds) // 2]) < len(kinds) // 2
+    assert plan["max_span"] <= 11
+
+
+def test_anchor_resample_bank_caps_its_scales(rng):
+    """At most MAX_SCALES scales (the kernel's parameter table), on any
+    device, and as many anchors as scales."""
+    fmap = t(rng.randn(1, 4, 5, 8).astype(np.float32))
+    n = anchor_resample.MAX_SCALES + 1
+    with pytest.raises(ValueError, match="scales"):
+        anchor_resample_bank({0: fmap}, [(64, 80)] * n, [0] * n)
+    with pytest.raises(ValueError, match="scales"):
+        anchor_resample_bank({0: fmap}, [(64, 80)] * 2, [0])
+    assert anchor_resample_bank({0: fmap}, [(64, 80)] * (n - 1), [0] * (n - 1)).shape == \
+        ((n - 1) * 20, 8)
 
 
 # -- kernel 2: relaxed reciprocity --------------------------------------------
@@ -458,17 +567,28 @@ def test_anchor_resample_kernel_on_card(cuda, rng):
         assert kernels.launch_counts()["anchor_resample"] == 1
         torch.testing.assert_close(got, anchor_resample_feats_ref(fmap, fh, fw),
                                    atol=1e-5, rtol=0)
+    # the bank form: the 7-scale serving pyramid in one launch
+    for stride in (1, 2, 3):
+        shapes, nearest, maps = _serving_anchor_maps(rng, stride, channels=1024)
+        maps = {i: t(m).to(cuda) for i, m in maps.items()}
+        kernels.reset_launch_counts()
+        got = anchor_resample_bank(maps, shapes, nearest)
+        assert kernels.launch_counts()["anchor_resample"] == 1
+        torch.testing.assert_close(got, anchor_resample_bank_ref(maps, shapes, nearest),
+                                   atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("relax_cells", [1, 2])
 def test_relaxed_mutual_argmax_kernel_on_card(cuda, rng, relax_cells):
     a, b, grid_w = _relax_case(rng, grid_h=30, grid_w=40, n_a=3000, c=32)
-    valid_b = t(rng.rand(b.shape[1]) > 0.2)
-    score = ((t(a).T @ t(b)) * valid_b.float()[None]).to(cuda)
-    for ours, ref in zip(mutual_argmax(score, relax_cells, grid_w),
-                         mutual_argmax_ref(score, relax_cells, grid_w)):
-        torch.testing.assert_close(ours, ref, atol=0, rtol=0)
+    valid_b = t(rng.rand(b.shape[1]) > 0.2).to(cuda)
+    raw = (t(a).T @ t(b)).to(cuda)
+    score = raw * valid_b.float()[None]
+    for args in ((score,), (raw, valid_b)):  # the mask before the kernel or in it
+        for ours, ref in zip(mutual_argmax(args[0], relax_cells, grid_w, *args[1:]),
+                             mutual_argmax_ref(args[0], relax_cells, grid_w, *args[1:])):
+            torch.testing.assert_close(ours, ref, atol=0, rtol=0)
     planted = t(_planted_score()).to(cuda)
     for r in (1, 3):
         torch.testing.assert_close(mutual_argmax(planted, r, 4)[2],

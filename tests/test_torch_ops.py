@@ -174,6 +174,47 @@ def _banks(rng, c=16, n_a=70, n_b=30):
     return a, b, valid_b
 
 
+@pytest.mark.parametrize("relax_cells", [0, 1])
+def test_mutual_matching_masks_non_finite_targets_as_jax(rng, relax_cells):
+    """validB over target cells whose features are +inf, NaN and a large
+    negative value. The mask is a product, as in the reference: 0 * NaN and
+    0 * inf are NaN, and a masked negative score is -0.0. The +inf column
+    (NaN once masked) is then every row's argmax, so the masked NaN column
+    after it matches nothing in either package."""
+    a, b, valid_b = _banks(rng)  # 30 targets: a 5 x 6 grid
+    j_inf, j_nan, j_neg = 8, 17, 25
+    b[:, j_inf], b[:, j_nan], b[:, j_neg] = np.inf, np.nan, -1e30
+    valid_b[[j_inf, j_nan, j_neg]] = False
+    grid_w = 6 if relax_cells else None
+    ref = jmatch.mutual_matching(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid_b),
+                                 relax_cells=relax_cells, grid_w=grid_w)
+    for fn in (matching.mutual_matching_ref, matching.mutual_matching):
+        ours = fn(t(a), t(b), t(valid_b), relax_cells=relax_cells, grid_w=grid_w)
+        np.testing.assert_array_equal(ours.src_idx.numpy(), np.asarray(ref.src_idx))
+        np.testing.assert_array_equal(ours.valid.numpy(), np.asarray(ref.valid))
+        close(ours.score, ref.score)
+        np.testing.assert_array_equal(np.signbit(ours.score.numpy()),
+                                      np.signbit(np.asarray(ref.score)))
+        assert not ours.valid[j_nan]
+        assert np.isnan(ours.score[j_inf].item()) and ours.score[j_neg].item() == 0
+
+
+@pytest.mark.parametrize("n_a,n_b,vec,n_sm", [(13065, 1200, True, 132), (13065, 1197, False, 132),
+                                              (3001, 301, False, 132), (5000, 3000, True, 132),
+                                              (17, 5, False, 132), (1, 1, False, 8)])
+def test_mutual_argmax_schedule_covers_the_score(n_a, n_b, vec, n_sm):
+    """K2's blocks cover every row and column once: chunks of rows by slices
+    of at most MAX_SLICE columns (whole float4s with 16-byte loads), about
+    one wave of BLOCKS_PER_SM blocks an SM."""
+    from ransacflow_tpu_torch.kernels import matching as kmatch
+
+    n_chunks, rows, n_slices, slice_w = kmatch.schedule(n_a, n_b, vec, n_sm)
+    assert (n_chunks - 1) * rows < n_a <= n_chunks * rows
+    assert (n_slices - 1) * slice_w < n_b <= n_slices * slice_w <= n_b + 3 * n_slices
+    assert slice_w <= kmatch.MAX_SLICE and (not vec or slice_w % 4 == 0)
+    assert n_chunks * n_slices <= max(kmatch.BLOCKS_PER_SM * n_sm, n_slices)
+
+
 @pytest.mark.parametrize("k", [3, 7, 11])
 def test_correlation_cotangents_in_neighbourhood_form(rng, k):
     """The form K6's backward kernel computes: with k - 1 = 2p, offset
@@ -403,13 +444,41 @@ def test_correlation_kernel_on_card(cuda, rng, shape):
         correlation_pair(x, y, 13)
 
 
+def _same_bits(ours, ref):
+    """Equal outputs, the floats bit for bit (the sign of zero and NaN)."""
+    for x, y in zip(ours, ref):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+
+
 @pytest.mark.gpu
-def test_mutual_argmax_kernel_on_card(cuda, rng):
-    a, b, valid_b = _banks(rng, c=32, n_a=3000, n_b=300)
-    score = ((t(a).T @ t(b)) * t(valid_b).float()[None]).to(cuda)
-    score[5, 7] = float("nan")
-    for ours, ref in zip(mutual_argmax(score), mutual_argmax_ref(score)):
-        torch.testing.assert_close(ours, ref, atol=0, rtol=0, equal_nan=True)
+@pytest.mark.parametrize("n_a,n_b", [(3000, 300), (3001, 301), (13065, 1200), (5000, 3000)])
+def test_mutual_argmax_kernel_on_card(cuda, rng, n_a, n_b):
+    """K2 against its plain version bit for bit: nB a multiple of 4 or not
+    (16-byte or 4-byte loads), nA not a multiple of the row chunk, one
+    column slice or several, a tie between rows of different chunks, NaN and
+    inf scores, and the mask in the kernel with NaN and inf in masked
+    columns."""
+    from ransacflow_tpu_torch.kernels import matching as kmatch
+
+    a, b, valid_b = _banks(rng, c=32, n_a=n_a, n_b=n_b)
+    a[:, n_a - 7] = a[:, 12]  # rows 12 and nA - 7 lie in different chunks
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_chunks, rows, _, _ = kmatch.schedule(n_a, n_b, n_b % 4 == 0, n_sm)
+    assert n_chunks > 1 and 12 // rows != (n_a - 7) // rows
+    raw = (t(a).T @ t(b)).to(cuda)
+    valid_b = t(valid_b).to(cuda)
+    raw[5, 7] = raw[40, 11] = float("nan")  # unmasked and masked NaN
+    raw[20, 9] = raw[30, 14] = float("inf")  # masked (NaN then) and unmasked inf
+    valid_b[7] = valid_b[14] = True
+    valid_b[9] = valid_b[11] = False
+    masked = raw * valid_b.float()[None]
+    for score, mask in ((masked, None), (raw, valid_b), (raw, None)):
+        _same_bits(mutual_argmax(score, valid_b=mask), mutual_argmax_ref(score, valid_b=mask))
+    got = mutual_argmax(raw, valid_b=valid_b)
+    _same_bits(got, mutual_argmax(masked))  # the mask in the kernel or a pass before it
+    assert got[0][3] == 12  # the tie across chunks: the lowest index
 
 
 @pytest.mark.gpu
