@@ -856,10 +856,61 @@ def check_head_epilogues_bwd(gen):
     return out
 
 
+def _ssim_kernels_per_call(fn, reps=3):
+    """Device kernels named `ssim_` per call of fn, from a profiler trace (a
+    spin kernel first: a session may miss its first launches; the largest of
+    three traces, since a trace can miss launches but never adds them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    most = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if "ssim_" in e.key and e.self_device_time_total > 0) / reps)
+    return most
+
+
+def _ssim_case(masked_ssim_loss, masked_ssim_loss_ref, img1, img2, match, name):
+    """Both forwards (img1 without and with grad) and the backward against
+    the plain version: the loss to 1e-5 relative, the gradient to 1e-4 of
+    its largest magnitude; each deterministic bit for bit. Returns (the
+    forwards' relative error, the gradient's max abs error, its scale, the
+    grad-requiring img1 and its loss)."""
+    ref_i = img1.clone().requires_grad_()
+    ref = masked_ssim_loss_ref(ref_i, img2, match)
+    i_k = img1.clone().requires_grad_()
+    loss, loss_grad = masked_ssim_loss(img1, img2, match), masked_ssim_loss(i_k, img2, match)
+    rel = max(abs(x.item() - ref.item()) / abs(ref.item()) for x in (loss, loss_grad))
+    require(rel <= 1e-5, f"masked_ssim{name}: relative err {rel} > 1e-5")
+    require(loss.item() == masked_ssim_loss(img1, img2, match).item()
+            and loss_grad.item() == masked_ssim_loss(i_k, img2, match).item(),
+            f"masked_ssim{name}: two calls differ (the reduction must be deterministic)")
+    one = torch.ones((), device="cuda")
+    d_k = torch.autograd.grad(loss_grad, i_k, one, retain_graph=True)[0]
+    d_k2 = torch.autograd.grad(loss_grad, i_k, one, retain_graph=True)[0]
+    d_p = torch.autograd.grad(ref, ref_i, one)[0]
+    require(torch.equal(d_k, d_k2), f"masked_ssim_bwd{name}: two backward calls differ")
+    scale = d_p.abs().max().item()
+    err = (d_k - d_p).abs().max().item()
+    require(err <= 1e-4 * scale, f"masked_ssim_bwd{name}: max abs err {err} > 1e-4 * {scale}")
+    return rel, err, scale, i_k, loss_grad
+
+
 def check_masked_ssim(gen):
     """K10 at the training shape: (32, 224, 224, 3), the mask from a
-    matchability that is zero outside the 48x48 supervised centre."""
-    from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
+    matchability that is zero outside the 48x48 supervised centre; the
+    forward timed with img1 not requiring grad (keys without suffix) and
+    requiring it (`_grad`: the per-pixel partials written, the training
+    step's call). Then a width that is not a multiple of 4 (2, 37, 70) and
+    an image smaller than the halo (1, 7, 9), each checked, not timed."""
+    from ransacflow_tpu_torch.kernels.ssim import (
+        N_PLANES, masked_ssim_loss, masked_ssim_loss_ref)
 
     b2 = TRAIN_FEAT[0]
     img1 = torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device="cuda")
@@ -867,32 +918,52 @@ def check_masked_ssim(gen):
     match = torch.zeros((b2, TRAIN_IMG, TRAIN_IMG, 1), device="cuda")
     c = slice(TRAIN_MARGIN, TRAIN_IMG - TRAIN_MARGIN)
     match[:, c, c] = torch.rand(match[:, c, c].shape, generator=gen, device="cuda")
-    loss, ref = masked_ssim_loss(img1, img2, match), masked_ssim_loss_ref(img1, img2, match)
-    rel = abs(loss.item() - ref.item()) / abs(ref.item())
-    require(rel <= 1e-5, f"masked_ssim: relative err {rel} > 1e-5")
-    require(loss.item() == masked_ssim_loss(img1, img2, match).item(),
-            "masked_ssim: two calls differ (the reduction must be deterministic)")
+    rel, err, scale, i_k, l_k = _ssim_case(masked_ssim_loss, masked_ssim_loss_ref,
+                                           img1, img2, match, "")
+    i_p = img1.clone().requires_grad_()
+    l_p = masked_ssim_loss_ref(i_p, img2, match)
+    small = {}
+    for shape in ((2, 37, 70), (1, 7, 9)):
+        s1 = torch.rand((*shape, 3), generator=gen, device="cuda")
+        s2 = (s1 + 0.1 * torch.rand(s1.shape, generator=gen, device="cuda")).clamp(0, 1)
+        sm = torch.rand((*shape, 1), generator=gen, device="cuda")
+        key = f"_{shape[1]}x{shape[2]}"
+        s_rel, s_err, s_scale, _, _ = _ssim_case(masked_ssim_loss, masked_ssim_loss_ref,
+                                                 s1, s2, sm, key)
+        small.update({"rel_err" + key: s_rel, "bwd_max_abs_err" + key: s_err,
+                      "bwd_grad_scale" + key: s_scale})
     # per pixel and channel: five separable 11-tap blurs (220) and the SSIM
     # map (~25); per pixel the separable box of the mask (44)
-    fwd = {"max_abs_err": abs(loss.item() - ref.item()), "rel_err": rel,
+    fwd_bytes, partials_bytes = nbytes(img1, img2, match, l_k), N_PLANES * match.numel() * 4
+    fwd_ops = 245 * img1.numel() + 44 * match.numel()
+    fwd = {"max_abs_err": abs(l_k.item() - l_p.item()), "rel_err": rel,
            **paired_ms(lambda: masked_ssim_loss(img1, img2, match),
                        lambda: masked_ssim_loss_ref(img1, img2, match)),
-           **bound(nbytes(img1, img2, match, loss), 245 * img1.numel() + 44 * match.numel()),
-           **library(None)}
-    i_k, i_p = img1.clone().requires_grad_(), img1.clone().requires_grad_()
-    l_k = masked_ssim_loss(i_k, img2, match)
-    l_p = masked_ssim_loss_ref(i_p, img2, match)
+           **paired_ms(lambda: masked_ssim_loss(i_k, img2, match),
+                       lambda: masked_ssim_loss_ref(i_p, img2, match), suffix="_grad"),
+           **bound(fwd_bytes, fwd_ops), **bound(fwd_bytes, fwd_ops, "_grad"),
+           # the design's byte floors: what it moves (with the partials written)
+           "floor_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+           "floor_ms_grad": (fwd_bytes + partials_bytes) / HBM_BYTES_PER_S * 1e3,
+           **small, **library(None)}
     one = torch.ones((), device="cuda")
-    d_k = torch.autograd.grad(l_k, i_k, one, retain_graph=True)[0]
-    d_p = torch.autograd.grad(l_p, i_p, one, retain_graph=True)[0]
-    scale = d_p.abs().max().item()
-    err = (d_k - d_p).abs().max().item()
-    require(err <= 1e-4 * scale, f"masked_ssim_bwd: max abs err {err} > 1e-4 * {scale}")
     # the forward's maps, three partials blurred again (132) and the sum (~15)
     bwd = {"max_abs_err": err, "grad_scale": scale,
            **paired_ms(_grads(l_k, i_k, one), _grads(l_p, i_p, one)),
-           **bound(nbytes(img1, img2, match, d_k), 392 * img1.numel() + 44 * match.numel()),
+           **bound(nbytes(img1, img2, match, img1), 392 * img1.numel() + 44 * match.numel()),
+           "floor_ms": (partials_bytes + nbytes(img1, img2, img1)) / HBM_BYTES_PER_S * 1e3,
            **library(None)}
+    # device kernels per call, traced after the timings (a trace can slow
+    # the host's later launches)
+    fwd["kernels_per_call"] = _ssim_kernels_per_call(lambda: masked_ssim_loss(img1, img2, match))
+    fwd["kernels_per_call_grad"] = _ssim_kernels_per_call(
+        lambda: masked_ssim_loss(i_k, img2, match))
+    bwd["kernels_per_call"] = _ssim_kernels_per_call(_grads(l_k, i_k, one))
+    require(0 < fwd["kernels_per_call"] <= 2 and 0 < fwd["kernels_per_call_grad"] <= 2,
+            f"masked_ssim: device kernels per call {fwd['kernels_per_call']}, "
+            f"{fwd['kernels_per_call_grad']} (at most 2)")
+    require(0 < bwd["kernels_per_call"] <= 1,
+            f"masked_ssim_bwd: device kernels per call {bwd['kernels_per_call']} (at most 1)")
     return fwd, bwd
 
 

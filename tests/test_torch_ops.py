@@ -44,6 +44,7 @@ from ransacflow_tpu_torch.kernels.heads import (
 from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 from ransacflow_tpu_torch.kernels.ransac import ransac_fit, ransac_fit_ref, ransac_score_ref
 from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_ref
+from ransacflow_tpu_torch.kernels import ssim as kssim
 from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample, warp_sample_ref
 from ransacflow_tpu_torch.ops import (
@@ -843,22 +844,124 @@ def test_head_epilogue_backward_kernels_on_card(cuda, rng):
         torch.testing.assert_close(lk.grad, lr.grad, atol=1e-6, rtol=1e-5)
 
 
+def test_ssim_kernel_taps_are_the_plain_taps():
+    """K10's taps are literals in its source (immediates in the unrolled
+    tap loops): they equal `gaussian_window()` and `BOX_TAP` bit for bit."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(kssim.__file__).parents[1] / "csrc" / "ssim.cu").read_text()
+    body = src[src.index("float gauss_tap(int t)"):]
+    body = body[:body.index("}")]
+    by_distance = [np.float32(float.fromhex(h)) for h in re.findall(r"(0x[0-9a-f.]+p-\d+)f", body)]
+    g = kssim.gaussian_window()
+    assert len(by_distance) == 6
+    np.testing.assert_array_equal(by_distance, g[5:])
+    np.testing.assert_array_equal(g, g[::-1])  # the source folds t to |t - 5|
+    box = re.search(r"kBox = (0x[0-9a-f.]+p-\d+)f", src).group(1)
+    assert np.float32(float.fromhex(box)) == kssim.BOX_TAP
+
+
+def _emulate_ssim_staging(flat, b, h, w, c, y0, x0):
+    """One tile's staged rows as K10's `stage_tile` writes them and its
+    passes read them, in numpy. Each row's run (the pixel (b, y0 - 5 + r,
+    x0 - 5) on) starts at float off = ((x0 - 5) c) & 3 of its row. W a
+    multiple of 4: the row's window of whole float4s, its part inside the
+    image one bulk copy (16-byte aligned ends), zeros elsewhere; else float
+    by float. Returns the (42, 42, c) staged tile."""
+    halo = kssim.WINDOW // 2
+    in_h, in_w = kssim.TILE_H + 2 * halo, kssim.TILE_W + 2 * halo
+    stride = (in_w * c + 6) // 4 * 4  # kImgStride (c = 3), kMapStride (c = 1)
+    off = ((x0 - halo) * c) & 3
+    out = np.full((in_h, in_w, c), np.nan, np.float32)
+    for r in range(in_h):
+        y = y0 - halo + r
+        lo, hi = (b * h + y) * w * c, (b * h + y + 1) * w * c
+        row = np.full(stride, np.nan, np.float32)
+        if w % 4 == 0:
+            win = lo + (x0 - halo) * c - off
+            assert win % 4 == 0
+            first = max(lo - win, 0) if 0 <= y < h else stride
+            last = min(hi - win, stride) if 0 <= y < h else stride
+            row[:] = 0
+            if last > first:
+                assert first % 4 == 0 and (last - first) * 4 % 16 == 0
+                assert 0 <= win + first and win + last <= flat.size
+                row[first:last] = flat[win + first:win + last]
+        else:
+            for k in range(in_w * c):
+                a = lo + (x0 - halo) * c + k
+                row[off + k] = flat[a] if 0 <= y < h and lo <= a < hi else 0
+        assert off + in_w * c <= stride
+        out[r] = row[off:off + in_w * c].reshape(in_w, c)
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 70, 3), (1, 7, 9, 3), (3, 20, 23, 1),
+                                     (2, 64, 64, 3), (2, 33, 68, 1)])
+def test_ssim_staging_emulated(rng, b, h, w, c):
+    """K10's staging index math (the runs' offset, the bulk copies' windows,
+    zeros outside the image) gives every tile its zero-padded rows, at
+    widths that are and are not multiples of 4, images smaller than the
+    halo, and the first and last image of the batch (the ends of the
+    array)."""
+    img = rng.rand(b, h, w, c).astype(np.float32)
+    halo = kssim.WINDOW // 2
+    for bi in {0, b - 1}:
+        padded = np.pad(img[bi], ((halo, halo + kssim.TILE_H), (halo, halo + kssim.TILE_W),
+                                  (0, 0)))
+        for y0 in range(0, h, kssim.TILE_H):
+            for x0 in range(0, w, kssim.TILE_W):
+                got = _emulate_ssim_staging(img.ravel(), bi, h, w, c, y0, x0)
+                want = padded[y0:y0 + kssim.TILE_H + 2 * halo, x0:x0 + kssim.TILE_W + 2 * halo]
+                np.testing.assert_array_equal(got, want)
+    # the saved partials' planes are plane_len floats apart, a multiple of
+    # 4: a row lies alike in every plane
+    plane = kssim.plane_len(b, h, w)
+    assert plane % 4 == 0 and plane >= b * h * w
+
+
+SSIM_CARD_SHAPES = [(2, 20, 23), (1, 7, 9), (3, 37, 70), (1, 9, 12), (2, 224, 224)]
+
+
 @pytest.mark.gpu
-def test_masked_ssim_kernels_on_card(cuda, rng):
-    """K10 forward (a two-pass reduction: deterministic) and backward in
-    img1 against the plain version's autograd."""
-    img1, img2 = (t(rng.rand(3, 37, 70, 3).astype(np.float32)).to(cuda) for _ in range(2))
-    match = t(rng.rand(3, 37, 70, 1).astype(np.float32)).to(cuda)
-    match[0] = 0.0  # an image with no valid pixel
+@pytest.mark.parametrize("shape", SSIM_CARD_SHAPES)
+def test_masked_ssim_kernels_on_card(cuda, rng, shape):
+    """K10 forward (a two-pass reduction: deterministic), with and without
+    the saved partials, and backward in img1 against the plain version's
+    autograd: widths that are and are not multiples of 4, an image smaller
+    than the halo, one image whose mask is all below the threshold; the
+    saved partials against `ssim_partials_ref`; one launch per call of each
+    wrapper; two backward calls equal bit for bit."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the plain version in fp32
+        _check_masked_ssim_on_card(cuda, rng, *shape)
+
+
+def _check_masked_ssim_on_card(cuda, rng, b, h, w):
+    img1, img2 = (t(rng.rand(b, h, w, 3).astype(np.float32)).to(cuda) for _ in range(2))
+    match = t(rng.rand(b, h, w, 1).astype(np.float32)).to(cuda)
+    match[0] = 0.0  # an image with no valid pixel: its mask all below the threshold
     ik, ir = img1.clone().requires_grad_(), img1.clone().requires_grad_()
-    lk, lr = masked_ssim_loss(ik, img2, match), masked_ssim_loss_ref(ir, img2, match)
+    kernels.reset_launch_counts()
+    lk = masked_ssim_loss(ik, img2, match)
+    assert kernels.launch_counts()["masked_ssim"] == 1
+    lr = masked_ssim_loss_ref(ir, img2, match)
     torch.testing.assert_close(lk, lr, atol=0, rtol=1e-5)
     assert masked_ssim_loss(img1, img2, match).item() == lk.item()  # deterministic
+    assert masked_ssim_loss(ik, img2, match).item() == lk.item()
+    _, sums, abc = kssim.masked_ssim_forward(img1, img2, match, True)
+    abc_ref, mask_sum = kssim.ssim_partials_ref(img1, img2, match)
+    got = abc.view(kssim.N_PLANES, -1)[:, :b * h * w].view(abc_ref.shape)
+    # per-pixel fp32 algebra of the same blurred maps, summed in another order
+    torch.testing.assert_close(got, abc_ref, atol=1e-5 * float(abc_ref.abs().max()), rtol=0)
+    torch.testing.assert_close(sums[1], mask_sum, atol=0, rtol=1e-5)
+    g = torch.tensor(2.5, device=cuda)
     kernels.reset_launch_counts()
-    (2.5 * lk).backward()
+    (d_k,) = torch.autograd.grad(lk, ik, g, retain_graph=True)
     assert kernels.launch_counts()["masked_ssim_bwd"] == 1
-    (2.5 * lr).backward()
-    torch.testing.assert_close(ik.grad, ir.grad, atol=1e-5 * float(ir.grad.abs().max()),
-                               rtol=0)
+    (d_k2,) = torch.autograd.grad(lk, ik, g, retain_graph=True)
+    assert torch.equal(d_k, d_k2)  # deterministic: no atomics
+    (d_r,) = torch.autograd.grad(lr, ir, g)
+    torch.testing.assert_close(d_k, d_r, atol=1e-5 * float(d_r.abs().max()), rtol=0)
     with pytest.raises(RuntimeError, match="img2"):
         masked_ssim_loss(img1, img2.clone().requires_grad_(), match)

@@ -31,7 +31,12 @@ from ransacflow_tpu.pipeline import init_alignment_params as j_init_align
 from ransacflow_tpu_torch.cli import train as cli_train
 from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume
-from ransacflow_tpu_torch.kernels.ssim import gaussian_window, masked_ssim_loss
+from ransacflow_tpu_torch.kernels.ssim import (
+    gaussian_window,
+    masked_ssim_grad_ref,
+    masked_ssim_loss,
+    ssim_partials_ref,
+)
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
 from ransacflow_tpu_torch.models.convert import alignment_params_from_tree
 from ransacflow_tpu_torch.models.heads import flow_gradient_magnitude, flow_to_grid
@@ -361,6 +366,27 @@ def test_masked_ssim_autograd_matches_jax_vjp():
     np.testing.assert_array_equal(gaussian_window(), jssim.gaussian_window())
     _vjp_check(jssim.masked_ssim_loss, masked_ssim_loss, (img1, img2, match),
                np.float32(1.7), atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 23), (1, 7, 9), (3, 37, 70)])
+def test_masked_ssim_backward_closed_form_matches_jax_vjp(shape):
+    """The algebra of K10's backward in plain torch (`ssim_partials_ref`'s
+    per-pixel partials a, b, c, blurred and combined by
+    `masked_ssim_grad_ref`) against `jax.vjp` of the reference loss: widths
+    that are not multiples of 4, an image smaller than the halo (its mask
+    all below the threshold), fp32 to 1e-5 of the largest gradient."""
+    b, h, w = shape
+    rng = np.random.RandomState(h)
+    img1, img2 = (rng.rand(b, h, w, 3).astype(np.float32) for _ in range(2))
+    match = rng.rand(b, h, w, 1).astype(np.float32)
+    cot = np.float32(1.7)
+    _, vjp = jax.vjp(lambda a: jssim.masked_ssim_loss(a, jnp.asarray(img2), jnp.asarray(match)),
+                     jnp.asarray(img1))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    abc, mask_sum = ssim_partials_ref(t(img1), t(img2), t(match))
+    assert abc.shape == (9, b, h, w)
+    got = masked_ssim_grad_ref(t(img1), t(img2), abc, mask_sum, float(cot)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
 def test_flow_helpers_match_jax_and_tie_gradient():
