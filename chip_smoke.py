@@ -18,7 +18,10 @@ Phases, each of which must pass:
       256), its pair form the fine stage's and bit for bit the kernel's two
       volumes, K5's homography form the fine stage's 480x640 warp, K12 a
       serving pair's four anchor resamples and its whole 7-scale bank in one
-      launch, K13 the sky mask's conv5 maps, the backward kernels and
+      launch, K7 a fine pass's three epilogues in one launch (match_down8
+      bit for bit the two sigmoids, one device kernel a call, and whether
+      `nhwc` copies conv4's output) and the training heads' two launches,
+      K13 the sky mask's conv5 maps, the backward kernels and
       K9-K11 the full-width training step's; K9 forward and backward at the
       step's three calls (the stem, layer2's and layer3's downsample); K8
       also across resolutions, a 368x1232 coarse grid composed at 375x1242;
@@ -43,8 +46,8 @@ Phases, each of which must pass:
       mutual_argmax (K2), ransac_score (K3), warp_homography (K5, one per
       pair, and no grid-form warp_sample), correlation_pair (K6's pair
       form: both volumes, one per pair, and no single correlation_volume),
-      head_epilogues (K7), compose_tail (K8) and blur_pool (K9); prints
-      pairs/s;
+      head_epilogues (K7: a pair's three epilogues, one launch), compose_tail
+      (K8) and blur_pool (K9); prints pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
       HPatches configuration (4 related pairs, 480x640 targets, 7-scale
       pyramid from 960x1280, max_coarse 10, mask_region_th 0.01, match12
@@ -64,7 +67,8 @@ Phases, each of which must pass:
       port on the CPU (losses and every gradient); stage 3 at full width (16
       pairs of 224x224, margin 88, k 7, Adam 2e-4, betas (0.5, 0.999)):
       finite losses, launches of every training kernel (K5, K6, K7, K9,
-      K10, K11 and the backward kernels), K11's shared-tile share in the
+      K10, K11 and the backward kernels; K7 twice forward and twice
+      backward), K11's shared-tile share in the
       step, the median step time of 12
       CUDA-event-timed steps after warm-up, trained pairs/s, peak memory and
       a profiler breakdown of one step; one stage-1 step; then
@@ -87,10 +91,10 @@ Phases, each of which must pass:
       (e); launches of ppm_pool (K13) and the loop's kernels.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
-alignment path warps through warp_homography and correlates through
-correlation_pair: one launch each per compose_tail launch, no
-correlation_volume, and no grid-form warp_sample but align_images'
-warped_fine.
+alignment path warps through warp_homography, correlates through
+correlation_pair and runs its head epilogues through head_epilogues: one
+launch each per compose_tail launch, no correlation_volume, and no
+grid-form warp_sample but align_images' warped_fine.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -566,24 +570,56 @@ def check_warp_homography(gen):
 
 
 def check_head_epilogues(gen):
-    """K7: softmax-expectation over (1, 60, 80, 49) logits and the
-    matchability sigmoid over (1, 60, 80, 1)."""
+    """K7: a fine pass's three epilogues in one launch, the flow's over
+    (1, 60, 80, 49) logits and both sigmoids over (1, 60, 80, 1) maps, with
+    match_down8 the two sigmoids bit for bit and the device kernels of one
+    call (`kernels_per_call`); the training heads' two launches (suffix
+    `_train`, (32, 28, 28, 49) and (.., 1)); and whether `nhwc` of conv4's
+    output copies it on the card (`conv4_nhwc_copies`)."""
     from ransacflow_tpu_torch.kernels.heads import (
-        flow_epilogue, flow_epilogue_ref, match_epilogue, match_epilogue_ref)
+        flow_epilogue, flow_epilogue_ref, head_epilogues, head_epilogues_ref,
+        match_epilogue, match_epilogue_ref)
+    from ransacflow_tpu_torch.models.heads import Head
+    from ransacflow_tpu_torch.models.layers import nchw, nhwc
 
-    flow_logits = 3 * torch.randn((1, 60, 80, 49), generator=gen, device="cuda")
-    match_logits = 3 * torch.randn((1, 60, 80, 1), generator=gen, device="cuda")
-    got = (flow_epilogue(flow_logits, 7), match_epilogue(match_logits))
-    want = (flow_epilogue_ref(flow_logits, 7), match_epilogue_ref(match_logits))
+    ins = [3 * torch.randn((1, 60, 80, c), generator=gen, device="cuda") for c in (49, 1, 1)]
+    got, want = head_epilogues(*ins, 7), head_epilogues_ref(*ins, 7)
     torch.cuda.synchronize()
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    require(err <= 1e-4, f"head_epilogues: max abs err {err} > 1e-4")
-    # per logit: the max, exp, sum and two weighted sums (~7); sigmoid ~4
-    return {"max_abs_err": err, **paired_ms(
-        lambda: (flow_epilogue(flow_logits, 7), match_epilogue(match_logits)),
-        lambda: (flow_epilogue_ref(flow_logits, 7), match_epilogue_ref(match_logits))),
-        **bound(nbytes(flow_logits, match_logits, *got),
-                7 * flow_logits.numel() + 4 * match_logits.numel()), **library(None)}
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    require(errs[0] <= 1e-5 and max(errs[1:]) <= 1e-6,
+            f"head_epilogues: max abs errs {errs} > 1e-5 (flow), 1e-6 (sigmoids)")
+    require(torch.equal(got[3], torch.cat(got[1:3], dim=-1)),
+            "head_epilogues: match_down8 is not (match12, match21)")
+    # per flow logit: the max, exp, sum and two weighted sums (~7); a sigmoid ~4
+    out = {"max_abs_err": max(errs), **paired_ms(lambda: head_epilogues(*ins, 7),
+                                                 lambda: head_epilogues_ref(*ins, 7)),
+           **bound(nbytes(*ins, *got), 7 * ins[0].numel() + 4 * 2 * ins[1].numel()),
+           **library(None)}
+
+    train = [3 * torch.randn((*TRAIN_FEAT, c), generator=gen, device="cuda") for c in (49, 1)]
+    got = (flow_epilogue(train[0], 7), match_epilogue(train[1]))
+    want = (flow_epilogue_ref(train[0], 7), match_epilogue_ref(train[1]))
+    torch.cuda.synchronize()
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    require(errs[0] <= 1e-5 and errs[1] <= 1e-6,
+            f"head_epilogues_train: max abs errs {errs} > 1e-5 (flow), 1e-6 (sigmoid)")
+    out["max_abs_err_train"] = max(errs)
+    out.update(paired_ms(lambda: (flow_epilogue(train[0], 7), match_epilogue(train[1])),
+                         lambda: (flow_epilogue_ref(train[0], 7), match_epilogue_ref(train[1])),
+                         suffix="_train"))
+    out.update(bound(nbytes(*train, *got), 7 * train[0].numel() + 4 * train[1].numel(),
+                     "_train"))
+    out.update(library(None, "_train"))
+    # traced after the timings (a trace can slow the host's later launches)
+    out["kernels_per_call"] = _kernels_per_call(lambda: head_epilogues(*ins, 7), "epilogue")
+    require(out["kernels_per_call"] == 1,
+            f"head_epilogues: {out['kernels_per_call']} device kernels a call, expected 1")
+
+    head = Head(7, 49).cuda().eval()
+    with torch.inference_mode():
+        logits = head(nchw(torch.randn((1, 60, 80, 49), generator=gen, device="cuda")))
+        out["conv4_nhwc_copies"] = nhwc(logits).data_ptr() != logits.data_ptr()
+    return out
 
 
 KITTI_COARSE_HW, KITTI_OUT_HW = (368, 1232), (375, 1242)  # fineSize grid, the GT's size
@@ -856,10 +892,11 @@ def check_head_epilogues_bwd(gen):
     return out
 
 
-def _ssim_kernels_per_call(fn, reps=3):
-    """Device kernels named `ssim_` per call of fn, from a profiler trace (a
-    spin kernel first: a session may miss its first launches; the largest of
-    three traces, since a trace can miss launches but never adds them)."""
+def _kernels_per_call(fn, key, reps=3):
+    """Device kernels whose name holds `key` per call of fn, from a profiler
+    trace (a spin kernel first: a session may miss its first launches; the
+    largest of three traces, since a trace can miss launches but never adds
+    them)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -872,7 +909,7 @@ def _ssim_kernels_per_call(fn, reps=3):
                 fn()
             torch.cuda.synchronize()
         most = max(most, sum(e.count for e in prof.key_averages()
-                             if "ssim_" in e.key and e.self_device_time_total > 0) / reps)
+                             if key in e.key and e.self_device_time_total > 0) / reps)
     return most
 
 
@@ -955,10 +992,11 @@ def check_masked_ssim(gen):
            **library(None)}
     # device kernels per call, traced after the timings (a trace can slow
     # the host's later launches)
-    fwd["kernels_per_call"] = _ssim_kernels_per_call(lambda: masked_ssim_loss(img1, img2, match))
-    fwd["kernels_per_call_grad"] = _ssim_kernels_per_call(
-        lambda: masked_ssim_loss(i_k, img2, match))
-    bwd["kernels_per_call"] = _ssim_kernels_per_call(_grads(l_k, i_k, one))
+    fwd["kernels_per_call"] = _kernels_per_call(lambda: masked_ssim_loss(img1, img2, match),
+                                                "ssim_")
+    fwd["kernels_per_call_grad"] = _kernels_per_call(
+        lambda: masked_ssim_loss(i_k, img2, match), "ssim_")
+    bwd["kernels_per_call"] = _kernels_per_call(_grads(l_k, i_k, one), "ssim_")
     require(0 < fwd["kernels_per_call"] <= 2 and 0 < fwd["kernels_per_call_grad"] <= 2,
             f"masked_ssim: device kernels per call {fwd['kernels_per_call']}, "
             f"{fwd['kernels_per_call_grad']} (at most 2)")
@@ -1182,11 +1220,12 @@ def _require_launched(path, launches, names=(), exact=None):
 
 def _per_fine_pass(launches, grid_form=0):
     """The counts a fine pass fixes on an alignment path: per fine pass (one
-    per compose_tail launch) one warp_homography and one correlation_pair
-    (both volumes), no single correlation_volume, and `grid_form`
-    warp_sample."""
+    per compose_tail launch) one warp_homography, one correlation_pair (both
+    volumes) and one head_epilogues (its three epilogues), no single
+    correlation_volume, and `grid_form` warp_sample."""
     return {"warp_homography": launches["compose_tail"], "warp_sample": grid_form,
-            "correlation_pair": launches["compose_tail"], "correlation_volume": 0}
+            "correlation_pair": launches["compose_tail"], "correlation_volume": 0,
+            "head_epilogues": launches["compose_tail"]}
 
 
 def phase_serving(card):
@@ -1264,7 +1303,8 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
     from ransacflow_tpu_torch.kernels.correlation import correlation_pair
     from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
     from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
-    from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
+    from ransacflow_tpu_torch.kernels.heads import head_epilogues
+    from ransacflow_tpu_torch.models.heads import head_logits
     from ransacflow_tpu_torch.models.layers import l2_normalize
     from ransacflow_tpu_torch.ops.homography import warp_grid
     from ransacflow_tpu_torch.ops.ransac import ransac_homography, ransac_homography_adaptive
@@ -1307,10 +1347,10 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
         feats = stage("fine_features", lambda: l2_normalize(
             feature_extractor(align["netFeatCoarse"], src_warp)))
         corr12, corr21 = stage("correlation", lambda: correlation_pair(featt_fine, feats, 7))
-        flow8, m12, m21 = stage("heads", lambda: (
-            net_flow_coarse(align["netFlowCoarse"], corr12, up8=False),
-            net_matchability(align["netMatch"], corr12, up8=False),
-            net_matchability(align["netMatch"], corr21, up8=False)))
+        flow8, m12, m21, _ = stage("heads", lambda: head_epilogues(
+            head_logits(align["netFlowCoarse"], corr12),
+            head_logits(align["netMatch"], corr12),
+            head_logits(align["netMatch"], corr21), 7))
         stage("compose", lambda: compose_tail(flow8, m12, m21, grid, False))
         torch.cuda.synchronize()
         samples.append({name: a.elapsed_time(b) for name, (a, b) in marks.items()})
@@ -1899,7 +1939,7 @@ def _related_train_images(rng, n_pairs, img_size):
 
 
 HAND_KERNELS = ("pyramid_kernel", "blurpool_", "ssim_", "grid_sample_bwd_kernel",
-                "warp_sample_kernel", "correlation_", "epilogue", "sigmoid_")
+                "warp_sample_kernel", "correlation_", "epilogue")
 FAMILIES = (("hand kernels", HAND_KERNELS),
             ("convolutions", ("conv", "gemm", "dgrad", "wgrad", "fprop", "fft",
                               "pointwise_mult_and_sum_complex", "implicit_convolve")),
@@ -2013,6 +2053,9 @@ def phase_train(card):
     k11_share = shared / (shared + glob)
     require(all(launches[k] > 0 for k in TRAIN_KERNELS),
             f"training path: kernel not launched: {launches}")
+    require(launches["head_epilogues"] == 2 and launches["head_epilogues_bwd"] == 2,
+            f"training path: K7 launched {launches['head_epilogues']} forward and "
+            f"{launches['head_epilogues_bwd']} backward, expected 2 and 2")
     first = {k: float(v) for k, v in first.items()}
     require(all(np.isfinite(v) for v in first.values()), f"stage 3: losses {first}")
     for _ in range(2):  # warm-up
@@ -2078,7 +2121,7 @@ SOURCES = {
                            "ransacflow_tpu/ops/correlation.py:21"),
     "correlation_pair": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
                          "ransacflow_tpu/ops/correlation.py:21"),
-    "head_epilogues": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",
+    "head_epilogues": ("cuda", "ransacflow_tpu_torch/csrc/heads.cu",
                        "ransacflow_tpu/models/heads.py:69"),
     "compose_tail": ("cuda", "ransacflow_tpu_torch/csrc/compose.cu",
                      "ransacflow_tpu/pipeline/fine.py:61"),
@@ -2094,7 +2137,7 @@ SOURCES = {
                         "ransacflow_tpu/ops/sampler.py:211"),
     "correlation_volume_bwd": ("cuda", "ransacflow_tpu_torch/csrc/correlation.cu",
                                "ransacflow_tpu/ops/correlation.py:21"),
-    "head_epilogues_bwd": ("triton", "ransacflow_tpu_torch/kernels/heads_triton.py",
+    "head_epilogues_bwd": ("cuda", "ransacflow_tpu_torch/csrc/heads.cu",
                            "ransacflow_tpu/models/heads.py:69"),
     "anchor_resample": ("cuda", "ransacflow_tpu_torch/csrc/anchor_resample.cu",
                         "ransacflow_tpu/pipeline/coarse.py:70"),

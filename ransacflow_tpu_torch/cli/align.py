@@ -20,6 +20,7 @@ from ransacflow_tpu_torch.cli.common import (
     load_align_params,
     load_coarse_net,
 )
+from ransacflow_tpu_torch.device import use_full_fp32
 from ransacflow_tpu_torch.pipeline.api import RansacFlowAligner
 
 
@@ -42,6 +43,7 @@ def main(argv=None):
     parser.add_argument("--scaleR", type=float, default=1.2)
     add_adaptive_flag(parser)
     args = parser.parse_args(argv)
+    use_full_fp32()
 
     aligner = RansacFlowAligner(
         load_align_params(args.resumePth, args.device, args.kernelSize),

@@ -4,6 +4,7 @@ package imports JAX). Every loader takes the device."""
 
 import torch
 
+from ransacflow_tpu_torch.device import use_full_fp32
 from ransacflow_tpu_torch.models.convert import (
     init_alignment_params,
     init_resnet50_layer3,
@@ -59,9 +60,11 @@ def add_segnet_args(parser):
 
 def build_sky_fn(args, device, rotated=False):
     """The `--segNet` hook: fn(img_path, (Ht, Wt)[, angle]) -> bg_mask, or
-    None without --segNet."""
+    None without --segNet. The sky network then runs in float32 with TF32
+    off (`device.use_full_fp32`)."""
     if not getattr(args, "segNet", False):
         return None
+    use_full_fp32()
     from ransacflow_tpu_torch.eval.sky import make_sky_bg_fn, make_sky_bg_fn_rotated
     from ransacflow_tpu_torch.models.segnet import SkySegmenter
 

@@ -14,6 +14,7 @@ import argparse
 
 import torch
 
+from ransacflow_tpu_torch.device import use_full_fp32
 from ransacflow_tpu_torch.models.convert import init_alignment_params
 from ransacflow_tpu_torch.train.checkpoint import resume_params
 from ransacflow_tpu_torch.train.loop import STAGES, fit, not_ported
@@ -70,6 +71,7 @@ def main(argv=None):
             ("--nativeResize", args.nativeResize, "item 11")):
         if unported:
             not_ported(flag, item)
+    use_full_fp32()  # --computeDtype float32, the one dtype ported
 
     cfg = dict(mode="flow", mu_cycle=0.0, lambda_match=0.01, grad_weight=0.0,
                epochs=150)

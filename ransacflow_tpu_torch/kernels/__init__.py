@@ -1,13 +1,11 @@
-"""Hand-written kernels of the port (CUDA C++ and Triton) and their plain
-versions.
+"""Hand-written kernels of the port (CUDA C++) and their plain versions.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors; there is no other fallback. A wrapper on the
 training path is a `torch.autograd.Function` whose backward is a kernel too
 (counted under its own `_bwd` name); the others are forward only and raise
 when an input requires grad under grad mode. The CUDA library is built from
-`ransacflow_tpu_torch/csrc/` at the first launch (`kernels/build.py`);
-Triton compiles its kernels at their first launch.
+`ransacflow_tpu_torch/csrc/` at the first launch (`kernels/build.py`).
 """
 
 from ransacflow_tpu_torch.kernels import (

@@ -1,22 +1,21 @@
-"""Kernel 7: epilogues of the flow and matchability heads and their
-backward (Triton, `kernels/heads_triton.py`)."""
+"""Kernel 7: the epilogues of the flow and matchability heads and their
+backward (`csrc/heads.cu`)."""
 
-from types import SimpleNamespace
+import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import check
+from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
 from ransacflow_tpu_torch.ops.correlation import corr_offset_grids
 
-KERNEL = SimpleNamespace(launches=0)      # both forward epilogues count here
-KERNEL_BWD = SimpleNamespace(launches=0)  # both backward kernels count here
-BLOCK_CELLS = 64    # cells per program of the flow epilogue
-BLOCK_OFFSETS = 64  # lanes for the k*k logits of a cell, k*k <= 64
-BLOCK_ELEMS = 1024
-
-
-def _cdiv(a, b):
-    return -(-a // b)
+# every forward launch counts here: a fine pass's three epilogues, or one
+# training epilogue
+KERNEL = Kernel("rf_head_epilogues",
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# both backward kernels count here
+KERNEL_BWD = Kernel("rf_head_epilogues_bwd",
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+MAX_OFFSETS = 64  # the k*k logits of a cell: the kernel is built for k <= 8
 
 
 def flow_epilogue_ref(logits, kernel_size=7):
@@ -35,88 +34,101 @@ def match_epilogue_ref(logits):
     return torch.sigmoid(logits)
 
 
+def head_epilogues_ref(flow_logits, match12_logits, match21_logits, kernel_size=7):
+    """Plain PyTorch: a fine pass's three epilogues. flow_logits: (B, H, W,
+    k*k); match12_logits, match21_logits: (B, H, W, 1). Returns (flow_down8
+    (B, H, W, 2), match12_down8, match21_down8 (B, H, W, 1), match_down8
+    (B, H, W, 2), the two sigmoids side by side)."""
+    m12, m21 = match_epilogue_ref(match12_logits), match_epilogue_ref(match21_logits)
+    return (flow_epilogue_ref(flow_logits, kernel_size), m12, m21,
+            torch.cat([m12, m21], dim=-1))
+
+
+def _check_flow_logits(logits, kernel_size):
+    check(logits, "logits", torch.float32, ndim=4)
+    kk = kernel_size * kernel_size
+    if logits.shape[-1] != kk:
+        raise ValueError(f"logits: {logits.shape[-1]} channels, expected {kk}")
+    if kk > MAX_OFFSETS:
+        raise ValueError(f"kernel_size {kernel_size}: k*k must be <= {MAX_OFFSETS}")
+
+
+def head_epilogues(flow_logits, match12_logits, match21_logits, kernel_size=7):
+    """`head_epilogues_ref` for CPU tensors, one kernel launch for CUDA ones.
+    Forward only: raises when an input requires grad under grad mode."""
+    forbid_grad("head_epilogues", flow_logits, match12_logits, match21_logits)
+    if flow_logits.device.type == "cpu":
+        return head_epilogues_ref(flow_logits, match12_logits, match21_logits, kernel_size)
+    dev = flow_logits.device
+    _check_flow_logits(flow_logits, kernel_size)
+    b, h, w, _ = flow_logits.shape
+    check(match12_logits, "match12_logits", torch.float32, shape=(b, h, w, 1), device=dev)
+    check(match21_logits, "match21_logits", torch.float32, shape=(b, h, w, 1), device=dev)
+    flow = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    m12, m21 = torch.empty_like(match12_logits), torch.empty_like(match21_logits)
+    match = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    KERNEL(dev, ptr(flow_logits), ptr(match12_logits), ptr(match21_logits), ptr(flow),
+           ptr(m12), ptr(m21), ptr(match), b * h * w, kernel_size, h, w,
+           stream(flow_logits))
+    return flow, m12, m21, match
+
+
 class _FlowEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, kernel_size):
-        from ransacflow_tpu_torch.kernels import heads_triton
-
-        kk = kernel_size * kernel_size
-        check(logits, "logits", torch.float32, ndim=4)
-        b, h, w, c = logits.shape
-        if c != kk:
-            raise ValueError(f"logits: {c} channels, expected {kk}")
-        if kk > BLOCK_OFFSETS:
-            raise ValueError(f"kernel_size {kernel_size}: k*k must be <= {BLOCK_OFFSETS}")
+        _check_flow_logits(logits, kernel_size)
+        b, h, w, _ = logits.shape
         out = torch.empty((b, h, w, 2), dtype=torch.float32, device=logits.device)
-        n_cells = b * h * w
-        with torch.cuda.device(logits.device):
-            heads_triton.flow_epilogue_kernel[(_cdiv(n_cells, BLOCK_CELLS),)](
-                logits, out, n_cells, h, w, K=kernel_size, KK=kk, P=kernel_size // 2,
-                BLOCK_M=BLOCK_CELLS, BLOCK_C=BLOCK_OFFSETS, num_warps=4)
-        KERNEL.launches += 1
+        KERNEL(logits.device, ptr(logits), None, None, ptr(out), None, None, None,
+               b * h * w, kernel_size, h, w, stream(logits))
         ctx.save_for_backward(logits)
         ctx.kernel_size = kernel_size
         return out
 
     @staticmethod
     def backward(ctx, g):
-        from ransacflow_tpu_torch.kernels import heads_triton
-
         (logits,) = ctx.saved_tensors
-        k = ctx.kernel_size
-        b, h, w, kk = logits.shape
+        b, h, w, _ = logits.shape
         g = g.contiguous()
         d = torch.empty_like(logits)
-        n_cells = b * h * w
-        with torch.cuda.device(logits.device):
-            heads_triton.flow_epilogue_bwd_kernel[(_cdiv(n_cells, BLOCK_CELLS),)](
-                logits, g, d, n_cells, h, w, K=k, KK=kk, P=k // 2,
-                BLOCK_M=BLOCK_CELLS, BLOCK_C=BLOCK_OFFSETS, num_warps=4)
-        KERNEL_BWD.launches += 1
+        KERNEL_BWD(logits.device, ptr(logits), ptr(g), ptr(d), None, None, None,
+                   b * h * w, ctx.kernel_size, h, w, stream(logits))
         return d, None
 
 
 class _MatchEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits):
-        from ransacflow_tpu_torch.kernels import heads_triton
-
         check(logits, "logits", torch.float32)
         out = torch.empty_like(logits)
-        n = logits.numel()
-        with torch.cuda.device(logits.device):
-            heads_triton.sigmoid_kernel[(_cdiv(n, BLOCK_ELEMS),)](
-                logits, out, n, BLOCK=BLOCK_ELEMS, num_warps=4)
-        KERNEL.launches += 1
+        KERNEL(logits.device, None, ptr(logits), None, None, ptr(out), None, None,
+               logits.numel(), 0, 1, 1, stream(logits))
         ctx.save_for_backward(out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        from ransacflow_tpu_torch.kernels import heads_triton
-
         (s,) = ctx.saved_tensors
         g = g.contiguous()
         d = torch.empty_like(s)
-        n = s.numel()
-        with torch.cuda.device(s.device):
-            heads_triton.sigmoid_bwd_kernel[(_cdiv(n, BLOCK_ELEMS),)](
-                s, g, d, n, BLOCK=BLOCK_ELEMS, num_warps=4)
-        KERNEL_BWD.launches += 1
+        KERNEL_BWD(s.device, None, None, None, ptr(s), ptr(g), ptr(d), s.numel(), 0, 1, 1,
+                   stream(s))
         return d
 
 
 def flow_epilogue(logits, kernel_size=7):
-    """`flow_epilogue_ref` for a CPU tensor, the Triton kernel for a CUDA
-    one, differentiable: its backward is a Triton kernel too."""
+    """`flow_epilogue_ref` for a CPU tensor, the kernel for a CUDA one,
+    differentiable: its backward is a kernel too. The training path's flow
+    head; the alignment paths take `head_epilogues`."""
     if logits.device.type == "cpu":
         return flow_epilogue_ref(logits, kernel_size)
     return _FlowEpilogue.apply(logits, kernel_size)
 
 
 def match_epilogue(logits):
-    """`match_epilogue_ref` for a CPU tensor, the Triton kernel for a CUDA
-    one, differentiable: its backward is a Triton kernel too."""
+    """`match_epilogue_ref` for a CPU tensor, the kernel for a CUDA one,
+    differentiable: its backward is a kernel too. The training path's
+    matchability head."""
     if logits.device.type == "cpu":
         return match_epilogue_ref(logits)
     return _MatchEpilogue.apply(logits)

@@ -5,7 +5,10 @@ Both heads share one trunk shape: conv3x3 k^2 -> 512 -> 256 -> 128 with BN
 and ReLU between, then conv3x3 to k^2 (flow: softmax expectation over the
 offsets) or to 1 (matchability: sigmoid). All convs are bias-free and run
 on cuDNN; the epilogues after conv4 are kernel 7 (`kernels/heads.py`), whose
-backward is a kernel too.
+backward is a kernel too. `net_flow_coarse` and `net_matchability` run a
+head with its epilogue (the training path); the fine stage runs its three
+trunks (`head_logits`) and then one launch for the three epilogues
+(`kernels/heads.head_epilogues`).
 """
 
 import torch
@@ -34,18 +37,25 @@ class Head(nn.Module):
         return self.conv4(x)
 
 
+def head_logits(net, corr):
+    """(B, H, W, k^2) correlation -> conv4's (B, H, W, C) logits of a head.
+    On the card the convolutions run channels-last (`nchw` of an NHWC tensor
+    is a channels-last view), so `nhwc` of conv4's output is a view too."""
+    return nhwc(net(nchw(corr)))
+
+
 def net_flow_coarse(net, corr, up8=True, kernel_size=7):
     """(B, H, W, k^2) correlation -> (B, H, W, 2) normalized residual flow
     (x then y), or (B, 8H, 8W, 2) with up8: the softmax expectation over the
     k x k offset grid, divided by the feature width/height, times 2."""
-    flow = flow_epilogue(nhwc(net(nchw(corr))), kernel_size)
+    flow = flow_epilogue(head_logits(net, corr), kernel_size)
     return upsample_bilinear_x8(flow) if up8 else flow
 
 
 def net_matchability(net, corr, up8=True):
     """(B, H, W, k^2) correlation -> (B, H, W, 1) matchability in (0, 1),
     or (B, 8H, 8W, 1) with up8."""
-    m = match_epilogue(nhwc(net(nchw(corr))))
+    m = match_epilogue(head_logits(net, corr))
     return upsample_bilinear_x8(m) if up8 else m
 
 

@@ -9,7 +9,7 @@ source, as numpy arrays on the host.
 
 import torch
 
-from ransacflow_tpu_torch.device import as_device
+from ransacflow_tpu_torch.device import as_device, full_fp32
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
 from ransacflow_tpu_torch.models.convert import (
     load_alignment_checkpoint,
@@ -51,6 +51,7 @@ class RansacFlowAligner:
                    load_resnet50_trunk(resnet_source, device, moco=moco), device,
                    kernel_size=kernel_size, **kw)
 
+    @full_fp32()
     @torch.inference_mode()
     def align_images(self, img1, img2, cycle_match=False, exclusion_mask=None):
         """Align source `img1` onto target `img2` (both PIL images).
@@ -63,6 +64,9 @@ class RansacFlowAligner:
         (Ht, Wt, 2) composed fine sampling grid; 'match' (Ht, Wt)
         matchability; 'warped_coarse', 'warped_fine' (Ht, Wt, 3) warped
         source; 'target' (Ht, Wt, 3) the resized target.
+
+        Runs in float32 with TF32 off (`device.full_fp32`); the caller's
+        TF32 flags are restored after the call.
         """
         c = self.coarse
         c.set_pair(img1, img2)

@@ -5,16 +5,18 @@
 'netFlowCoarse', 'netMatch' (see `pipeline.init_alignment_params`). The
 source warp is kernel 5 (on the alignment paths its homography form, which
 also writes the coarse grid), both correlations one launch of kernel 6's
-pair form, the head epilogues kernel 7 and the compose tail kernel 8.
+pair form, the three head epilogues one launch of kernel 7 and the compose
+tail kernel 8.
 """
 
 import torch
 
 from ransacflow_tpu_torch.kernels.compose import compose_tail
 from ransacflow_tpu_torch.kernels.correlation import correlation_pair
+from ransacflow_tpu_torch.kernels.heads import head_epilogues
 from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_sample
 from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
-from ransacflow_tpu_torch.models.heads import net_flow_coarse, net_matchability
+from ransacflow_tpu_torch.models.heads import head_logits
 from ransacflow_tpu_torch.models.layers import l2_normalize
 
 
@@ -64,10 +66,11 @@ def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
 
     # corr12 = corr(featt, feats) and corr21 = corr(feats, featt), one launch
     corr12, corr21 = correlation_pair(featt, feats, kernel_size)
-    flow_down8 = net_flow_coarse(params["netFlowCoarse"], corr12, up8=False,
-                                 kernel_size=kernel_size)
-    match12_down8 = net_matchability(params["netMatch"], corr12, up8=False)
-    match21_down8 = net_matchability(params["netMatch"], corr21, up8=False)
+    # the three heads' trunks, then their epilogues in one launch
+    flow_down8, match12_down8, match21_down8, match_down8 = head_epilogues(
+        head_logits(params["netFlowCoarse"], corr12),
+        head_logits(params["netMatch"], corr12),
+        head_logits(params["netMatch"], corr21), kernel_size)
 
     flow12, match = compose_tail(flow_down8, match12_down8, match21_down8,
                                  flow_coarse, cycle_match, out_hw)
@@ -75,7 +78,7 @@ def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
         "flow": flow12,
         "match": match[0],
         "flow_down8": flow_down8,
-        "match_down8": torch.cat([match12_down8, match21_down8], dim=-1),
+        "match_down8": match_down8,
     }
 
 

@@ -21,6 +21,7 @@ from ransacflow_tpu.ops import (
     ransac as jransac,
     sampler as jsampler,
 )
+from ransacflow_tpu.models import heads as jheads
 from ransacflow_tpu.ops.correlation import corr_offset_grids as j_corr_offset_grids
 from ransacflow_tpu.pipeline import fused as jfused
 from ransacflow_tpu_torch import kernels
@@ -38,6 +39,8 @@ from ransacflow_tpu_torch.kernels.correlation import (
 from ransacflow_tpu_torch.kernels.heads import (
     flow_epilogue,
     flow_epilogue_ref,
+    head_epilogues,
+    head_epilogues_ref,
     match_epilogue,
     match_epilogue_ref,
 )
@@ -389,6 +392,25 @@ def test_head_epilogues_ref_match_jax(rng):
     close(match_epilogue_ref(t(logits[..., :1])), jax.nn.sigmoid(jnp.asarray(logits[..., :1])))
 
 
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_head_epilogues_ref_matches_jax_heads(rng, monkeypatch, k):
+    """Kernel 7's plain version of a fine pass's three epilogues against
+    JAX's `net_flow_coarse` and `net_matchability` after their trunks (each
+    trunk replaced by seeded logits); match_down8 is the two sigmoids."""
+    logits = {"flow": (3 * rng.randn(2, 5, 6, k * k)).astype(np.float32),
+              "m12": (3 * rng.randn(2, 5, 6, 1)).astype(np.float32),
+              "m21": (3 * rng.randn(2, 5, 6, 1)).astype(np.float32)}
+    monkeypatch.setattr(jheads, "_trunk", lambda params, corr, train, axis_name: (
+        jnp.asarray(logits[params]), {}))
+    corr = jnp.zeros((2, 5, 6, k * k), jnp.float32)
+    flow, m12, m21, match = head_epilogues_ref(
+        t(logits["flow"]), t(logits["m12"]), t(logits["m21"]), k)
+    close(flow, jheads.net_flow_coarse("flow", corr, up8=False, kernel_size=k)[0])
+    close(m12, jheads.net_matchability("m12", corr, up8=False)[0])
+    close(m21, jheads.net_matchability("m21", corr, up8=False)[0])
+    assert torch.equal(match, torch.cat([m12, m21], dim=-1))
+
+
 def test_cpu_tensors_take_the_plain_versions(rng):
     kernels.reset_launch_counts()
     x = t(rng.randn(1, 4, 5, 8).astype(np.float32))
@@ -415,6 +437,10 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     logits = t(rng.randn(1, 3, 4, 9).astype(np.float32))
     torch.testing.assert_close(flow_epilogue(logits, 3), flow_epilogue_ref(logits, 3))
     torch.testing.assert_close(match_epilogue(logits), match_epilogue_ref(logits))
+    m12, m21 = logits[..., :1].contiguous(), logits[..., 1:2].contiguous()
+    for ours, ref in zip(head_epilogues(logits, m12, m21, 3),
+                         head_epilogues_ref(logits, m12, m21, 3)):
+        torch.testing.assert_close(ours, ref)
     assert set(kernels.launch_counts().values()) == {0}
 
 
@@ -541,6 +567,23 @@ def test_head_epilogue_kernels_on_card(cuda, rng):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 13, 17), (1, 60, 80)])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_head_epilogues_kernel_on_card(cuda, rng, shape, k):
+    """K7's fused launch, a fine pass's three epilogues, against its plain
+    version: one launch a call, match_down8 the two sigmoids bit for bit."""
+    ins = [t((3 * rng.randn(*shape, c)).astype(np.float32)).to(cuda) for c in (k * k, 1, 1)]
+    kernels.reset_launch_counts()
+    flow, m12, m21, match = head_epilogues(*ins, k)
+    assert kernels.launch_counts()["head_epilogues"] == 1
+    flow_r, m12_r, m21_r, match_r = head_epilogues_ref(*ins, k)
+    torch.testing.assert_close(flow, flow_r, atol=1e-5, rtol=0)
+    for ours, ref in ((m12, m12_r), (m21, m21_r), (match, match_r)):
+        torch.testing.assert_close(ours, ref, atol=1e-6, rtol=0)
+    assert torch.equal(match, torch.cat([m12, m21], dim=-1))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("cycle_match", [True, False])
 def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
     """K8 against its plain version at the coarse grid's size (out_hw None
@@ -571,6 +614,7 @@ def _forward_only_calls(rng, device):
     score = t(rng.randn(20, 9).astype(np.float32)).to(device)
     img = t(rng.rand(1, 16, 20, 3).astype(np.float32)).to(device)
     feat = t(rng.randn(1, 5, 6, 8).astype(np.float32)).to(device)
+    logits = t(rng.randn(1, 5, 7, 9).astype(np.float32)).to(device)
     g = lambda x: x.clone().requires_grad_()  # noqa: E731
     return [("mutual_argmax", lambda: mutual_argmax(g(score))),
             ("correlation_pair", lambda: correlation_pair(feat, g(feat), 3)),
@@ -578,6 +622,7 @@ def _forward_only_calls(rng, device):
             ("ransac_adaptive", lambda: ransac_adaptive(m1, g(m2), valid, 0.05, 16, 8, 0.999,
                                                         seed=seed)),
             ("compose_tail", lambda: compose_tail(g(f8), m12, m21, coarse, True)),
+            ("head_epilogues", lambda: head_epilogues(logits, g(m12), m21, 3)),
             ("device_pyramid", lambda: pyramid.device_pyramid(g(img), [(8, 10)])),
             ("mutual_argmax relaxed", lambda: mutual_argmax(g(score), 1, 3)),
             ("anchor_resample_feats", lambda: anchor_resample_feats(g(img), 5, 7)),
@@ -585,8 +630,8 @@ def _forward_only_calls(rng, device):
 
 
 def test_forward_only_wrappers_raise_under_grad(rng):
-    """K1, K2 (exact and relaxed), K3, K4, K6's pair form, K8, K12 and K13
-    have no backward:
+    """K1, K2 (exact and relaxed), K3, K4, K6's pair form, K7's fused
+    epilogues, K8, K12 and K13 have no backward:
     under grad mode an input that requires grad raises instead of handing
     back a tensor cut off from the graph; under no_grad they run."""
     for name, call in _forward_only_calls(rng, "cpu"):

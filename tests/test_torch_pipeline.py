@@ -99,6 +99,33 @@ def test_pred_flow_mask(rng, nets, cycle_match, out_hw):
         close(ours[key], ref[key], atol=ATOL_MAPS)
 
 
+@pytest.mark.gpu
+def test_fine_pass_launches_one_head_epilogue(rng):
+    """One fine pass on the card (`_after_warp`, from the homography form)
+    runs its three head epilogues as one launch of kernel 7, and returns
+    the maps of the same pass on the CPU (cuDNN and the CPU sum the
+    convolutions in other orders; fp32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.device import full_fp32
+
+    src, tgt = (rng.rand(1, 64, 64, 3).astype(np.float32) for _ in range(2))
+    H = (np.eye(3) + 0.05 * rng.randn(3, 3)).astype(np.float32)[None]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        align = convert.init_alignment_params(torch.Generator().manual_seed(1), device)
+        featt = fine.fine_features(align, t(tgt).to(device))
+        kernels.reset_launch_counts()
+        with full_fp32():
+            outs[device] = fine.pred_flow_mask_homography(
+                align, t(src).to(device), featt, t(H).to(device), (64, 64))
+    counts = kernels.launch_counts()
+    assert counts["head_epilogues"] == 1 and counts["compose_tail"] == 1
+    for key in ("flow_down8", "match_down8"):
+        close(outs["cuda"][key].cpu(), outs["cpu"][key], atol=ATOL_MAPS)
+
+
 def _pair(rng):
     pyr = (rng.rand(1, 64, 64, 3).astype(np.float32),
            rng.rand(1, 32, 32, 3).astype(np.float32))

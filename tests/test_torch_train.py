@@ -428,8 +428,7 @@ def test_port_imports_no_jax():
     included, without JAX."""
     code = ("import sys, pkgutil, importlib, ransacflow_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'ransacflow_tpu_torch.'):\n"
-            "    if not m.name.endswith('heads_triton'):\n"
-            "        importlib.import_module(m.name)\n"
+            "    importlib.import_module(m.name)\n"
             "for name in ('cli.train', 'train.loop', 'pipeline.api', 'cli.common',\n"
             "             'cli.align', 'models.segnet', 'eval.sky', 'pipeline.bank',\n"
             "             'kernels.anchor_resample', 'kernels.adaptive_pool'):\n"
