@@ -21,10 +21,13 @@ Phases, each of which must pass:
       launch, K7 a fine pass's three epilogues in one launch (match_down8
       bit for bit the two sigmoids, one device kernel a call, and whether
       `nhwc` copies conv4's output) and the training heads' two launches,
-      K13 the sky mask's conv5 maps, the backward kernels and
+      K13 the sky mask's conv5 maps (two device kernels a call: the
+      segment cells' sums, then the bins), the backward kernels and
       K9-K11 the full-width training step's; K9 forward and backward at the
       step's three calls (the stem, layer2's and layer3's downsample); K8
-      also across resolutions, a 368x1232 coarse grid composed at 375x1242;
+      also across resolutions, a 368x1232 coarse grid composed at 375x1242,
+      and with a residual that sends match21's corners outside the patch
+      its blocks stage (one device kernel a call);
       K11 at the step's three calls, each on a per-pixel-noise grid and an
       upsampled random flow's grid, with the share of its tiles that
       splatted through shared memory, at least 90% on the latter at C = 1
@@ -627,16 +630,19 @@ KITTI_COARSE_HW, KITTI_OUT_HW = (368, 1232), (375, 1242)  # fineSize grid, the G
 
 def check_compose_tail(gen):
     """K8 at 480x640 from the 60x80 maps, both cycle_match values, grids on
-    the border included; and across resolutions (suffix `_cross`), a
-    368x1232 coarse grid composed at 375x1242 as KITTI's second pass does.
+    the border included; across resolutions (suffix `_cross`), a 368x1232
+    coarse grid composed at 375x1242 as KITTI's second pass does; and at
+    480x640 with a residual large enough that most match21 corners leave
+    the patch a block stages and are read from the map (suffix `_far`).
     Matchability is compared off the in-bounds step."""
     from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 
     out = {"max_abs_err": 0.0}
-    cases = (("", TARGET_HW, None), ("_cross", KITTI_COARSE_HW, KITTI_OUT_HW))
-    for suffix, coarse_hw, out_hw in cases:
+    cases = (("", TARGET_HW, None, 0.04), ("_cross", KITTI_COARSE_HW, KITTI_OUT_HW, 0.04),
+             ("_far", TARGET_HW, None, 0.25))
+    for suffix, coarse_hw, out_hw, residual in cases:
         h8, w8 = coarse_hw[0] // 8, coarse_hw[1] // 8
-        flow8 = 0.04 * torch.randn((1, h8, w8, 2), generator=gen, device="cuda")
+        flow8 = residual * torch.randn((1, h8, w8, 2), generator=gen, device="cuda")
         m12 = torch.rand((1, h8, w8, 1), generator=gen, device="cuda")
         m21 = torch.rand((1, h8, w8, 1), generator=gen, device="cuda")
         for warped in (False, True):
@@ -660,6 +666,11 @@ def check_compose_tail(gen):
         out.update(bound(nbytes(flow8, m12, m21, coarse, flow, match), 60 * match.numel(),
                          suffix))
         out.update(library(None, suffix))
+    # traced after the timings (a trace can slow the host's later launches)
+    out["kernels_per_call"] = _kernels_per_call(
+        lambda: compose_tail(flow8, m12, m21, coarse, True), "compose_kernel")
+    require(out["kernels_per_call"] == 1,
+            f"compose_tail: {out['kernels_per_call']} device kernels a call, expected 1")
     return out
 
 
@@ -1093,6 +1104,10 @@ def check_ppm_pool(gen):
         out.update(bound(nbytes(x, *got), adds * 2048, suffix))
         out.update(library(lambda: [F.adaptive_avg_pool2d(x_nchw, s) for s in scales],
                            suffix))
+    # traced after the timings: the segment cells' sums, then the bins
+    out["kernels_per_call"] = _kernels_per_call(lambda: ppm_pool(x, scales), "ppm_")
+    require(out["kernels_per_call"] == 2,
+            f"ppm_pool: {out['kernels_per_call']} device kernels a call, expected 2")
     return out
 
 

@@ -1,4 +1,5 @@
-"""Kernel 8: the compose tail of the fine stage (`csrc/compose.cu`)."""
+"""Kernel 8: the compose tail of the fine stage, a tiled kernel
+(`csrc/compose.cu`)."""
 
 import ctypes
 
@@ -10,6 +11,13 @@ from ransacflow_tpu_torch.ops.sampler import grid_sample, interpolate_bilinear
 
 KERNEL = Kernel("rf_compose_tail",
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+# The kernel's tiling (`csrc/compose.cu`; the tests hold the two alike): a
+# block per TILE_H x TILE_W output pixels; the stride-8 cells under a tile
+# staged when they fit PATCH_H x PATCH_W, match21's with HALO_H rows and
+# HALO_W columns more on each side.
+TILE_H, TILE_W = 8, 64
+PATCH_H, PATCH_W = 8, 24
+HALO_H, HALO_W = 4, 8
 
 
 def compose_tail_ref(flow_down8, match12_down8, match21_down8, flow_coarse,
@@ -66,6 +74,11 @@ def compose_tail(flow_down8, match12_down8, match21_down8, flow_coarse,
     check(flow_down8, "flow_down8", torch.float32, shape=(b, h8, w8, 2), device=dev)
     check(match12_down8, "match12_down8", torch.float32, shape=(b, h8, w8, 1), device=dev)
     check(match21_down8, "match21_down8", torch.float32, shape=(b, h8, w8, 1), device=dev)
+    for name, x in (("flow_down8", flow_down8), ("flow_coarse", flow_coarse)):
+        if ptr(x) % 8:  # read as float2
+            raise ValueError(f"compose_tail: {name} must be 8-byte aligned")
+    if b > 65535 or ht > 8 * 65535:
+        raise ValueError("compose_tail: at most 65535 images and 524280 output rows")
     flow12 = torch.empty((b, ht, wt, 2), dtype=torch.float32, device=dev)
     match = torch.empty((b, ht, wt), dtype=torch.float32, device=dev)
     KERNEL(dev, ptr(flow_down8), ptr(match12_down8), ptr(match21_down8),

@@ -25,6 +25,7 @@ from ransacflow_tpu.models import heads as jheads
 from ransacflow_tpu.ops.correlation import corr_offset_grids as j_corr_offset_grids
 from ransacflow_tpu.pipeline import fused as jfused
 from ransacflow_tpu_torch import kernels
+from ransacflow_tpu_torch.kernels import compose as kcompose
 from ransacflow_tpu_torch.kernels import pyramid
 from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool
 from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_feats
@@ -382,6 +383,163 @@ def test_compose_tail_ref_matches_jax(rng, cycle_match, out_hw):
         close(match, ref_match)
 
 
+def test_compose_tiling_constants_are_the_kernels():
+    """The tiling that the emulation below walks is the one in
+    `csrc/compose.cu`."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(kcompose.__file__).parents[1] / "csrc" / "compose.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"\b(k[A-Za-z]+) = (\d+)\b", src)}
+    assert (consts["kTileH"], consts["kTileW"]) == (kcompose.TILE_H, kcompose.TILE_W)
+    assert (consts["kSR"], consts["kSC"]) == (kcompose.PATCH_H, kcompose.PATCH_W)
+    assert (consts["kHaloR"], consts["kHaloC"]) == (kcompose.HALO_H, kcompose.HALO_W)
+
+
+def _fma(a, b, c):
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _dot2(a, x, b, y):
+    return _fma(a, x, (np.float32(b) * np.float32(y)).astype(np.float32))
+
+
+def _upsample_axis(dst, n_in, scale):
+    """(i0, i1, l0, l1) of `csrc/compose.cu` `upsample_axis`."""
+    dst = np.asarray(dst)
+    src = np.maximum(_fma(scale, (dst + 0.5).astype(np.float32), -0.5), np.float32(0))
+    i0 = src.astype(np.int64)
+    l1 = (src - i0.astype(np.float32)).astype(np.float32)
+    return i0, i0 + (i0 < n_in - 1), (np.float32(1) - l1).astype(np.float32), l1
+
+
+def _linspace_pm1(i, n):
+    if n == 1:
+        return np.full(np.shape(i), -1, np.float32)
+    step = np.float32(2) / np.float32(n - 1)
+    return np.where(i < n // 2, _fma(step, i, -1.0), _fma(-step, n - i - 1, 1.0))
+
+
+def _upsampled(at, ay, ax, swap):
+    (y0, y1, wy0, wy1), (x0, x1, wx0, wx1) = ay, ax
+    a, b = at(y0, x0), at(y0, x1)
+    r0 = _dot2(wx1, b, wx0, a) if swap else _dot2(wx0, a, wx1, b)
+    return _dot2(wy0, r0, wy1, _dot2(wx0, at(y1, x0), wx1, at(y1, x1)))
+
+
+def _corners(gx, gy, h, w):
+    ix = ((gx + np.float32(1)) * np.float32(0.5)).astype(np.float32) * np.float32(w - 1)
+    iy = ((gy + np.float32(1)) * np.float32(0.5)).astype(np.float32) * np.float32(h - 1)
+    ix, iy = ix.astype(np.float32), iy.astype(np.float32)
+    fx, fy = np.floor(ix), np.floor(iy)
+    x0, y0 = fx.astype(np.int64), fy.astype(np.int64)
+    wx = ((fx + np.float32(1)) - ix, ix - fx)
+    wy = ((fy + np.float32(1)) - iy, iy - fy)
+    for k in range(4):
+        y, x = y0 + k // 2, x0 + k % 2
+        yield y, x, (wx[k % 2] * wy[k // 2]).astype(np.float32), (y >= 0) & (y < h) & (
+            x >= 0) & (x < w)
+
+
+def _patch(m, r0, r1, c0, c1):
+    """at(r, c) of map `m` read from its patch [r0, r1) x [c0, c1): every
+    read must land inside."""
+    patch = m[r0:r1, c0:c1]
+
+    def at(r, c):
+        assert (r >= r0).all() and (r < r1).all() and (c >= c0).all() and (c < c1).all()
+        return patch[r - r0, c - c0]
+    return at
+
+
+def _emulate_compose(flow8, m12, m21, coarse, cycle_match, out_hw=None):
+    """A numpy transliteration of `csrc/compose.cu`'s tiling: each block
+    finds the stride-8 cells under its tile, reads flow8 and match12 only
+    from that patch when it fits, and a pixel's four match21 corners from
+    the wider patch when all lie inside it, else from the map. Returns
+    (flow12, match, pixels whose corners came from the patch, from the
+    map)."""
+    b_, h8, w8, _ = flow8.shape
+    hc, wc = coarse.shape[1:3]
+    ht, wt = out_hw if out_hw is not None else (hc, wc)
+    sh, sw = np.float32(h8) / np.float32(ht), np.float32(w8) / np.float32(wt)
+    flow12 = np.full((b_, ht, wt, 2), np.nan, np.float32)
+    match = np.full((b_, ht, wt), np.nan, np.float32)
+    n_in = n_out = 0
+    for b, i0t, j0t in np.ndindex(b_, -(-ht // kcompose.TILE_H), -(-wt // kcompose.TILE_W)):
+        i0t, j0t = i0t * kcompose.TILE_H, j0t * kcompose.TILE_W
+        rows = np.arange(i0t, min(i0t + kcompose.TILE_H, ht))[:, None]
+        cols = np.arange(j0t, min(j0t + kcompose.TILE_W, wt))[None, :]
+        sr0, sr1 = _upsample_axis(i0t, h8, sh)[0], _upsample_axis(rows[-1, 0], h8, sh)[1] + 1
+        sc0, sc1 = _upsample_axis(j0t, w8, sw)[0], _upsample_axis(cols[0, -1], w8, sw)[1] + 1
+        staged = sr1 - sr0 <= kcompose.PATCH_H and sc1 - sc0 <= kcompose.PATCH_W
+        wr0, wr1 = max(sr0 - kcompose.HALO_H, 0), min(sr1 + kcompose.HALO_H, h8)
+        wc0, wc1 = max(sc0 - kcompose.HALO_W, 0), min(sc1 + kcompose.HALO_W, w8)
+        whole = (0, h8, 0, w8)
+        under = (sr0, sr1, sc0, sc1) if staged else whole
+        fx8, fy8, a8 = (_patch(m, *under) for m in (flow8[b, ..., 0], flow8[b, ..., 1],
+                                                    m12[b, ..., 0]))
+        ay, ax = _upsample_axis(rows, h8, sh), _upsample_axis(cols, w8, sw)
+        gx = np.clip(_upsampled(fx8, ay, ax, True) + _linspace_pm1(cols, wt), -1, 1)
+        gy = np.clip(_upsampled(fy8, ay, ax, False) + _linspace_pm1(rows, ht), -1, 1)
+        gx, gy = gx.astype(np.float32), gy.astype(np.float32)
+        m = _upsampled(a8, ay, ax, False)
+        f = np.zeros(gx.shape + (2,), np.float32)
+        for y, x, w, ok in _corners(gx, gy, hc, wc):
+            v = coarse[b, np.clip(y, 0, hc - 1), np.clip(x, 0, wc - 1)]
+            f = np.where(ok[..., None], _fma(v, w[..., None], f), f)
+        if cycle_match:  # a pixel's four corners from the patch when all lie inside
+            near, far = _patch(m21[b, ..., 0], wr0, wr1, wc0, wc1), _patch(m21[b, ..., 0], *whole)
+            cs = list(_corners(gx, gy, ht, wt))
+            y0, x0 = cs[0][0], cs[0][1]
+            ys = [_upsample_axis(y, h8, sh) for y in (y0, np.where(y0 + 1 < ht, y0 + 1, y0))]
+            xs = [_upsample_axis(x, w8, sw) for x in (x0, np.where(x0 + 1 < wt, x0 + 1, x0))]
+            inside = staged & (ys[0][0] >= wr0) & (ys[1][1] < wr1) & (xs[0][0] >= wc0) & (
+                xs[1][1] < wc1)
+            acc = np.zeros_like(gx)
+            for k, (_, _, w, ok) in enumerate(cs):
+                cy, cx = ys[k // 2], xs[k % 2]
+                v = np.empty(gx.shape, np.float32)
+                for sel, at in ((inside, near), (~inside, far)):
+                    v[sel] = _upsampled(at, [a[sel] for a in cy], [a[sel] for a in cx], True)
+                acc = np.where(ok, _fma(v, w, acc), acc)
+            n_in, n_out = n_in + int(inside.sum()), n_out + int((~inside).sum())
+            m = (m * acc).astype(np.float32)
+        inb = (f >= -1).all(-1) & (f <= 1).all(-1)
+        flow12[b, rows, cols] = f
+        match[b, rows, cols] = m * inb
+    return flow12, match, n_in, n_out
+
+
+# (h8, w8, images, residual, out_hw, where match21's corners are read): the
+# stride-8 maps' size and the residual's scale; a patch that fits, above the
+# grid's size, corners far outside the patch, one output row, and a patch
+# too wide to stage
+COMPOSE_TILE_CASES = [(12, 17, 2, 0.04, None, "patch"), (12, 17, 1, 0.04, (101, 130), "patch"),
+                      (12, 17, 1, 0.5, None, "both"), (1, 9, 3, 0.04, (1, 70), "patch"),
+                      (4, 40, 1, 0.04, (10, 50), "map")]
+
+
+@pytest.mark.parametrize("cycle_match", [True, False])
+@pytest.mark.parametrize("h8,w8,b,residual,out_hw,reads", COMPOSE_TILE_CASES)
+def test_compose_tail_tiles_emulated(rng, h8, w8, b, residual, out_hw, reads, cycle_match):
+    """K8's tiling run in numpy against the plain version: every read of a
+    staged patch lands inside it, the tiles cover the output once, and
+    match21's corners are read from the patch, from the map (a large
+    residual), or from the map only (no patch staged)."""
+    flow8, m12, m21, coarse = _compose_inputs(rng, b=b, h8=h8, w8=w8, identity=False)
+    flow8 = (flow8 * (residual / 0.04)).astype(np.float32)
+    flow, match, n_in, n_out = _emulate_compose(flow8, m12, m21, coarse, cycle_match, out_hw)
+    flow_r, match_r = compose_tail_ref(*map(t, (flow8, m12, m21, coarse)), cycle_match, out_hw)
+    np.testing.assert_allclose(flow, flow_r.numpy(), atol=1e-5, rtol=0)
+    off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1).numpy()
+    np.testing.assert_allclose(match[off], match_r.numpy()[off], atol=1e-5, rtol=0)
+    if cycle_match:
+        assert (n_in > 0, n_out > 0) == {"patch": (True, False), "both": (True, True),
+                                         "map": (False, True)}[reads]
+
+
 def test_head_epilogues_ref_match_jax(rng):
     """Kernel 7's plain versions: models/heads.py:69-99 after conv4."""
     logits = (3 * rng.randn(2, 5, 6, 49)).astype(np.float32)
@@ -588,7 +746,10 @@ def test_head_epilogues_kernel_on_card(cuda, rng, shape, k):
 def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
     """K8 against its plain version at the coarse grid's size (out_hw None
     bit for bit the same as out_hw equal to it) and across resolutions,
-    above and below the 40 x 56 coarse grid."""
+    above and below the 40 x 56 coarse grid; and at the tiling's cases
+    (`COMPOSE_TILE_CASES`: sizes that are not multiples of the tile, one
+    output row, three images, match21 corners far outside the staged patch,
+    a patch too wide to stage), each call deterministic."""
     for identity in (True, False):
         args = [x.to(cuda) for x in map(t, _compose_inputs(rng, b=2, identity=identity))]
         for out_hw in (None, (47, 61), (24, 33), (40, 56)):
@@ -603,6 +764,21 @@ def test_compose_tail_kernel_on_card(cuda, rng, cycle_match):
         default, same = compose_tail(*args, cycle_match), compose_tail(*args, cycle_match, (40, 56))
         for a, b in zip(default, same):
             assert torch.equal(a, b)
+    for h8, w8, b, residual, out_hw, _ in COMPOSE_TILE_CASES:
+        flow8, m12, m21, coarse = _compose_inputs(rng, b=b, h8=h8, w8=w8, identity=False)
+        flow8 = (flow8 * (residual / 0.04)).astype(np.float32)
+        args = [x.to(cuda) for x in map(t, (flow8, m12, m21, coarse))]
+        for hw in (out_hw, None):
+            got = compose_tail(*args, cycle_match, hw)
+            flow_r, match_r = compose_tail_ref(*args, cycle_match, hw)
+            torch.testing.assert_close(got[0], flow_r, atol=1e-5, rtol=0)
+            off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
+            torch.testing.assert_close(got[1][off], match_r[off], atol=1e-5, rtol=0)
+            for a, again in zip(got, compose_tail(*args, cycle_match, hw)):
+                assert torch.equal(a, again)
+        same = compose_tail(*args, cycle_match, coarse.shape[1:3])
+        for a, again in zip(compose_tail(*args, cycle_match), same):
+            assert torch.equal(a, again)
 
 
 def _forward_only_calls(rng, device):

@@ -22,7 +22,7 @@ from ransacflow_tpu.models import segnet as jsegnet
 from ransacflow_tpu_torch import kernels
 from ransacflow_tpu_torch.cli.common import build_sky_fn
 from ransacflow_tpu_torch.eval import sky
-from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool, ppm_pool_ref
+from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool, ppm_pool_ref, segment_plan
 from ransacflow_tpu_torch.models import convert, segnet
 
 SMALL = (64,)  # one inference scale, both packages
@@ -74,6 +74,48 @@ def test_ppm_pool_ref_matches_jax(rng, shape):
         # and torch's own adaptive pool, the library-call yardstick
         lib = F.adaptive_avg_pool2d(t(x).permute(0, 3, 1, 2), s).permute(0, 2, 3, 1)
         np.testing.assert_allclose(got.numpy(), lib.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 5), (5, 7), (6, 6), (7, 13), (13, 17), (38, 50),
+                                (47, 63)])
+def test_ppm_segment_plan_walk_matches_jax(rng, hw):
+    """K13's segment plan walked in plain torch as the kernel indexes it:
+    each (segment cell, channel) summed once in row-major pixel order, each
+    bin the sum of its cells over its pixel count, against the plain version
+    and JAX's `_adaptive_avg_pool`."""
+    H, W = hw
+    x = rng.rand(2, H, W, 5).astype(np.float32)
+    row_edges, col_edges, bins = segment_plan(H, W, segnet.POOL_SCALES)
+    assert row_edges[0] == col_edges[0] == 0 and (row_edges[-1], col_edges[-1]) == (H, W)
+    assert all(a < b for a, b in zip(row_edges, row_edges[1:]))
+    assert all(a < b for a, b in zip(col_edges, col_edges[1:]))
+    xt, nc = t(x), len(col_edges) - 1
+    cells = []  # (B, C) per cell, row-major over the segments
+    for rs, cs in np.ndindex(len(row_edges) - 1, nc):
+        px = xt[:, row_edges[rs]:row_edges[rs + 1], col_edges[cs]:col_edges[cs + 1]]
+        acc = torch.zeros(2, 5)
+        for p in px.reshape(2, -1, 5).unbind(1):
+            acc = acc + p
+        cells.append(acc)
+    n_cells = [(row_edges[r + 1] - row_edges[r]) * (col_edges[c + 1] - col_edges[c])
+               for r, c in np.ndindex(len(row_edges) - 1, nc)]
+    assert sum(n_cells) == H * W  # the cells tile the map: one read
+    walked, k = [], 0
+    for s in segnet.POOL_SCALES:
+        per_scale = []
+        for rs0, rs1, cs0, cs1 in bins[k:k + s * s]:
+            acc = torch.zeros(2, 5)
+            for rs, cs in np.ndindex(rs1 - rs0, cs1 - cs0):
+                acc = acc + cells[(rs0 + rs) * nc + cs0 + cs]
+            count = (row_edges[rs1] - row_edges[rs0]) * (col_edges[cs1] - col_edges[cs0])
+            per_scale.append(acc / count)
+        walked.append(torch.stack(per_scale, 1).reshape(2, s, s, 5))
+        k += s * s
+    assert k == len(bins)
+    for s, got, ref in zip(segnet.POOL_SCALES, walked, ppm_pool_ref(xt, segnet.POOL_SCALES)):
+        torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+        jref = np.asarray(jsegnet._adaptive_avg_pool(jnp.asarray(x), s))
+        np.testing.assert_allclose(got.numpy(), jref, atol=1e-6, rtol=1e-5)
 
 
 def test_dilated_conv_helper_matches_jax(rng):
@@ -220,16 +262,24 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 47, 63, 2048), (2, 13, 17, 40), (1, 1, 5, 3)])
-def test_ppm_pool_kernel_on_card(cuda, rng, shape):
+@pytest.mark.parametrize("shape", [(1, 47, 63, 2048), (2, 13, 17, 40), (1, 1, 5, 3),
+                                   (3, 38, 50, 2048), (2, 7, 13, 12)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ppm_pool_kernel_on_card(cuda, rng, shape, aligned):
+    """K13 against its plain version: 16-byte loads (C % 4 == 0 on an
+    aligned map) and 4-byte loads (C = 3, or the map one float past an
+    aligned address); one launch a call, deterministic."""
     x = t(rng.rand(*shape).astype(np.float32)).to(cuda)
+    if not aligned:
+        x = torch.empty(x.numel() + 1, device=cuda)[1:].view(shape).copy_(x)
     kernels.reset_launch_counts()
     got = ppm_pool(x)
     assert kernels.launch_counts()["ppm_pool"] == 1  # every scale, one launch
-    for g, r in zip(got, ppm_pool_ref(x)):
+    for g, r, again in zip(got, ppm_pool_ref(x), ppm_pool(x)):
         assert g.shape == r.shape
         # fp32 means of up to ~3000 values in another order
         torch.testing.assert_close(g, r, atol=2e-6, rtol=1e-5)
+        assert torch.equal(g, again)
 
 
 @pytest.mark.gpu
