@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on one CUDA card: the serving path,
 the multi-homography loop, training, the opt-in fast modes through the
-public entry points, and the sky mask.
+public entry points, the sky mask and the eval harnesses.
 
     python3 chip_smoke.py
 
@@ -91,13 +91,34 @@ Phases, each of which must pass:
       then a seeded one at full width (5 scales of a 480x640 image, ms per
       image), and the `--segNet` hook (`cli.common.build_sky_fn` ->
       bg_mask -> `multi_homography_predict_fused`) on the 4 related pairs of
-      (e); launches of ppm_pool (K13) and the loop's kernels.
+      (e); launches of ppm_pool (K13) and the loop's kernels;
+  (i) eval harnesses: synthetic sets written to a temporary directory
+      (numpy from a seed, PIL; KITTI's 16-bit ground truth by a zlib PNG
+      writer), the predict and results passes of each at its defaults on
+      the card: HPatches (2 pairs of 640x480, planted translations, 7
+      scales, 50k hypotheses, max_coarse 10, AEPE at 240x240), KITTI 2015
+      (2 pairs of 1242x375, a planted 15-row shift, coarseSize 800, 3
+      scales, fineSize 650, cc_th 0.01) and corr (2 pairs of 640x480, 40
+      annotated points each, 10k hypotheses, cycle match); seeded trunk,
+      alignment nets from accept_weights.npz. Each artifact finite, of the
+      JAX package's fields, 1 to max_coarse + 1 homographies; launches of
+      K2, K3, K5h, K6's pair, K7, K8 and K9 (KITTI also K5's grid form and
+      three K8 an iteration), K8 once a pair in the results passes (twice
+      for KITTI); each results pass on the card against the CPU's on the
+      same artifacts (HPatches' AEPE within 1e-3 px, corr's precision and
+      counts equal, KITTI's EPE within 1e-3 px off the pixels whose
+      th = 1.0 or cc decision flips on a last-bit difference of the
+      matchability, its composed stacks within 1e-5); K8 against its plain
+      version on KITTI's real pass-2 and inter-pass shapes from an
+      artifact (keys `_kitti`, `_kitti_grid` of its row); pairs/s, results
+      ms, KITTI's host share (the cc cleanup) and the coarse-only metrics
+      against the planted truth printed.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
 correlation_pair and runs its head epilogues through head_epilogues: one
 launch each per compose_tail launch, no correlation_volume, and no
-grid-form warp_sample but align_images' warped_fine.
+grid-form warp_sample but align_images' warped_fine and KITTI's pass 2.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -2119,6 +2140,348 @@ def phase_train(card):
                       "k11_shared_tile_share": k11_share, "profile": profile}
 
 
+EVAL_PAIRS = 2
+# a harness's fine passes: K2 (cached matching), K3, K5h, K6's pair, K7, K8, K9
+EVAL_KERNELS = ("mutual_argmax", "ransac_score", "warp_homography", "correlation_pair",
+                "head_epilogues", "compose_tail", "blur_pool")
+KITTI_HW, KITTI_SHIFT = (375, 1242), 15  # KITTI's size; the target is the source 15 rows up
+# (dx, dy) px of each HPatches and corr pair: target(x, y) = source(x - dx, y - dy)
+EVAL_SHIFTS = ((16, 16), (32, 16))
+
+
+def _png16(path, img):
+    """uint16 (H, W, 3) in cv2's B, G, R order as a 16-bit RGB PNG, rows
+    unfiltered: KITTI's ground truth, written without cv2."""
+    import struct
+    import zlib
+
+    h = img.shape[0]
+    rows = np.ascontiguousarray(img[..., ::-1]).astype(">u2").view(np.uint8).reshape(h, -1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", img.shape[1], h, 16, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(b"\0" + r.tobytes() for r in rows)))
+                + chunk(b"IEND", b""))
+
+
+def _write_csv(path, rows):
+    import csv
+
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def _eval_datasets(root):
+    """Phase (i)'s synthetic sets under `root`, images made with numpy from a
+    seed and saved with PIL. HPatches: 2 pairs of 640x480, each target its
+    source translated by EVAL_SHIFTS (planted homographies in the CSV).
+    KITTI: 2 pairs of 1242x375, each target its source 15 rows up (an exact
+    2-cell shift at coarseSize 800), ground truth u = 0, v = 15 where the
+    source holds the pixel. Corr: 2 translated pairs of 640x480 with 40
+    annotated points each."""
+    rng = np.random.RandomState(11)
+    hp_rows, corr_rows = [], []
+    for d in ("hpatches", "corr", "kitti/image_2", "kitti/flow_noc"):
+        os.makedirs(f"{root}/{d}")
+    for k, (dx, dy) in enumerate(EVAL_SHIFTS):
+        shift = lambda a: np.roll(a, (dy, dx), axis=(0, 1))  # noqa: E731
+        base = _blocky(rng, 1, *TARGET_HW)[0]
+        os.makedirs(f"{root}/hpatches/obj{k}")
+        _to_pil(base).save(f"{root}/hpatches/obj{k}/1.ppm")
+        _to_pil(shift(base)).save(f"{root}/hpatches/obj{k}/2.ppm")
+        h_px = np.array([[1, 0, dx], [0, 1, dy], [0, 0, 1]], np.float64)  # source px -> target px
+        hp_rows.append({"obj": f"obj{k}", "im1": 1, "im2": 2, "Him": TARGET_HW[0],
+                        "Wim": TARGET_HW[1], **{f"h{r}{c}": h_px[r, c] for r in range(3)
+                                                for c in range(3)}})
+        base = _blocky(rng, 1, *TARGET_HW)[0]
+        _to_pil(base).save(f"{root}/corr/a{k}.png")
+        _to_pil(shift(base)).save(f"{root}/corr/b{k}.png")
+        xt = rng.randint(TARGET_HW[1] // 8, TARGET_HW[1] * 7 // 8, 40)
+        yt = rng.randint(TARGET_HW[0] // 8, TARGET_HW[0] * 7 // 8, 40)
+        corr_rows.append({"scene": "/", "source_image": f"a{k}.png", "target_image": f"b{k}.png",
+                          "XA": ";".join(map(str, xt - dx)), "YA": ";".join(map(str, yt - dy)),
+                          "XB": ";".join(map(str, xt)), "YB": ";".join(map(str, yt))})
+        h, w = KITTI_HW
+        img = _blocky(rng, 1, h + KITTI_SHIFT + 2, w + 2)[0]  # sides multiples of 4
+        _to_pil(img[:h, :w]).save(f"{root}/kitti/image_2/{k:06}_11.png")
+        _to_pil(img[KITTI_SHIFT:h + KITTI_SHIFT, :w]).save(f"{root}/kitti/image_2/{k:06}_10.png")
+        gt = np.zeros((h, w, 3), np.uint16)  # (valid, v, u), each stored + 2^15 after * 64
+        gt[: h - KITTI_SHIFT, :, 0] = 1
+        gt[..., 1] = 32768 + 64 * KITTI_SHIFT
+        gt[..., 2] = 32768
+        _png16(f"{root}/kitti/flow_noc/{k:06}_10.png", gt)
+    _write_csv(f"{root}/hpatches/hpatches_1_2.csv", hp_rows)
+    _write_csv(f"{root}/corr/pairs.csv", corr_rows)
+
+
+def _check_artifacts(name, out_dir, n_max=None, extra=()):
+    """Every pair has an artifact of the JAX package's fields (and `extra`),
+    finite, with 1 to n_max homographies. Returns the homographies a pair."""
+    from ransacflow_tpu_torch.eval.artifacts import FIELDS, check_complete, load_pair
+
+    missing = check_complete(out_dir, range(EVAL_PAIRS))
+    require(not missing, f"{name}: no artifact for pairs {missing}")
+    counts = []
+    for i in range(EVAL_PAIRS):
+        art = load_pair(out_dir, i)
+        require(set(art) == set(FIELDS) | set(extra), f"{name}: pair {i}: fields {sorted(art)}")
+        n = art["coarse_h"].shape[0]
+        require(1 <= n and (n_max is None or n <= n_max), f"{name}: pair {i}: {n} homographies")
+        for key, a in art.items():
+            require(key == "bg_mask" or a.shape[0] == n, f"{name}: pair {i}: {key} {a.shape}")
+            require(bool(np.isfinite(a).all()), f"{name}: pair {i}: {key} is not finite")
+        counts.append(n)
+    return counts
+
+
+def _timed(fn):
+    """(fn(), seconds) on the host clock; fn ends in host reads."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _kitti_card_vs_cpu(pred_dir, gt_dir, th=1.0, cc_th=0.01):
+    """KITTI's results pass (its defaults) on the card against the CPU, pair
+    by pair. The composed stacks, K8 against its plain version at the
+    ground truth's size, agree within 1e-5 off the in-bounds step. The EPE
+    agrees within 1e-3 px off the pixels whose merge or cc decision flips:
+    a matchability within 1e-6 of th (1.0, which the sigmoids reach in
+    fp32) or of the cc threshold 0.99, read on either side of it on the two
+    devices. Returns (largest EPE gap, largest gap off the flips, flipped
+    pixels a pair)."""
+    from ransacflow_tpu_torch.eval import kitti
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+    from ransacflow_tpu_torch.eval.compose import match_channels, put
+    from ransacflow_tpu_torch.kernels.compose import compose_tail
+    from ransacflow_tpu_torch.ops.homography import warp_grid
+
+    gap, gap_off, flipped = 0.0, 0.0, []
+    for i in range(EVAL_PAIRS):
+        art = load_pair(pred_dir, i)
+        u, v, valid = kitti.read_kitti_flow(f"{gt_dir}/{i:06}_10.png")
+        ht, wt = u.shape
+        maps, errs = {}, {}
+        for dev in ("cuda", "cpu"):
+            with torch.inference_mode():
+                flow_d2 = kitti._compose(put(art["fine_flow_d2_down8"], dev),
+                                         warp_grid(put(art["coarse_h"], dev), ht, wt))
+                flow, match = compose_tail(put(art["fine_flow_down8"], dev),
+                                           *match_channels(put(art["fine_match_down8"], dev)),
+                                           flow_d2, True)
+            maps[dev] = flow.cpu().numpy(), match.cpu().numpy()
+            grid = np.stack(np.meshgrid(np.linspace(-1, 1, wt), np.linspace(-1, 1, ht)), -1)
+            est = kitti.compose_kitti_flow(art, ht, wt, dev, th=th, cc_th=cc_th)
+            du = (est[..., 0] - grid[..., 0]) * (wt - 1) / 2
+            dv = (est[..., 1] - grid[..., 1]) * (ht - 1) / 2
+            errs[dev] = np.sqrt((du - u) ** 2 + (dv - v) ** 2)
+        (fc, mc), (fp, mp) = maps["cuda"], maps["cpu"]
+        off = (np.abs(np.abs(fp) - 1) > 1e-5).all(-1)
+        err = max(np.abs(fc - fp).max(), np.abs(mc - mp)[off].max())
+        require(err <= 1e-5, f"KITTI results pass, pair {i}: K8 on the card {err} from the CPU")
+        flips = np.zeros((ht, wt), bool)
+        for t in (th, 0.99):
+            side = (mc >= t) != (mp >= t)
+            require(bool((np.abs(mc - mp)[side] <= 1e-6).all()),
+                    f"KITTI results pass, pair {i}: a flip at {t} more than 1e-6 apart")
+            flips |= side.any(0)
+        keep = valid & ~flips
+        gap = max(gap, abs(float((errs["cuda"] * valid).sum() / valid.sum())
+                           - float((errs["cpu"] * valid).sum() / valid.sum())))
+        gap_off = max(gap_off, abs(float(errs["cuda"][keep].mean() - errs["cpu"][keep].mean())))
+        flipped.append(int(flips.sum()))
+    require(gap_off <= 1e-3, f"KITTI: the card's EPE is {gap_off} px from the CPU's off the "
+                             f"{flipped} pixels whose decisions flip")
+    return gap, gap_off, flipped
+
+
+def check_compose_kitti(art):
+    """K8 on KITTI's real shapes and data, from a pair's artifact: the
+    inter-pass compose (the d2 pass's stride-8 flow into the fineSize
+    homography grid, suffix `_kitti_grid`) and pass 2 (its stride-8 flow
+    and matchability, that grid composed at 375x1242 with cycle_match,
+    suffix `_kitti`), against the plain version."""
+    from ransacflow_tpu_torch.eval.compose import match_channels, put
+    from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
+    from ransacflow_tpu_torch.ops.homography import warp_grid
+
+    h8, w8 = art["fine_flow_down8"].shape[1:3]
+    d2 = put(art["fine_flow_d2_down8"][:1], "cuda")
+    unused = torch.zeros(d2.shape[:3] + (1,), device="cuda")
+    grid_args = (d2, unused, unused, warp_grid(put(art["coarse_h"][:1], "cuda"), 8 * h8, 8 * w8),
+                 False, None)
+    pass2_args = (put(art["fine_flow_down8"][:1], "cuda"),
+                  *match_channels(put(art["fine_match_down8"][:1], "cuda")),
+                  compose_tail_ref(*grid_args)[0].contiguous(), True, KITTI_HW)
+    out = {}
+    for suffix, args in (("_kitti_grid", grid_args), ("_kitti", pass2_args)):
+        (flow, match), (flow_r, match_r) = compose_tail(*args), compose_tail_ref(*args)
+        torch.cuda.synchronize()
+        off = ((flow_r.abs() - 1).abs() > 1e-5).all(dim=-1)
+        err = max((flow - flow_r).abs().max().item(), (match - match_r)[off].abs().max().item())
+        require(err <= 1e-5, f"compose_tail{suffix}: max abs err {err}")
+        out["max_abs_err" + suffix] = err
+        out["shapes" + suffix] = [list(a.shape) for a in args[:4]] + [list(match.shape)]
+        out.update(paired_ms(lambda: compose_tail(*args), lambda: compose_tail_ref(*args),
+                             suffix=suffix))
+        out.update(bound(nbytes(*args[:4], flow, match), 60 * match.numel(), suffix))
+        out["share" + suffix] = out["bound_ms" + suffix] / out["device_ms" + suffix] \
+            if out["device_ms" + suffix] else None
+    return out
+
+
+def _add_counts(*counts):
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def phase_eval(card, kernel_results):
+    """(i) The eval harnesses: predict and results passes of HPatches, KITTI
+    and corr at their defaults on the card (`_eval_datasets`), seeded trunk,
+    alignment nets from accept_weights.npz; each results pass held to the
+    same pass on the CPU; K8 on KITTI's real pass-2 shapes."""
+    import tempfile
+
+    from ransacflow_tpu_torch.eval import corr, hpatches, kitti
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+    from ransacflow_tpu_torch.models.convert import (
+        alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
+
+    t0 = time.perf_counter()
+    resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    no_other = {"warp_sample": 0, "correlation_volume": 0, "ransac_adaptive": 0,
+                "lanczos_pyramid": 0, "anchor_resample": 0}
+    launches, readings = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        _eval_datasets(root)
+
+        # HPatches: host loop, 7 scales, 50k hypotheses, max_coarse 10, 240x240 metric
+        hp, pred = f"{root}/hpatches", f"{root}/pred_hpatches"
+        (_, predict), predict_s = _timed(lambda: _launches_of(
+            lambda: hpatches.predict_hpatches(hp, hp, pred, resnet, align, "cuda", scenes=(2,))))
+        counts = _check_artifacts("HPatches", f"{pred}/2", n_max=11)
+        ((_, aepe), results), results_s = _timed(lambda: _launches_of(
+            lambda: hpatches.evaluate_hpatches(pred, hp, hp, "cuda", scenes=(2,))))
+        cpu = hpatches.evaluate_hpatches(pred, hp, hp, "cpu", scenes=(2,))[1][2]
+        gap = float(np.max(np.abs(np.subtract(aepe[2], cpu))))
+        require(gap <= 1e-3, f"HPatches: the card's AEPE is {gap} px from the CPU's")
+        coarse = hpatches.evaluate_hpatches(pred, hp, hp, "cuda", scenes=(2,),
+                                            only_coarse=True)[1][2]
+        _require_launched("eval_hpatches predict", predict, EVAL_KERNELS,
+                          {**no_other, **_per_fine_pass(predict)})
+        _require_launched("eval_hpatches results", results,
+                          exact={"compose_tail": EVAL_PAIRS, "warp_homography": 0})
+        launches["eval_hpatches"] = _add_counts(predict, results)
+        readings["hpatches"] = {
+            "pairs_s": EVAL_PAIRS / predict_s, "results_ms_per_pair": results_s * 1e3 / EVAL_PAIRS,
+            "aepe_px": aepe[2], "coarse_aepe_px": coarse, "card_vs_cpu_px": gap,
+            "homographies": counts}
+        print(f"(i) HPatches, {EVAL_PAIRS} pairs of 640x480 (7 scales, 50k, max_coarse 10): "
+              f"predict {readings['hpatches']['pairs_s']:.3f} pairs/s ({predict_s:.2f} s), "
+              f"results {readings['hpatches']['results_ms_per_pair']:.1f} ms a pair (host "
+              f"clock); AEPE {aepe[2]} px, coarse-only {coarse} px against the planted "
+              f"homographies; card vs CPU {gap:.2e} px; homographies {counts}; launches "
+              f"predict {predict}, results {results} on {card}", flush=True)
+
+        # KITTI: coarseSize 800, 3 scales, fineSize 650, cc_th 0.01, the two-resolution loop
+        kt, kpred = f"{root}/kitti", f"{root}/pred_kitti"
+        cc_seconds = []
+        remove_small_cc = kitti.remove_small_cc
+
+        def timed_cc(*args, **kwargs):
+            t1 = time.perf_counter()
+            out = remove_small_cc(*args, **kwargs)
+            cc_seconds.append(time.perf_counter() - t1)
+            return out
+
+        kitti.remove_small_cc = timed_cc  # the host's cleanup, each iteration
+        try:
+            (_, predict), predict_s = _timed(lambda: _launches_of(
+                lambda: kitti.predict_kitti(f"{kt}/image_2", kpred, resnet, align, "cuda",
+                                            end_index=EVAL_PAIRS)))
+        finally:
+            kitti.remove_small_cc = remove_small_cc
+        counts = _check_artifacts("KITTI", kpred, extra=("fine_flow_d2_down8",))
+        iterations = predict["warp_homography"]
+        ((_, epe), results), results_s = _timed(lambda: _launches_of(
+            lambda: kitti.evaluate_kitti(kpred, f"{kt}/flow_noc", "cuda", n_pairs=EVAL_PAIRS)))
+        gap, gap_off, flipped = _kitti_card_vs_cpu(kpred, f"{kt}/flow_noc")
+        _, decode_s = _timed(lambda: [kitti.read_kitti_flow(f"{kt}/flow_noc/{i:06}_10.png")
+                                      for i in range(EVAL_PAIRS)])  # the results pass's PNG reads
+        coarse = kitti.evaluate_kitti(kpred, f"{kt}/flow_noc", "cuda", n_pairs=EVAL_PAIRS,
+                                      only_coarse=True)[1]
+        # an iteration: pass 1 (K5h, K6 pair, K7, K8), the inter-pass K8, pass 2 (K5's
+        # grid form, K6 pair, K7, K8 across resolutions)
+        _require_launched("eval_kitti predict", predict, EVAL_KERNELS + ("warp_sample",), {
+            **no_other, "warp_sample": iterations, "compose_tail": 3 * iterations,
+            "correlation_pair": 2 * iterations, "head_epilogues": 2 * iterations})
+        _require_launched("eval_kitti results", results,
+                          exact={"compose_tail": 2 * EVAL_PAIRS, "warp_homography": 0})
+        launches["eval_kitti"] = _add_counts(predict, results)
+        k8 = check_compose_kitti(load_pair(kpred, 0))
+        row = kernel_results["compose_tail"]
+        row.update(k8)
+        row["max_abs_err"] = max(row["max_abs_err"], k8["max_abs_err_kitti"],
+                                 k8["max_abs_err_kitti_grid"])
+        readings["kitti"] = {
+            "pairs_s": EVAL_PAIRS / predict_s, "results_ms_per_pair": results_s * 1e3 / EVAL_PAIRS,
+            "epe_px": epe, "coarse_epe_px": coarse, "card_vs_cpu_px": gap,
+            "card_vs_cpu_px_off_flips": gap_off, "flipped_px": flipped,
+            "homographies": counts, "iterations": iterations,
+            "cc_host_s": sum(cc_seconds), "cc_host_share": sum(cc_seconds) / predict_s,
+            "gt_decode_ms_per_pair": decode_s * 1e3 / EVAL_PAIRS,
+            "compose_tail_per_iteration": predict["compose_tail"] / iterations}
+        print(f"(i) KITTI, {EVAL_PAIRS} pairs of 1242x375 (coarseSize 800, 3 scales, 50k, "
+              f"fineSize 650): predict {readings['kitti']['pairs_s']:.3f} pairs/s "
+              f"({predict_s:.2f} s, {iterations} iterations; the host's cc cleanup "
+              f"{sum(cc_seconds):.3f} s = {readings['kitti']['cc_host_share']:.3f} of it), "
+              f"results {readings['kitti']['results_ms_per_pair']:.1f} ms a pair (its ground "
+              f"truth's PNG decode {readings['kitti']['gt_decode_ms_per_pair']:.1f}); EPE {epe} px, "
+              f"coarse-only {coarse} px against the planted flow; card vs CPU {gap:.2e} px, "
+              f"{gap_off:.2e} off the {flipped} pixels whose th = 1.0 or cc decision flips; "
+              f"homographies {counts}; K8 on pass 2's shapes {k8['shapes_kitti']}: err "
+              f"{k8['max_abs_err_kitti']:.2e}, device {k8['device_ms_kitti']} ms (plain "
+              f"{k8['plain_device_ms_kitti']}), bound {k8['bound_ms_kitti']:.4f}; the "
+              f"inter-pass grid {k8['shapes_kitti_grid']}: err {k8['max_abs_err_kitti_grid']:.2e}"
+              f", device {k8['device_ms_kitti_grid']} ms; launches predict {predict}, results "
+              f"{results} on {card}", flush=True)
+
+        # corr: host loop, 7 scales, 10k hypotheses, cycle match, MegaDepth precision
+        cp, cpred = f"{root}/corr", f"{root}/pred_corr"
+        (_, predict), predict_s = _timed(lambda: _launches_of(
+            lambda: corr.predict_corr(f"{cp}/pairs.csv", cp, cpred, resnet, align, "cuda")))
+        counts = _check_artifacts("corr", cpred, n_max=11)
+        (prec, results), results_s = _timed(lambda: _launches_of(
+            lambda: corr.evaluate_corr(cpred, f"{cp}/pairs.csv", cp, "cuda")))
+        prec_cpu = corr.evaluate_corr(cpred, f"{cp}/pairs.csv", cp, "cpu")
+        require(prec[0.0][1] == prec_cpu[0.0][1] and np.array_equal(prec[0.0][0], prec_cpu[0.0][0]),
+                f"corr: the card's precision {prec} differs from the CPU's {prec_cpu}")
+        _require_launched("eval_corr predict", predict, EVAL_KERNELS,
+                          {**no_other, **_per_fine_pass(predict)})
+        _require_launched("eval_corr results", results,
+                          exact={"compose_tail": EVAL_PAIRS, "warp_homography": 0})
+        launches["eval_corr"] = _add_counts(predict, results)
+        readings["corr"] = {
+            "pairs_s": EVAL_PAIRS / predict_s, "results_ms_per_pair": results_s * 1e3 / EVAL_PAIRS,
+            "precision": prec[0.0][0].tolist(), "n_points": prec[0.0][1],
+            "homographies": counts}
+        print(f"(i) corr, {EVAL_PAIRS} pairs of 640x480 (7 scales, 10k, cycle match): predict "
+              f"{readings['corr']['pairs_s']:.3f} pairs/s ({predict_s:.2f} s), results "
+              f"{readings['corr']['results_ms_per_pair']:.1f} ms a pair; precision at "
+              f"1-36 px {prec[0.0][0].tolist()} over {prec[0.0][1]} points, equal on the CPU; "
+              f"homographies {counts}; launches predict {predict}, results {results} on "
+              f"{card}; phase (i) {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -2171,10 +2534,11 @@ def main():
         train, train_readings = phase_train(card)
         fast, fast_readings = phase_fast_modes(card, exact_pairs_s)
         sky, sky_readings = phase_sky(card)
+        evals, eval_readings = phase_eval(card, results)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
-    by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky}
+    by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -2183,7 +2547,7 @@ def main():
                     "device_ms", "plain_device_ms", "library_device_ms", "share")}}
                for name, (route, src, rep) in SOURCES.items()]
     print(json.dumps({"multihomo": readings, "train": train_readings,
-                      "fast_modes": fast_readings, "sky": sky_readings,
+                      "fast_modes": fast_readings, "sky": sky_readings, "eval": eval_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

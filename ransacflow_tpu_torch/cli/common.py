@@ -12,7 +12,9 @@ from ransacflow_tpu_torch.models.convert import (
     load_resnet50_trunk,
     load_segnet,
 )
+from ransacflow_tpu_torch.pipeline.multihomo import use_device_loop
 from ransacflow_tpu_torch.train.checkpoint import load_checkpoint
+from ransacflow_tpu_torch.train.loop import not_ported
 
 
 def load_align_params(resume_path, device, kernel_size=7):
@@ -92,3 +94,36 @@ def add_adaptive_flag(parser):
              "--anchorStride): accept a match when the back-match lands "
              "within this many target feature cells. 0 = reference semantics "
              "(parity default)")
+
+
+def add_fused_flag(parser):
+    parser.add_argument(
+        "--fused", action="store_true",
+        help="run each pair's multi-homography loop on the device "
+             "(multi_homography_predict_fused): one host read a slot instead "
+             "of several. Sugar for --nDevices 1. Artifacts match the host "
+             "loop's but for its fp64 polish and its draws")
+
+
+def resolve_n_devices(args):
+    """--nDevices, or 1 for --fused without it; None keeps the host loop.
+    A pool of more devices and --batchPairs raise NotImplementedError
+    (`pipeline.multihomo.use_device_loop`)."""
+    n = args.nDevices
+    if n is None and getattr(args, "fused", False):
+        n = 1
+    use_device_loop(n, getattr(args, "batchPairs", None))
+    return n
+
+
+def add_compute_dtype_flag(parser):
+    parser.add_argument(
+        "--computeDtype", type=str, default="float32", choices=["float32", "bfloat16"],
+        help="compute dtype of the networks on the eval path: float32, the "
+             "reference-parity default (TF32 off); bfloat16 is not ported yet")
+
+
+def check_compute_dtype(args):
+    """float32 is the one compute dtype ported; bfloat16 raises."""
+    if args.computeDtype == "bfloat16":
+        not_ported("--computeDtype bfloat16", "item 14")

@@ -1,0 +1,104 @@
+"""HPatches harness CLI (port of `ransacflow_tpu/cli/eval_hpatches.py`):
+predict, then results.
+
+  python -m ransacflow_tpu_torch.cli.eval_hpatches predict --outDir pred/ \
+      --csv-path csv/ --image-data-path imgs/ [--resumePth model.pth] [--device cuda]
+  python -m ransacflow_tpu_torch.cli.eval_hpatches results --predDir pred/ \
+      --csv-path csv/ --image-data-path imgs/ --multiH [--device cuda]
+"""
+
+import argparse
+
+import numpy as np
+
+from ransacflow_tpu_torch.cli.common import (
+    add_adaptive_flag,
+    add_compute_dtype_flag,
+    add_fused_flag,
+    add_model_args,
+    add_segnet_args,
+    build_sky_fn,
+    check_compute_dtype,
+    load_align_params,
+    load_coarse_net,
+    resolve_n_devices,
+)
+from ransacflow_tpu_torch.device import use_full_fp32
+from ransacflow_tpu_torch.eval.hpatches import evaluate_hpatches, predict_hpatches
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("predict")
+    add_model_args(p)
+    add_segnet_args(p)
+    p.add_argument("--csv-path", type=str, required=True)
+    p.add_argument("--image-data-path", type=str, required=True)
+    p.add_argument("--outDir", type=str, required=True)
+    p.add_argument("--coarseIter", type=int, default=50000)
+    p.add_argument("--maskRegionTh", type=float, default=0.01)
+    p.add_argument("--maxCoarse", type=int, default=10)
+    p.add_argument("--coarsetolerance", type=float, default=0.05)
+    p.add_argument("--nbScale", type=int, default=7)
+    p.add_argument("--minSize", type=int, default=480)
+    p.add_argument("--scaleR", type=float, default=2.0)
+    p.add_argument("--beginIndex", type=int, default=0)
+    p.add_argument("--nDevices", type=int, default=None,
+                   help="1: the device-resident multi-homography loop; a pool "
+                        "of more is not ported yet. Default: the host loop")
+    p.add_argument("--batchPairs", type=int, default=None,
+                   help="batched pairs over a device pool: not ported yet")
+    p.add_argument("--endIndex", type=int, default=None)
+    add_fused_flag(p)
+    add_adaptive_flag(p)
+    add_compute_dtype_flag(p)
+
+    r = sub.add_parser("results")
+    r.add_argument("--predDir", type=str, required=True)
+    r.add_argument("--csv-path", type=str, required=True)
+    r.add_argument("--image-data-path", type=str, required=True)
+    r.add_argument("--multiH", action="store_true")
+    r.add_argument("--th", type=float, default=1.0)
+    r.add_argument("--minSize", type=int, default=240)
+    r.add_argument("--onlyCoarse", action="store_true")
+    r.add_argument("--device", type=str, default="cuda",
+                   help="the torch device the flows are composed on")
+
+    args = parser.parse_args(argv)
+    if args.cmd == "predict":
+        check_compute_dtype(args)
+        n_devices = resolve_n_devices(args)
+    use_full_fp32()
+
+    if args.cmd == "predict":
+        predict_hpatches(
+            args.csv_path, args.image_data_path, args.outDir,
+            load_coarse_net(args.device, args.mocoPth, args.imageNetPth),
+            load_align_params(args.resumePth, args.device, args.kernelSize),
+            args.device,
+            min_size=args.minSize, nb_scale=args.nbScale,
+            n_iter=args.coarseIter, tolerance=args.coarsetolerance,
+            scale_r=args.scaleR, max_coarse=args.maxCoarse,
+            mask_region_th=args.maskRegionTh,
+            bg_mask_fn=build_sky_fn(args, args.device),
+            begin_index=args.beginIndex, end_index=args.endIndex,
+            n_devices=n_devices, batch_pairs=args.batchPairs,
+            adaptive_chunk=args.adaptiveChunk,
+            anchor_stride=args.anchorStride,
+            relax_cells=args.relaxCells,
+        )
+    else:
+        res, _ = evaluate_hpatches(
+            args.predDir, args.csv_path, args.image_data_path, args.device,
+            out_size=args.minSize, multi_h=args.multiH, th=args.th,
+            only_coarse=args.onlyCoarse,
+        )
+        for scene, aepe in res.items():
+            print(f"Scene {scene}, Average end-point error (EPE): {aepe:.3f}")
+        print(f"Overall mean AEPE: {np.mean(list(res.values())):.3f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,27 @@
-"""Evaluation hooks of the port (see `ransacflow_tpu/eval`)."""
+"""The eval harnesses of the port (see `ransacflow_tpu/eval`): HPatches,
+KITTI 2015 and the sparse-correspondence harness, their shared compose
+core and artifact schema, and the sky-mask hooks."""
+
+from ransacflow_tpu_torch.eval.artifacts import check_complete, load_pair, save_pair  # noqa: F401
+from ransacflow_tpu_torch.eval.compose import (  # noqa: F401
+    fill_flow_nearest,
+    merge_multi_h,
+    reconstruct_flows,
+    remove_small_cc,
+)
+from ransacflow_tpu_torch.eval.corr import PIXEL_GRID, evaluate_corr, predict_corr  # noqa: F401
+from ransacflow_tpu_torch.eval.hpatches import (  # noqa: F401
+    evaluate_hpatches,
+    hpatches_gt_grid,
+    predict_hpatches,
+)
+from ransacflow_tpu_torch.eval.kitti import (  # noqa: F401
+    evaluate_kitti,
+    predict_kitti,
+    read_kitti_flow,
+)
+from ransacflow_tpu_torch.eval.sky import (  # noqa: F401
+    make_sky_bg_fn,
+    make_sky_bg_fn_rotated,
+    resize_mask,
+)

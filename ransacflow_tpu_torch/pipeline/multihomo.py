@@ -233,3 +233,16 @@ def multi_homography_predict_fused(coarse, params, max_coarse=10,
         cycle_match=cycle_match, bg_mask=bg_mask, kernel_size=kernel_size,
         generator=generator)
     return multi_homography_finalize(final, bg)
+
+
+def use_device_loop(n_devices, batch_pairs=None):
+    """The eval harnesses' `n_devices`: None runs the host loop, 1 the
+    device-resident loop (one pair at a time, each on its own draws). A pool
+    of devices and batched pairs are not ported yet."""
+    if n_devices not in (None, 1):
+        raise NotImplementedError(f"a pool of {n_devices} devices is not ported yet "
+                                  "(ROADMAP.md queue 1, item 12)")
+    if batch_pairs is not None:
+        raise NotImplementedError("batched pairs (--batchPairs) are not ported yet "
+                                  "(ROADMAP.md queue 1, item 12)")
+    return n_devices == 1

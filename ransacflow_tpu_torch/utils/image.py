@@ -41,6 +41,17 @@ def resize_max_size(img, min_size, stride=STRIDE_NET):
     return img.resize((new_w, new_h), resample=Image.LANCZOS)
 
 
+def resize_round_stride(img, min_size, stride=STRIDE_NET):
+    """Resize so the smaller side = min_size, each side *rounded* (not
+    floored) to the stride (reference: utils/outil.py:6-19 ``resizeImg``;
+    KITTI's fineSize resizes)."""
+    w, h = img.size
+    ratio = min(w / min_size, h / min_size)
+    w, h = w / ratio, h / ratio
+    return img.resize((round(w / stride) * stride, round(h / stride) * stride),
+                      resample=Image.LANCZOS)
+
+
 def to_array(img):
     """PIL -> float32 (H, W, 3) in [0, 1] (torchvision ToTensor semantics,
     channels-last)."""

@@ -18,6 +18,7 @@ from PIL import Image
 
 from ransacflow_tpu_torch.cli import align as cli_align
 from ransacflow_tpu_torch.cli import common as cli_common
+from ransacflow_tpu_torch.cli import eval_corr, eval_hpatches, eval_kitti
 from ransacflow_tpu_torch.cli import train as cli_train
 from ransacflow_tpu_torch.models import convert, segnet
 from ransacflow_tpu_torch.pipeline.api import RansacFlowAligner
@@ -75,6 +76,35 @@ def test_train_cli_turns_tf32_off(tf32_on, monkeypatch, tmp_path):
     monkeypatch.setattr(cli_train, "fit", lambda *args, **kwargs: seen.append(tf32_flags()))
     cli_train.main(["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path / "out"),
                     "--stage", "3", "--computeDtype", "float32", "--device", "cpu", "NoVal"])
+    assert seen == [(False, False)]
+
+
+EVAL_CLIS = {  # module, its predict and results paths, what its results pass returns
+    "hpatches": (eval_hpatches, ["--csv-path", "c", "--image-data-path", "i"],
+                 ["--csv-path", "c", "--image-data-path", "i"], ({2: 0.0}, {})),
+    "kitti": (eval_kitti, ["--testImg", "i"], ["--gtPath", "g"], (0.0, [])),
+    "corr": (eval_corr, ["--testCSV", "c", "--testDir", "i"],
+             ["--testCSV", "c", "--testDir", "i"], {0.0: (np.zeros(8), 0)}),
+}
+
+
+@pytest.mark.parametrize("cmd", ["predict", "results"])
+@pytest.mark.parametrize("cli", list(EVAL_CLIS))
+def test_eval_clis_turn_tf32_off(tf32_on, monkeypatch, tmp_path, cli, cmd):
+    """Each eval CLI, both subcommands: the flags are off where the
+    harness runs."""
+    module, predict_paths, results_paths, result = EVAL_CLIS[cli]
+    seen = []
+    record = lambda *args, **kwargs: seen.append(tf32_flags()) or result  # noqa: E731
+    monkeypatch.setattr(module, f"predict_{cli}", record)
+    monkeypatch.setattr(module, f"evaluate_{cli}", record)
+    monkeypatch.setattr(module, "load_align_params", lambda *args: None)
+    monkeypatch.setattr(module, "load_coarse_net", lambda *args: None)
+    if cmd == "predict":
+        argv = [*predict_paths, "--outDir", str(tmp_path)]
+    else:
+        argv = [*results_paths, "--predDir", str(tmp_path)]
+    module.main([cmd, *argv, "--device", "cpu"])
     assert seen == [(False, False)]
 
 

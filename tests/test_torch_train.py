@@ -425,16 +425,22 @@ def test_pair_folder_yields_the_jax_batches(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, `train`, `cli`, `eval` and the kernels
-    included, without JAX."""
+    included, without JAX, and without pandas or cv2, which the card's
+    machine does not have."""
     code = ("import sys, pkgutil, importlib, ransacflow_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'ransacflow_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "for name in ('cli.train', 'train.loop', 'pipeline.api', 'cli.common',\n"
             "             'cli.align', 'models.segnet', 'eval.sky', 'pipeline.bank',\n"
-            "             'kernels.anchor_resample', 'kernels.adaptive_pool'):\n"
+            "             'kernels.anchor_resample', 'kernels.adaptive_pool',\n"
+            "             'eval.artifacts', 'eval.table', 'eval.compose', 'eval.hpatches',\n"
+            "             'eval.kitti', 'eval.corr', 'cli.eval_hpatches', 'cli.eval_kitti',\n"
+            "             'cli.eval_corr'):\n"
             "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n")
+            "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n"
+            "for name in ('pandas', 'cv2'):\n"
+            "    assert name not in sys.modules, name + ' imported'\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120,
                    cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
