@@ -112,13 +112,31 @@ Phases, each of which must pass:
       version on KITTI's real pass-2 and inter-pass shapes from an
       artifact (keys `_kitti`, `_kitti_grid` of its row); pairs/s, results
       ms, KITTI's host share (the cc cleanup) and the coarse-only metrics
-      against the planted truth printed.
+      against the planted truth printed;
+  (j) YFCC, Aachen and generate_pairs: a YFCC scene (2 pairs of 640x480, a
+      textured plane seen by two calibrated cameras, planted translations,
+      pair 1's target stored turned by 90 degrees) through `predict_yfcc` at
+      the reference's defaults (min side 480, 7 scales, 10k hypotheses,
+      tolerance 0.05, max_coarse 10, maskRegionTh 0.01, a fresh masked match
+      every call, cycle match) in the host loop and the device loop; the
+      pre-test picks 0 and 270; launches of K2, K3, K5h, K6's pair, K7, K8
+      and K9; the results pass (--multiH --ransac, th 0.95, threshold
+      0.0005; calibration records handed in, no h5py on the card) on the
+      card against the CPU on the same artifacts and pose seed (composed
+      stacks within 1e-5, matched pixels equal but at th flips, points
+      within 1e-5 (w - 1) / 2 px, equal errors on equal points); the pose
+      estimator's host time, points and minimal sets; the Aachen export on
+      one pair and its match file; `cli.generate_pairs` on a kept (planted
+      shift) and a rejected (noise against a flat image) row, K2 and K3 a
+      row and K5h for the kept one.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
 correlation_pair and runs its head epilogues through head_epilogues: one
 launch each per compose_tail launch, no correlation_volume, and no
 grid-form warp_sample but align_images' warped_fine and KITTI's pass 2.
+Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
+`eval_yfcc_device`, `eval_aachen` and `generate_pairs`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -2235,7 +2253,8 @@ def _check_artifacts(name, out_dir, n_max=None, extra=()):
         n = art["coarse_h"].shape[0]
         require(1 <= n and (n_max is None or n <= n_max), f"{name}: pair {i}: {n} homographies")
         for key, a in art.items():
-            require(key == "bg_mask" or a.shape[0] == n, f"{name}: pair {i}: {key} {a.shape}")
+            require(key == "bg_mask" or a.ndim == 0 or a.shape[0] == n,
+                    f"{name}: pair {i}: {key} {a.shape}")
             require(bool(np.isfinite(a).all()), f"{name}: pair {i}: {key} is not finite")
         counts.append(n)
     return counts
@@ -2482,6 +2501,279 @@ def phase_eval(card, kernel_results):
     return launches, readings
 
 
+YFCC_FOCAL, YFCC_DEPTH = 500.0, 5.0  # px; the textured plane's depth
+YFCC_TH, YFCC_THRESHOLD = 0.95, 0.0005  # the results pass's --th and --threshold
+# the camera of an image stored turned by 90 degrees counter-clockwise (PIL):
+# its centred pixel (u, v) of the upright image is (v, -u)
+TURN_90 = np.array([[0.0, 1, 0], [-1, 0, 0], [0, 0, 1]])
+# generate_pairs: the planted shift (K2, K3, K5h) and a row it rejects (K2, K3)
+GENERATE_KERNELS = ("mutual_argmax", "ransac_score", "warp_homography")
+
+
+def _yfcc_dataset(root):
+    """Phase (j)'s YFCC scene under `root`: 2 pairs of 640x480, each target
+    its source translated by EVAL_SHIFTS, a textured plane at depth 5 seen
+    by two cameras of focal 500 px whose second moves parallel to the plane
+    (tests/test_eval.py:439); pair 1's target is stored turned by 90 degrees,
+    its camera turned with it, so the pre-test must turn it back (270).
+    Returns (pairs pkl, scene dir, the calibration records that
+    `eval.yfcc.load_scene_calibration` reads from .h5 files)."""
+    import pickle
+
+    from ransacflow_tpu_torch.utils.image import min_size_shape_wh
+
+    rng = np.random.RandomState(13)
+    scene = f"{root}/yfcc/reichstag/test"
+    os.makedirs(scene)
+    os.makedirs(f"{root}/yfcc/pairs")
+    K = np.diag([YFCC_FOCAL, YFCC_FOCAL, 1.0])
+    names, calib = [], []
+    for k, (dx, dy) in enumerate(EVAL_SHIFTS):
+        base = _blocky(rng, 1, *TARGET_HW)[0]
+        t = np.array([dx, dy, 0.0]) * YFCC_DEPTH / YFCC_FOCAL
+        turn = TURN_90 if k == 1 else np.eye(3)
+        for j, (img, R, tt) in enumerate(((base, np.eye(3), np.zeros(3)),
+                                          (np.roll(base, (dy, dx), axis=(0, 1)), turn,
+                                           turn @ t))):
+            pil = _to_pil(img)
+            if k == 1 and j == 1:
+                pil = pil.rotate(90, expand=True)
+            names.append(f"im{2 * k + j}.png")
+            pil.save(f"{scene}/{names[-1]}")
+            calib.append({"R": R, "t": tt[:, None], "K": K, "org_size": list(pil.size),
+                          "resized": min_size_shape_wh(pil.size, TARGET_HW[0])})
+    with open(f"{scene}/images.txt", "w") as f:
+        f.write("\n".join(names) + "\n")
+    pkl = f"{root}/yfcc/pairs/reichstag-te-1000-pairs.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump([[0, 1], [2, 3]], f)
+    return pkl, scene, calib
+
+
+def _pose_probe():
+    """Wrap `eval.yfcc.estimate_pose` and `eval.pose.five_point_batch`:
+    each pose call's points, host seconds and minimal sets solved. Returns
+    (calls list, undo)."""
+    from ransacflow_tpu_torch.eval import pose, yfcc
+
+    calls = []
+    estimate, solve = yfcc.estimate_pose, pose.five_point_batch
+
+    def timed_estimate(pts1, pts2, *args, **kwargs):
+        calls.append({"n1": np.array(pts1), "n2": np.array(pts2), "sets": 0})
+        t1 = time.perf_counter()
+        out = estimate(pts1, pts2, *args, **kwargs)
+        calls[-1]["s"] = time.perf_counter() - t1
+        return out
+
+    def counted_solve(x1, x2):
+        calls[-1]["sets"] += len(x1)
+        return solve(x1, x2)
+
+    yfcc.estimate_pose, pose.five_point_batch = timed_estimate, counted_solve
+
+    def undo():
+        yfcc.estimate_pose, pose.five_point_batch = estimate, solve
+
+    return calls, undo
+
+
+def _yfcc_card_vs_cpu(pred_dir, pkl, scene, calib):
+    """YFCC's results pass (--multiH --ransac, th 0.95, threshold 0.0005) on
+    the card against the CPU on the same artifacts and seed. The composed
+    stacks (K8 against its plain version) agree within 1e-5 off the
+    in-bounds step; the matched pixels are the same but where a
+    matchability within 1e-6 of th reads on either side of it on the two
+    devices; the matched points agree within 1e-5 (w - 1) / 2 px; where the
+    point sets are equal, the pose errors are equal when the points are bit
+    for bit the same, else within 1 degree (the pose tolerance of
+    tests/test_torch_pose.py: K8's last bits move a point, and RANSAC may
+    then keep another model). Returns (card's errors,
+    accs, launches, seconds, pose calls, the CPU's errors, flipped pixels a
+    pair, largest error gap)."""
+    from ransacflow_tpu_torch.eval import yfcc
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+    from ransacflow_tpu_torch.eval.compose import reconstruct_flows
+
+    kw = dict(multi_h=True, th=YFCC_TH, use_ransac=True, threshold=YFCC_THRESHOLD,
+              calibration=calib)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        calls, undo = _pose_probe()
+        try:
+            ((errors, accs), launches), seconds = _timed(lambda: _launches_of(
+                lambda: yfcc.evaluate_yfcc(pred_dir, pkl, scene, dev, **kw)))
+        finally:
+            undo()
+        runs[dev] = errors, accs, launches, seconds, calls
+    flipped = []
+    for i, (ia, ib) in enumerate(((0, 1), (2, 3))):
+        art = load_pair(pred_dir, i)
+        h8, w8 = art["fine_flow_down8"].shape[1:3]
+        stacks = [reconstruct_flows(art["coarse_h"], art["fine_flow_down8"],
+                                    art["fine_match_down8"], 8 * h8, 8 * w8, dev)
+                  for dev in ("cuda", "cpu")]
+        (fc, mc), (fp, mp) = stacks
+        off = (np.abs(np.abs(fp) - 1) > 1e-5).all(-1)
+        err = max(np.abs(fc - fp).max(), np.abs(mc - mp)[off].max())
+        require(err <= 1e-5, f"YFCC results pass, pair {i}: K8 on the card {err} from the CPU")
+        side = (mc >= YFCC_TH) != (mp >= YFCC_TH)
+        require(bool((np.abs(mc - mp)[side] <= 1e-6).all()),
+                f"YFCC results pass, pair {i}: a flip at th more than 1e-6 apart")
+        flips = side.any(0) & art["bg_mask"]
+        flipped.append(int(flips.sum()))
+        _, pts2 = yfcc.matches_from_flow(fp[0], flips, calib[ia]["resized"], calib[ib]["resized"],
+                                         int(art["rotation"]))
+        near = {tuple(k) for k in yfcc.norm_kp(calib[ib]["org_size"], calib[ib]["resized"],
+                                               calib[ib]["K"], pts2.astype(np.float64))}
+        got, want = runs["cuda"][4][i], runs["cpu"][4][i]
+        a = {tuple(k): p for p, k in zip(got["n1"], got["n2"])}
+        b = {tuple(k): p for p, k in zip(want["n1"], want["n2"])}
+        require(set(a) ^ set(b) <= near, f"YFCC pair {i}: the matched pixels differ off the "
+                                         f"{len(near)} pixels whose th decision flips")
+        common = [k for k in a if k in b and k not in near]
+        gap = max((np.abs(a[k] - b[k]).max() for k in common), default=0.0)
+        tol = 1e-5 * (calib[ib]["resized"][0] - 1) / 2 / YFCC_FOCAL
+        require(gap <= tol, f"YFCC pair {i}: matched points {gap} apart (normalized)")
+        if set(a) == set(b):  # the same seed: equal errors on equal points, else 1 degree
+            same = all(np.array_equal(a[k], b[k]) for k in a)
+            e_card, e_cpu = runs["cuda"][0][i], runs["cpu"][0][i]
+            require(e_card == e_cpu if same else abs(e_card - e_cpu) <= 1.0,
+                    f"YFCC pair {i}: pose error {e_card} on the card, {e_cpu} on the CPU "
+                    f"(points {'equal' if same else 'within 1e-5 px'}, one seed)")
+    gap = float(np.max(np.abs(np.subtract(runs["cuda"][0], runs["cpu"][0]))))
+    return (*runs["cuda"], runs["cpu"][0], runs["cpu"][3], flipped, gap)
+
+
+def phase_yfcc(card):
+    """(j) The YFCC harness at its defaults on the card (`_yfcc_dataset`),
+    its predict pass in the host loop and the device loop (`--nDevices 1`),
+    its results pass held to the CPU's; the Aachen export on one pair; and
+    `cli.generate_pairs` on a kept and a rejected row. Seeded trunk,
+    alignment nets from accept_weights.npz."""
+    import importlib.util
+    import tempfile
+
+    from ransacflow_tpu_torch.cli import generate_pairs
+    from ransacflow_tpu_torch.eval import aachen, yfcc
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+    from ransacflow_tpu_torch.models.convert import (
+        alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
+    from ransacflow_tpu_torch.pipeline import CoarseAligner
+
+    t0 = time.perf_counter()
+    resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    no_other = {"warp_sample": 0, "correlation_volume": 0, "ransac_adaptive": 0,
+                "lanczos_pyramid": 0, "anchor_resample": 0}
+    launches, readings = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        pkl, scene, calib = _yfcc_dataset(root)
+
+        # predict: the rotation pre-test, then the loop with a rematch every call
+        loops = {}
+        for key, n_devices in (("eval_yfcc", None), ("eval_yfcc_device", 1)):
+            pred = f"{root}/pred_{key}"
+            (_, predict), seconds = _timed(lambda: _launches_of(
+                lambda: yfcc.predict_yfcc(pkl, scene, pred, resnet, align, "cuda",
+                                          n_devices=n_devices)))
+            counts = _check_artifacts(key, pred, n_max=11, extra=("rotation",))
+            rotations = [int(load_pair(pred, i)["rotation"]) for i in range(EVAL_PAIRS)]
+            require(rotations == [0, 270], f"{key}: the pre-test picked {rotations}")
+            # a fresh masked match (K2) and fit (K3) for each of the four rotations and
+            # each slot; a fine pass a slot
+            _require_launched(f"{key} predict", predict, EVAL_KERNELS,
+                              {**no_other, **_per_fine_pass(predict)})
+            loops[key] = predict, seconds, counts
+        pred = f"{root}/pred_eval_yfcc"
+        (errors, accs, results, results_s, calls, cpu_errors, cpu_s, flipped,
+         gap) = _yfcc_card_vs_cpu(pred, pkl, scene, calib)
+        _require_launched("eval_yfcc results", results,
+                          exact={"compose_tail": EVAL_PAIRS, "warp_homography": 0})
+        launches["eval_yfcc"] = _add_counts(loops["eval_yfcc"][0], results)
+        launches["eval_yfcc_device"] = loops["eval_yfcc_device"][0]
+        pose_s = sum(c["s"] for c in calls)
+        readings["yfcc"] = {
+            "pairs_s": EVAL_PAIRS / loops["eval_yfcc"][1],
+            "pairs_s_device_loop": EVAL_PAIRS / loops["eval_yfcc_device"][1],
+            "homographies": loops["eval_yfcc"][2],
+            "homographies_device_loop": loops["eval_yfcc_device"][2],
+            "results_ms_per_pair": results_s * 1e3 / EVAL_PAIRS,
+            "pose_host_share": pose_s / results_s,
+            "pose_s": [c["s"] for c in calls], "pose_points": [len(c["n1"]) for c in calls],
+            "pose_minimal_sets": [c["sets"] for c in calls],
+            "cpu_results_ms_per_pair": cpu_s * 1e3 / EVAL_PAIRS,
+            "errors_deg": errors, "cpu_errors_deg": cpu_errors, "accs": accs,
+            "card_vs_cpu_deg": gap, "flipped_px": flipped,
+            "h5py_on_this_machine": importlib.util.find_spec("h5py") is not None}
+        r = readings["yfcc"]
+        print(f"(j) YFCC, {EVAL_PAIRS} pairs of 640x480 (7 scales, 10k, rematch, cycle match, "
+              f"pair 1's target turned by 90): predict {r['pairs_s']:.3f} pairs/s host loop "
+              f"({loops['eval_yfcc'][1]:.2f} s), {r['pairs_s_device_loop']:.3f} device loop; "
+              f"homographies {r['homographies']} / {r['homographies_device_loop']}; results "
+              f"{r['results_ms_per_pair']:.1f} ms a pair, the pose estimator "
+              f"{r['pose_host_share']:.3f} of it ({r['pose_s']} s on {r['pose_points']} points, "
+              f"{r['pose_minimal_sets']} minimal sets solved); CPU results "
+              f"{r['cpu_results_ms_per_pair']:.1f} ms a pair; errors {errors} deg (CPU "
+              f"{cpu_errors}), card vs CPU {gap} deg, {flipped} pixels flip at th; accs {accs}; "
+              f"h5py here: {r['h5py_on_this_machine']}; launches predict "
+              f"{loops['eval_yfcc'][0]}, device loop {loops['eval_yfcc_device'][0]}, results "
+              f"{results} on {card}", flush=True)
+
+        # the Aachen export: one pair, the host loop with cached matching
+        coarse = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=N_ITER, min_size=TARGET_HW[0])
+        (corr, export), export_s = _timed(lambda: _launches_of(
+            lambda: aachen.export_correspondences(coarse, align, f"{scene}/im0.png",
+                                                  f"{scene}/im1.png")))
+        require(corr is not None and np.isfinite(corr["query_xy"]).all(),
+                "Aachen export: no alignment or non-finite points")
+        aachen.write_match_file(f"{root}/aachen/matches.txt", "im0_im1", corr)
+        with open(f"{root}/aachen/matches.txt") as f:
+            require(len(f.read().splitlines()) == len(corr["query_xy"]) + 1,
+                    "Aachen export: the match file's rows")
+        # the cached match (K2) once; a fine pass a homography, then one K8 for them all
+        fine = export["compose_tail"] - 1
+        _require_launched("eval_aachen", export, EVAL_KERNELS, {
+            **no_other, "mutual_argmax": 1, "warp_homography": fine, "correlation_pair": fine,
+            "head_epilogues": fine})
+        launches["eval_aachen"] = export
+        readings["aachen"] = {"ms_per_pair": export_s * 1e3, "points": len(corr["query_xy"])}
+        print(f"(j) Aachen export, 1 pair: {export_s * 1e3:.1f} ms, "
+              f"{len(corr['query_xy'])} correspondences; launches {export}", flush=True)
+
+        # generate_pairs: the planted shift kept, a noise / flat pair rejected
+        rng = np.random.RandomState(17)
+        _to_pil(rng.rand(*TARGET_HW, 3)).save(f"{root}/noise.png")
+        _to_pil(np.full((*TARGET_HW, 3), 0.5)).save(f"{root}/flat.png")
+        _write_csv(f"{root}/pairs.csv", [{"imgA": f"{scene}/im0.png", "imgB": f"{scene}/im1.png"},
+                                         {"imgA": f"{root}/noise.png",
+                                          "imgB": f"{root}/flat.png"}])
+        inliers = []
+        align_pair = generate_pairs.align_pair
+        generate_pairs.align_pair = lambda *a: (lambda out: inliers.append(out[0]) or out)(
+            align_pair(*a))
+        try:
+            (_, generate), generate_s = _timed(lambda: _launches_of(
+                lambda: generate_pairs.main(["--pairCSV", f"{root}/pairs.csv", "--imgDir", "/",
+                                             "--outDir", f"{root}/train_pairs",
+                                             "--device", "cuda"])))
+        finally:
+            generate_pairs.align_pair = align_pair
+        written = sorted(os.listdir(f"{root}/train_pairs"))
+        require(written == ["0_1.jpg", "0_2.jpg"], f"generate_pairs wrote {written}; "
+                                                   f"inliers {inliers}")
+        _require_launched("generate_pairs", generate, exact={
+            **no_other, "mutual_argmax": 2, "ransac_score": 2, "warp_homography": 1,
+            "compose_tail": 0})
+        launches["generate_pairs"] = generate
+        readings["generate_pairs"] = {"pairs_s": 2 / generate_s, "inliers": inliers}
+        print(f"(j) generate_pairs, 2 rows at minSize 480 (x0.5, x1, x2 bank): "
+              f"{2 / generate_s:.3f} rows/s ({generate_s:.2f} s), inliers {inliers} (kept > 50); "
+              f"launches {generate} on {card}; phase (j) {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return launches, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -2535,10 +2827,12 @@ def main():
         fast, fast_readings = phase_fast_modes(card, exact_pairs_s)
         sky, sky_readings = phase_sky(card)
         evals, eval_readings = phase_eval(card, results)
+        yfcc_paths, yfcc_readings = phase_yfcc(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
-    by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals}
+    by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
+               **yfcc_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -2547,7 +2841,8 @@ def main():
                     "device_ms", "plain_device_ms", "library_device_ms", "share")}}
                for name, (route, src, rep) in SOURCES.items()]
     print(json.dumps({"multihomo": readings, "train": train_readings,
-                      "fast_modes": fast_readings, "sky": sky_readings, "eval": eval_readings,
+                      "fast_modes": fast_readings, "sky": sky_readings,
+                      "eval": {**eval_readings, **yfcc_readings},
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
-from ransacflow_tpu_torch.eval import artifacts, compose, corr, hpatches, kitti, table
+from ransacflow_tpu_torch.eval import artifacts, compose, corr, hpatches, kitti, table, yfcc
 from ransacflow_tpu_torch.kernels.ransac import MAX_MATCHES
 from ransacflow_tpu_torch.utils import image
 
@@ -558,6 +558,132 @@ def test_evaluate_corr_raises_as_the_reference(tmp_path, rng):
                            matchability_th=(0.0, 0.5), strict_ref_bug=True)
 
 
+# ---------------------------------------------------------------------------
+# YFCC: two calibrated views of a curved surface
+# ---------------------------------------------------------------------------
+
+YFCC_FOCAL = 120.0  # px, both cameras; the principal point at the image centre
+YFCC_TH = 0.95      # the results pass's --th
+
+
+def _rodrigues(v):
+    angle = np.linalg.norm(v)
+    k = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]]) / angle
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def _yfcc_source_px(u, v, R_b, t_b):
+    """The source (camera a) pixel of target (camera b) pixel (u, v): the
+    surface's depth in camera b is 4 + 0.8 sin(2 pi u / W) cos(2 pi v / H);
+    camera a is the world frame, x_b = R_b x_a + t_b."""
+    c = (W_IMG - 1) / 2.0
+    z = 4 + 0.8 * np.sin(2 * np.pi * u / W_IMG) * np.cos(2 * np.pi * v / H_IMG)
+    X_b = np.stack([(u - c) / YFCC_FOCAL * z, (v - c) / YFCC_FOCAL * z, z], axis=-1)
+    X_a = (X_b - t_b) @ R_b
+    return YFCC_FOCAL * X_a[..., :2] / X_a[..., 2:] + c
+
+
+def _yfcc_artifact(rng, angle, R_b, t_b):
+    """A pair artifact whose maps live on the target turned by `angle` and
+    compose (the identity homography, kernel 8's upsampling) to the
+    surface's flow: the residual sampled where the stride-8 cells sit.
+    match12 is 1 and match21 in [0.9, 1], so th = 0.95 keeps part of it."""
+    h8, w8 = H_IMG // 8, W_IMG // 8
+    k = np.arange(h8 * 8).reshape(h8, 8)[:, 0] + 3.5  # centres of the stride-8 cells, px
+    py, px = np.meshgrid(k, k, indexing="ij")
+    # the original target pixel under each rotated-frame pixel (matches_from_flow)
+    s = W_IMG - 1
+    u, v = {0: (px, py), 90: (s - py, px), 180: (s - px, s - py), 270: (py, s - px)}[angle]
+    src = _yfcc_source_px(u, v, R_b, t_b)
+    flow = 2 * src / s - 1 - np.stack([2 * px / s - 1, 2 * py / s - 1], axis=-1)
+    match = np.stack([np.ones((h8, w8)), rng.uniform(0.9, 1.0, (h8, w8))], axis=-1)
+    bg = np.zeros((H_IMG, W_IMG), bool)
+    bg[8:-8, 8:-8] = True
+    return {"coarse_h": np.eye(3, dtype=np.float32)[None],
+            "fine_flow_down8": flow[None].astype(np.float32),
+            "fine_match_down8": match[None].astype(np.float32), "bg_mask": bg}
+
+
+def _yfcc_setup(tmp_path, rng, save_pair, write_h5=True):
+    """A YFCC scene of two 160x160 views and the pairs [0, 1] three times:
+    artifacts for pair 0 (rotation 0) and pair 1 (rotation 90) written by
+    `save_pair`, pair 2 missing. The calibration .h5 files are written with
+    h5py when write_h5 (tests/test_eval.py:439-496). Returns (pred_dir,
+    pairs_pkl, scene_dir, calibration records as
+    `eval.yfcc.load_scene_calibration` reads them, R_b, t_b)."""
+    import pickle
+
+    scene = tmp_path / "scene" / "test"
+    os.makedirs(scene)
+    img = Image.fromarray((_blocky(rng, H_IMG, W_IMG) * 255).astype(np.uint8))
+    for name in ("im0.png", "im1.png"):
+        img.save(scene / name)
+    (scene / "images.txt").write_text("im0.png\nim1.png\n")
+    (scene / "calibration.txt").write_text("calib0.h5\ncalib1.h5\n")
+    R_b, t_b = _rodrigues(np.array([0.03, -0.05, 0.02])), np.array([0.6, 0.15, 0.1])
+    K = np.array([[YFCC_FOCAL, 0, 0], [0, YFCC_FOCAL, 0], [0, 0, 1.0]])
+    calib = [{"R": R, "t": t[:, None], "K": K, "org_size": [W_IMG, H_IMG],
+              "resized": (W_IMG, H_IMG)}
+             for R, t in ((np.eye(3), np.zeros(3)), (R_b, t_b))]
+    if write_h5:
+        import h5py
+
+        for name, rec in zip(("calib0.h5", "calib1.h5"), calib):
+            with h5py.File(scene / name, "w") as h5:
+                h5["R"], h5["T"], h5["K"] = rec["R"], rec["t"].T, rec["K"]
+                h5["imsize"] = np.array([[W_IMG, H_IMG]])
+    pairs_pkl = tmp_path / "pairs.pkl"
+    with open(pairs_pkl, "wb") as f:
+        pickle.dump([[0, 1]] * 3, f)
+    pred_dir = str(tmp_path / "pred")
+    for idx, angle in ((0, 0), (1, 90)):
+        save_pair(pred_dir, idx, _yfcc_artifact(rng, angle, R_b, t_b),
+                  rotation=np.int32(angle))
+    return pred_dir, str(pairs_pkl), str(scene), calib, R_b, t_b
+
+
+def _record_pose_inputs(monkeypatch, module):
+    """Patch module.estimate_pose to record the normalized points it is
+    handed, pair by pair; returns the record list."""
+    seen = []
+    estimate = module.estimate_pose
+
+    def recording(pts1, pts2, *args, **kwargs):
+        seen.append((np.array(pts1), np.array(pts2)))
+        return estimate(pts1, pts2, *args, **kwargs)
+
+    monkeypatch.setattr(module, "estimate_pose", recording)
+    return seen
+
+
+def _same_points(got, want, near_keys, tol):
+    """Two (n1, n2) point sets keyed by their target point n2: equal but for
+    the keys in near_keys (a matchability within 1e-6 of th), the source
+    points within tol. Returns whether the sets are equal."""
+    a = {tuple(k): p for p, k in zip(*got)}
+    b = {tuple(k): p for p, k in zip(*want)}
+    assert set(a) ^ set(b) <= near_keys
+    common = sorted(set(a) & set(b))
+    if common:
+        np.testing.assert_allclose([a[k] for k in common], [b[k] for k in common],
+                                   atol=tol, rtol=0)
+    return set(a) == set(b)
+
+
+def _near_threshold_keys(pred_dir, i, calib, th=YFCC_TH):
+    """The normalized target points of pair i whose composed matchability
+    lies within 1e-6 of th (either package may keep them)."""
+    art = artifacts.load_pair(pred_dir, i)
+    flows, matches = compose.reconstruct_flows(
+        art["coarse_h"], art["fine_flow_down8"], art["fine_match_down8"], H_IMG, W_IMG, "cpu")
+    near = (np.abs(matches[0] - th) <= 1e-6) & art["bg_mask"]
+    _, pts2 = yfcc.matches_from_flow(flows[0], near, calib[0]["resized"],
+                                     calib[1]["resized"], int(art["rotation"]))
+    n2 = yfcc.norm_kp(calib[1]["org_size"], calib[1]["resized"], calib[1]["K"],
+                      pts2.astype(np.float64))
+    return {tuple(k) for k in n2}
+
+
 @pytest.mark.parametrize("m", [0.0, 0.4])
 def test_pair_precision_hits_equals_jax(rng, m, jx):
     flow = rng.rand(30, 40, 2).astype(np.float32) * 2 - 1
@@ -596,3 +722,26 @@ def test_results_passes_on_card_match_the_cpu(tmp_path, rng, cuda):
     for m in want:
         np.testing.assert_array_equal(got[m][0], want[m][0])
         assert got[m][1] == want[m][1]
+
+
+@pytest.mark.gpu
+def test_yfcc_results_pass_on_card_matches_the_cpu(tmp_path, rng, cuda, monkeypatch):
+    """YFCC's results pass on the card (kernel 8, the pose hypotheses scored
+    there) against the CPU on the same artifacts and seed: the point sets
+    equal but at pixels within 1e-6 of th, and where they are equal, the
+    same pose errors: equal on points equal bit for bit, else within a
+    degree (kernel 8's last bits move a point, and RANSAC may then keep
+    another model)."""
+    pred_dir, pairs_pkl, scene, calib, _, _ = _yfcc_setup(tmp_path, rng, artifacts.save_pair,
+                                                          write_h5=False)
+    seen = _record_pose_inputs(monkeypatch, yfcc)
+    got = yfcc.evaluate_yfcc(pred_dir, pairs_pkl, scene, cuda, calibration=calib)
+    want = yfcc.evaluate_yfcc(pred_dir, pairs_pkl, scene, "cpu", calibration=calib)
+    for i in range(2):
+        if _same_points(seen[i], seen[2 + i], _near_threshold_keys(pred_dir, i, calib),
+                        1e-5 * (W_IMG - 1) / 2 / YFCC_FOCAL):
+            if np.array_equal(seen[i][0], seen[2 + i][0]):
+                assert got[0][i] == want[0][i]
+            else:
+                assert abs(got[0][i] - want[0][i]) <= 1.0
+    assert got[0][2] == want[0][2] == 180.0

@@ -18,7 +18,8 @@ from PIL import Image
 
 from ransacflow_tpu_torch.cli import align as cli_align
 from ransacflow_tpu_torch.cli import common as cli_common
-from ransacflow_tpu_torch.cli import eval_corr, eval_hpatches, eval_kitti
+from ransacflow_tpu_torch.cli import eval_corr, eval_hpatches, eval_kitti, eval_yfcc
+from ransacflow_tpu_torch.cli import generate_pairs as cli_generate_pairs
 from ransacflow_tpu_torch.cli import train as cli_train
 from ransacflow_tpu_torch.models import convert, segnet
 from ransacflow_tpu_torch.pipeline.api import RansacFlowAligner
@@ -85,6 +86,9 @@ EVAL_CLIS = {  # module, its predict and results paths, what its results pass re
     "kitti": (eval_kitti, ["--testImg", "i"], ["--gtPath", "g"], (0.0, [])),
     "corr": (eval_corr, ["--testCSV", "c", "--testDir", "i"],
              ["--testCSV", "c", "--testDir", "i"], {0.0: (np.zeros(8), 0)}),
+    "yfcc": (eval_yfcc, ["--testImg", "i", "--testPair", "p", "--testScene", "reichstag"],
+             ["--gtPath", "g", "--testPair", "p", "--scene", "2", "--outRes", "OUT"],
+             ([0.0], {"acc5": 1.0})),
 }
 
 
@@ -104,7 +108,22 @@ def test_eval_clis_turn_tf32_off(tf32_on, monkeypatch, tmp_path, cli, cmd):
         argv = [*predict_paths, "--outDir", str(tmp_path)]
     else:
         argv = [*results_paths, "--predDir", str(tmp_path)]
+    argv = [str(tmp_path / "out.json") if a == "OUT" else a for a in argv]
     module.main([cmd, *argv, "--device", "cpu"])
+    assert seen == [(False, False)]
+
+
+def test_generate_pairs_cli_turns_tf32_off(tf32_on, monkeypatch, tmp_path):
+    seen = []
+    (tmp_path / "pairs.csv").write_text("imgA,imgB\na.png,b.png\n")
+    for name in ("a.png", "b.png"):
+        Image.new("RGB", (8, 8)).save(tmp_path / name)
+    monkeypatch.setattr(cli_generate_pairs, "load_coarse_net", lambda *args: None)
+    monkeypatch.setattr(cli_generate_pairs, "align_pair",
+                        lambda *args: seen.append(tf32_flags()) or (0, None, None, None))
+    cli_generate_pairs.main(["--pairCSV", str(tmp_path / "pairs.csv"), "--imgDir",
+                             str(tmp_path), "--outDir", str(tmp_path / "out"), "--device",
+                             "cpu"])
     assert seen == [(False, False)]
 
 

@@ -426,7 +426,8 @@ def test_pair_folder_yields_the_jax_batches(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port, `train`, `cli`, `eval` and the kernels
     included, without JAX, and without pandas or cv2, which the card's
-    machine does not have."""
+    machine does not have; h5py (the YFCC calibration's reader) only inside
+    the function that reads the files."""
     code = ("import sys, pkgutil, importlib, ransacflow_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'ransacflow_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -435,11 +436,12 @@ def test_port_imports_no_jax():
             "             'kernels.anchor_resample', 'kernels.adaptive_pool',\n"
             "             'eval.artifacts', 'eval.table', 'eval.compose', 'eval.hpatches',\n"
             "             'eval.kitti', 'eval.corr', 'cli.eval_hpatches', 'cli.eval_kitti',\n"
-            "             'cli.eval_corr'):\n"
+            "             'cli.eval_corr', 'eval.pose', 'eval.yfcc', 'eval.aachen',\n"
+            "             'cli.eval_yfcc', 'cli.generate_pairs', 'cli.resize_dataset'):\n"
             "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n"
-            "for name in ('pandas', 'cv2'):\n"
+            "for name in ('pandas', 'cv2', 'h5py'):\n"
             "    assert name not in sys.modules, name + ' imported'\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120,
