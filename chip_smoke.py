@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on one CUDA card: the serving path,
 the multi-homography loop, training, the opt-in fast modes through the
-public entry points, the sky mask and the eval harnesses.
+public entry points, the sky mask, the eval harnesses, affine fits,
+iterative refinement and MegaDepth validation.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,31 @@ Phases, each of which must pass:
       estimator's host time, points and minimal sets; the Aachen export on
       one pair and its match file; `cli.generate_pairs` on a kept (planted
       shift) and a rejected (noise against a flat image) row, K2 and K3 a
-      row and K5h for the kept one.
+      row and K5h for the kept one;
+  (k) affine fits, refinement, validation and --nativeResize: K3 and K4 in
+      their affine form at the serving shape (1200 matches, 10k hypotheses;
+      K4 in blocks of 4096, one block and to the 50k cap) and past the
+      40,960 matches of the shared-memory order (K3 at refine's 307,200
+      matches and 1,000 hypotheses, homography and affine; one K4 fit there
+      in blocks of 1024) against their plain versions on one seed (sets
+      and winner identical, H21 within 1e-5, counts as in (c), masks equal),
+      timed as in (c) under the suffixes `_affine`, `_affine_to_cap`,
+      `_refine`, `_refine_affine` and `_large`; `CoarseAligner(transform=
+      'affine')` on a small pair against the CPU on the same 3-cell sets
+      (H within 1e-5, equal inlier cells) and its device loop on (e)'s pair
+      0 at the HPatches configuration (K3 once a slot, path
+      `affine_multihomo`) against the host loop; `refine_flow_ransac` at
+      480x640 on a planted flow (path `refine`: one K3 over 307,200 matches,
+      one grid-form K5, K6's pair, K7, K8) against the CPU's plain path on
+      the sets the card drew (count equal, refined_h within 1e-5, the fine
+      outputs within 1e-3), ms a call; `validate` on two rows of 480x640
+      images at min side 480 (path `validation`: K5 twice, K9 six times, K6
+      and K7 once a row), zero-flow networks giving the planted precision on
+      the card and the CPU, the fine grid of the accept weights within 1e-3
+      of the CPU's, seconds a row; and `python -m
+      ransacflow_tpu_torch.cli.train --stage 3 ... --nativeResize
+      valMegaDepth ...` for 1 epoch of 2 steps at full width, warm-started
+      from zero-flow networks, which must write BestModel@8_*.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
@@ -136,7 +161,8 @@ correlation_pair and runs its head epilogues through head_epilogues: one
 launch each per compose_tail launch, no correlation_volume, and no
 grid-form warp_sample but align_images' warped_fine and KITTI's pass 2.
 Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
-`eval_yfcc_device`, `eval_aachen` and `generate_pairs`.
+`eval_yfcc_device`, `eval_aachen` and `generate_pairs`; phase (k)'s
+`affine_multihomo`, `refine` and `validation`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -407,20 +433,21 @@ def _ransac_matches(gen, inlier_frac=0.6):
     return m1, m2, valid
 
 
-def _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid):
+def _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid,
+                          transform="homography", atol=1e-4):
     """A RANSAC kernel's fit against its plain version's on the same seed:
     identical sets and winning set, counts that agree on >= 99.9% of the
     hypotheses (a differing count agrees only when a flip at the tolerance
     boundary explains it, `kernels.ransac.boundary_flips`: fp32 solves in
     another order of operations), equal winning count and found, H21 to
-    1e-4, the mask equal off matches within 1e-6 of the tolerance."""
+    `atol`, the mask equal off matches within 1e-6 of the tolerance."""
     from ransacflow_tpu_torch.kernels.ransac import boundary_flips
     from ransacflow_tpu_torch.ops.homography import reprojection_error
 
     n_rows = rec_ref.counts.shape[0]
     require(torch.equal(rec.sets[:n_rows], rec_ref.sets), f"{name}: sets differ")
     differ, explained = boundary_flips(m1, m2, valid, rec_ref.sets, rec.counts[:n_rows],
-                                       rec_ref.counts, 0.05)
+                                       rec_ref.counts, 0.05, transform=transform)
     agree = 1 - (differ & ~explained).float().mean().item()
     require(agree >= 0.999, f"{name}: counts agree on only {agree:.5f}")
     require(int(fit.num_inliers) == int(ref.num_inliers),
@@ -428,7 +455,7 @@ def _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid):
     require(bool(fit.found) == bool(ref.found), f"{name}: found differs")
     require(torch.equal(fit.best_sample, ref.best_sample), f"{name}: winning sets differ")
     err = (fit.H21 - ref.H21).abs().max().item()
-    require(err <= 1e-4, f"{name}: winner H21 max abs err {err} > 1e-4")
+    require(err <= atol, f"{name}: winner H21 max abs err {err} > {atol}")
     off = ((reprojection_error(m1, m2, ref.H21[None])[0] - 0.05).abs() > 1e-6)
     require(torch.equal(fit.inlier_mask[off], ref.inlier_mask[off]), f"{name}: masks differ")
     return {"max_abs_err": err, "counts_agree": agree,
@@ -2774,6 +2801,480 @@ def phase_yfcc(card):
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# (k) affine fits, iterative refinement, MegaDepth validation, --nativeResize
+# ---------------------------------------------------------------------------
+
+REFINE_HW = TARGET_HW  # refine's H x W grid of matches: 307,200
+REFINE_N_ITER = 1000   # refine_flow_ransac's default
+H_REFINE = np.array([[0.95, 0.03, 0.02], [-0.02, 0.92, -0.03], [0.01, -0.02, 1.0]],
+                    np.float32)
+A_SERVING = np.array([[1.05, 0.02, 0.03], [-0.01, 0.97, -0.02], [0.0, 0.0, 1.0]],
+                     np.float32)
+VAL_THETAS = (np.array([[0.8, 0.0, 0.1], [0.0, 0.9, -0.05]], np.float32),
+              np.array([[1.0, 0.05, -0.1], [0.02, 0.85, 0.0]], np.float32))
+VAL_DELTAS = np.array([0.5, 2.5, 4.0, 6.0, 10.0, 20.0, 30.0, 100.0])
+VAL_KERNELS = ("warp_sample", "blur_pool", "correlation_volume", "head_epilogues")
+REFINE_KERNELS = ("ransac_score", "warp_sample", "correlation_pair", "head_epilogues",
+                  "compose_tail", "blur_pool")
+
+
+def _affine_matches(gen, inlier_frac=0.6):
+    """The serving shape's 1200 target cells under a known affine map,
+    `inlier_frac` of them inliers, 10% invalid (`_ransac_matches` for 3-point
+    fits)."""
+    from ransacflow_tpu_torch.ops.grid import feature_cell_coords
+
+    y, x = feature_cell_coords(30, 40, "cuda")
+    m2 = torch.stack([x, y, torch.ones_like(x)], dim=1)
+    m1 = m2 @ torch.from_numpy(A_SERVING).cuda().T
+    m1[:, :2] += 0.005 * torch.randn((N_TARGET, 2), generator=gen, device="cuda")
+    outlier = torch.rand(N_TARGET, generator=gen, device="cuda") >= inlier_frac
+    m1[outlier, :2] = torch.rand((int(outlier.sum()), 2), generator=gen, device="cuda") * 2 - 1
+    valid = torch.rand(N_TARGET, generator=gen, device="cuda") > 0.1
+    return m1.contiguous(), m2, valid
+
+
+def _planted_flow(gen, hw=REFINE_HW):
+    """refine's inputs at `hw`: the flow of H_REFINE (1, H, W, 2) with a
+    corrupted block and an out-of-bounds band, and a matchability (H, W)
+    low on a strip."""
+    from ransacflow_tpu_torch.ops.homography import warp_grid
+
+    h, w = hw
+    flow = warp_grid(torch.from_numpy(H_REFINE).cuda()[None], h, w)
+    flow[0, h // 5:h // 2, w // 4:w // 2] += 0.3
+    flow[0, :, :w // 10] = 5.0
+    match = 0.6 + 0.4 * torch.rand((h, w), generator=gen, device="cuda")
+    match[-h // 8:] = 0.2
+    return flow.contiguous(), match
+
+
+def _refine_matches(flow, match, th=0.5):
+    """refine_flow_ransac's padded match arrays and gate."""
+    from ransacflow_tpu_torch.ops.grid import normalized_grid
+
+    _, h, w, _ = flow.shape
+    grid = normalized_grid(h, w, flow.device)
+    fx, fy = flow[0, ..., 0], flow[0, ..., 1]
+    valid = ((match * ((fx >= -1) & (fx <= 1) & (fy >= -1) & (fy <= 1)).float()) > th)
+    ones = torch.ones((h * w, 1), device=flow.device)
+    return (torch.cat([flow[0].reshape(-1, 2), ones], 1).contiguous(),
+            torch.cat([grid.reshape(-1, 2), ones], 1).contiguous(), valid.reshape(-1))
+
+
+def _suffixed(out, got, suffix):
+    for k, v in got.items():
+        out[k + suffix] = v
+
+
+def _k3_case(m1, m2, valid, n_iter, transform, seed_gen, own, name, reps=20):
+    """K3 against its plain version on one seed (sets, winner, counts, mask)
+    and timed as the op (seed draw and launch) against the seed draw and
+    the plain fit; the kernel alone's device time and the bound."""
+    from ransacflow_tpu_torch.kernels.ransac import n_points_of, ransac_fit, ransac_fit_ref
+    from ransacflow_tpu_torch.ops.ransac import draw_seed, ransac_homography
+
+    n_points = n_points_of(transform)
+    seed = draw_seed(seed_gen, "cuda")
+    fit, rec = ransac_fit(m1, m2, valid, 0.05, n_iter, seed=seed, record=True,
+                          transform=transform)
+    ref, rec_ref = ransac_fit_ref(m1, m2, valid, 0.05, n_iter, seed=seed, transform=transform)
+    torch.cuda.synchronize()
+    got = _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid, transform,
+                                atol=1e-5)
+    got.update(paired_ms(
+        lambda: ransac_homography(m1, m2, valid, 0.05, n_iter, generator=own,
+                                  n_points=n_points, transform=transform),
+        lambda: ransac_fit_ref(m1, m2, valid, 0.05, n_iter, seed=draw_seed(own, "cuda"),
+                               transform=transform), reps=reps))
+    got["kernel_device_ms"] = device_ms(
+        lambda: ransac_fit(m1, m2, valid, 0.05, n_iter, seed=seed, transform=transform), reps)
+    got.update(_ransac_bound(m1, m2, valid, seed, n_iter))
+    got.update(library(None))
+    got["num_inliers"], got["n_valid"] = int(fit.num_inliers), int(valid.sum())
+    return got
+
+
+def _k4_case(m1, m2, valid, n_iter, chunk, blocks, transform, seed_gen, own, name):
+    from ransacflow_tpu_torch.kernels.ransac import n_points_of
+    from ransacflow_tpu_torch.kernels.ransac_adaptive import (
+        ransac_adaptive, ransac_adaptive_ref)
+    from ransacflow_tpu_torch.ops.ransac import draw_seed, ransac_homography_adaptive
+
+    n_points = n_points_of(transform)
+    seed = draw_seed(seed_gen, "cuda")
+    args = (m1, m2, valid, 0.05, n_iter, chunk, 0.999)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit, n_eval, rec = ransac_adaptive(*args, seed=seed, record=True, transform=transform)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref, n_eval_r, rec_ref = ransac_adaptive_ref(*args, seed=seed, transform=transform)
+    require(int(n_eval) == int(n_eval_r) == blocks * chunk,
+            f"{name}: {int(n_eval)} evaluated, plain {int(n_eval_r)}, expected {blocks} blocks")
+    got = _ransac_against_plain(name, fit, rec, ref, rec_ref, m1, m2, valid, transform,
+                                atol=1e-5)
+    got.update(paired_ms(
+        lambda: ransac_homography_adaptive(m1, m2, valid, 0.05, n_iter, chunk, generator=own,
+                                           n_points=n_points, transform=transform),
+        lambda: ransac_adaptive_ref(*args, seed=draw_seed(own, "cuda"), transform=transform),
+        reps=5))
+    got["kernel_device_ms"] = device_ms(
+        lambda: ransac_adaptive(*args, seed=seed, transform=transform), 5)
+    got.update(_ransac_bound(m1, m2, valid, seed, blocks * chunk))
+    got.update(library(None))
+    return got
+
+
+def check_ransac_affine_and_large():
+    """K3 and K4 in their affine form at the serving shape (1200 matches,
+    10k hypotheses; K4 in blocks of 4096 to 50k), and past the shared-memory
+    order: K3 at refine's shape (307,200 matches, 1,000 hypotheses),
+    homography and affine, and one K4 fit there (blocks of 1024). Returns
+    ({'ransac_score': ..., 'ransac_adaptive': ...} readings keyed by
+    suffix)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    own = torch.Generator(device="cuda").manual_seed(16)
+    k3, k4 = {}, {}
+    m1, m2, valid = _affine_matches(gen)
+    got = _k3_case(m1, m2, valid, N_ITER, "affine", gen, own, "ransac (affine)")
+    require(got["num_inliers"] > 0.4 * N_TARGET, "ransac (affine): no good model found")
+    _suffixed(k3, got, "_affine")
+    for case, frac, blocks in (("", 0.6, 1), ("_to_cap", 0.0, 13)):
+        m1, m2, valid = _affine_matches(gen, frac)
+        got = _k4_case(m1, m2, valid, MH_N_ITER, MH_CHUNK, blocks, "affine", gen, own,
+                       f"ransac_adaptive (affine{case})")
+        _suffixed(k4, got, "_affine" + case)
+    m1, m2, valid = _refine_matches(*_planted_flow(gen))
+    for transform, suffix in (("homography", "_refine"), ("affine", "_refine_affine")):
+        got = _k3_case(m1, m2, valid, REFINE_N_ITER, transform, gen, own,
+                       f"ransac ({transform} at refine's shape)", reps=5)
+        _suffixed(k3, got, suffix)
+    got = _k4_case(m1, m2, valid, 8192, 1024, 1, "homography", gen, own,
+                   "ransac_adaptive (refine's shape)")
+    _suffixed(k4, got, "_large")
+    return {"ransac_score": k3, "ransac_adaptive": k4}
+
+
+def _small_affine_against_cpu():
+    """CoarseAligner(transform='affine') on a small translated pair on the
+    card and on the CPU, the same seeded networks and the same 3-cell sets
+    (the plain draws under one seed): equal matches, H within 1e-5, equal
+    inlier cells."""
+    from ransacflow_tpu_torch.kernels.ransac import draw_sets_ref
+    from ransacflow_tpu_torch.pipeline import CoarseAligner
+
+    base = _blocky(np.random.RandomState(8), 1, 128, 128)[0]
+    src, tgt = _to_pil(base), _to_pil(np.roll(base, (8, 8), axis=(0, 1)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        resnet, _ = _nets(device)
+        aligner = CoarseAligner(resnet, device, nb_scale=1, n_iter=512, min_size=128,
+                                transform="affine")
+        aligner.set_pair(src, tgt)
+        valid = aligner._masked_matches(None)[2].cpu()
+        sets = draw_sets_ref(valid, torch.tensor([MH_SEED]), 512, n_points=3)
+        out[device] = (valid,) + aligner.get_coarse(injected_samples=sets.numpy())
+    (vc, hc, ic), (vg, hg, ig) = out["cpu"], out["cuda"]
+    require(torch.equal(vc, vg), "affine small pair: the matches differ from the CPU's")
+    require(hc is not None and hg is not None, "affine small pair: no model")
+    err = float(np.abs(hg - hc).max())
+    require(err <= 1e-5 and np.array_equal(ig, ic),
+            f"affine small pair: H {err} from the CPU's, inliers equal {np.array_equal(ig, ic)}")
+    return {"h_max_abs_err": err, "valid_matches": int(vc.sum()), "inliers": int(ic.sum())}
+
+
+def _affine_loop(card):
+    """The device-resident loop with affine fits on pair 0 of phase (e)'s
+    related pairs at the HPatches configuration (7 scales, 50k fixed
+    hypotheses, max_coarse 10, mask_region_th 0.01, match12 only): the
+    launches of the pair's setup and the loop, seconds of the loop, and the
+    host loop on the same aligner and seed against it."""
+    from ransacflow_tpu_torch.models.convert import (
+        alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
+    from ransacflow_tpu_torch.pipeline import (
+        CoarseAligner, multi_homography_predict, multi_homography_predict_fused)
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    srcs, tgts = _related_pairs(np.random.RandomState(1), 1, pyramid_shapes()[0])
+    resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    aligner = CoarseAligner(resnet, "cuda", nb_scale=7, n_iter=MH_N_ITER, min_size=480,
+                            transform="affine", seed=MH_SEED)
+    kw = dict(max_coarse=MH_MAX_COARSE, mask_region_th=0.01, cycle_match=False)
+    run = lambda: multi_homography_predict_fused(  # noqa: E731
+        aligner, align, generator=torch.Generator(device="cuda").manual_seed(MH_SEED), **kw)
+    # the pair's setup (the trunk and K2's cached matching) and the loop
+    fused, launches = _launches_of(
+        lambda: (aligner.set_pair(_to_pil(srcs[0]), _to_pil(tgts[0])), run())[1])
+    require(fused is not None, "affine loop found nothing")
+    n_h = fused["coarse_h"].shape[0]
+    require(1 <= n_h <= MH_MAX_COARSE + 1 and np.isfinite(fused["coarse_h"]).all()
+            and np.array_equal(fused["coarse_h"][:, 2], np.tile([0.0, 0.0, 1.0], (n_h, 1))),
+            f"affine loop: homographies {fused['coarse_h']}")
+    _require_launched("affine loop", launches, ("mutual_argmax", "ransac_score"),
+                      {"ransac_adaptive": 0, **_per_fine_pass(launches)})
+    require(launches["ransac_score"] == launches["warp_homography"],
+            f"affine loop: K3 {launches['ransac_score']} a slot run: {launches}")
+    seconds = min(_event_ms(run) for _ in range(3)) / 1e3
+    host = multi_homography_predict(aligner, align, **kw)
+    gap = _h_error(host["coarse_h"][0], fused["coarse_h"][0])
+    require(gap < 0.01, f"affine loop: the host loop's first H is {gap} from the device's")
+    shift = np.array([[1, 0, -32 / 639], [0, 1, -32 / 479], [0, 0, 1]])
+    return launches, {"seconds": seconds, "homographies": n_h, "host_gap": gap,
+                      "first_h": fused["coarse_h"][0].tolist(),
+                      "first_h_from_roll": _h_error(fused["coarse_h"][0], shift)}
+
+
+def _refine_card_vs_cpu():
+    """refine_flow_ransac at 480x640 on the planted flow: the card's fit
+    (its draws from a CUDA generator) against the CPU's plain path on the
+    sets those draws give (`draw_sets_ref` under the seed the card drew):
+    found and count equal, refined_h within 1e-5, the fine outputs within
+    1e-3; launches of one call; seconds a call."""
+    from ransacflow_tpu_torch.kernels.ransac import draw_sets_ref
+    from ransacflow_tpu_torch.models.convert import alignment_params_from_tree, load_params_npz
+    from ransacflow_tpu_torch.ops.homography import warp_grid
+    from ransacflow_tpu_torch.ops.ransac import draw_seed
+    from ransacflow_tpu_torch.pipeline import fine_features, refine_flow_ransac
+
+    flow, match = _planted_flow(torch.Generator(device="cuda").manual_seed(21))
+    srcs, tgts = _related_pairs(np.random.RandomState(2), 1, REFINE_HW)
+    tree = load_params_npz(ACCEPT_WEIGHTS)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        align = alignment_params_from_tree(tree, device)
+        src, featt = (torch.from_numpy(a).to(device) for a in (srcs, tgts))
+        featt = fine_features(align, featt)
+        f, m = flow.to(device), match.to(device)
+        if device == "cuda":
+            gen = torch.Generator(device="cuda").manual_seed(22)
+            twin = torch.Generator(device="cuda")
+            twin.set_state(gen.get_state())
+            seed = draw_seed(twin, "cuda").cpu()  # the seed the call draws
+            call = lambda: refine_flow_ransac(gen, align, src, featt, f, m)  # noqa: E731
+            outs[device], launches = _launches_of(call)
+            gen.manual_seed(22)
+            ms = min(_event_ms(call) for _ in range(3))
+        else:
+            valid = _refine_matches(f, m)[2]
+            sets = draw_sets_ref(valid, seed, REFINE_N_ITER)
+            t0 = time.perf_counter()
+            outs[device] = refine_flow_ransac(None, align, src, featt, f, m,
+                                              injected_samples=sets)
+            cpu_s = time.perf_counter() - t0
+    gpu, cpu = ({k: v.cpu() for k, v in outs[d].items()} for d in ("cuda", "cpu"))
+    require(bool(gpu["found"]) and bool(cpu["found"]), "refine: no model")
+    require(int(gpu["num_inliers"]) == int(cpu["num_inliers"]),
+            f"refine: {int(gpu['num_inliers'])} inliers, CPU {int(cpu['num_inliers'])}")
+    norm = lambda h: (h / h[2, 2]).double()  # noqa: E731
+    h_err = (norm(gpu["refined_h"]) - norm(cpu["refined_h"])).abs().max().item()
+    require(h_err <= 1e-5, f"refine: refined_h {h_err} from the CPU's")
+    fine_err = {k: (gpu[k] - cpu[k]).abs().max().item()
+                for k in ("flow", "match", "flow_down8", "match_down8")}
+    require(max(fine_err.values()) <= 1e-3, f"refine: fine outputs {fine_err}")
+    truth = warp_grid(torch.from_numpy(H_REFINE)[None].double(), 8, 8)
+    fit = warp_grid(norm(gpu["refined_h"])[None], 8, 8)
+    _require_launched("refine", launches, REFINE_KERNELS,
+                      {"ransac_score": 1, "ransac_adaptive": 0, "warp_homography": 0,
+                       "warp_sample": 1, "correlation_volume": 0})
+    return launches, {"ms": ms, "cpu_s": cpu_s, "refined_h_err": h_err, "fine_err": fine_err,
+                      "num_inliers": int(gpu["num_inliers"]),
+                      "n_valid": int(_refine_matches(flow, match)[2].sum()),
+                      "grid_from_truth": (fit - truth).abs().max().item()}
+
+
+def _write_val_set(root, rng, hw=REFINE_HW, n_points=40):
+    """A MegaDepth-style validation set (tests/test_torch_validation.py's
+    plan at `hw`): one scene, two rows, planted pixel offsets under the
+    fixed coarse affines, each planted error 0.05 px clear of every
+    threshold. Returns (csv, image dir, coarse .pkl, planted precision)."""
+    import csv
+    import pickle
+
+    from PIL import Image
+
+    from ransacflow_tpu_torch.train.validation import PIXEL_GRID
+
+    scene = os.path.join(root, "val", "0")
+    os.makedirs(scene)
+    h, w = hw
+    for name in ("s", "t"):
+        Image.fromarray((_blocky(rng, 1, h, w)[0] * 255).astype(np.uint8)).save(
+            os.path.join(scene, f"{name}.jpg"))
+    rows, hits = [], np.zeros(8)
+    for theta, delta in zip(VAL_THETAS, (VAL_DELTAS, np.full(1, 0.2))):
+        # candidate target pixels on a diagonal; the first n_points whose
+        # error (int()-truncated source coordinates) is clear of every
+        # threshold by 0.05 px are kept
+        xb = np.linspace(8, w - 9, 8 * n_points).round()
+        yb = np.linspace(8, h - 9, 8 * n_points).round()
+        xn, yn = 2.0 * xb / (w - 1) - 1.0, 2.0 * yb / (h - 1) - 1.0
+        sx = (theta[0, 0] * xn + theta[0, 1] * yn + theta[0, 2] + 1) * 0.5 * (w - 1)
+        sy = (theta[1, 0] * xn + theta[1, 1] * yn + theta[1, 2] + 1) * 0.5 * (h - 1)
+        xa = sx + np.resize(delta, len(sx))
+        err = np.sqrt((sx - xa.astype(int)) ** 2 + (sy - sy.astype(int)) ** 2)
+        keep = np.flatnonzero(np.abs(err[:, None] - PIXEL_GRID[None]).min(1) > 0.05)
+        require(len(keep) >= n_points, "val set: too few points clear of the thresholds")
+        keep = keep[:n_points]
+        xb, yb, xa, sy, err = xb[keep], yb[keep], xa[keep], sy[keep], err[keep]
+        hits += (err[:, None] < PIXEL_GRID[None]).sum(0)
+        rows.append({"scene": "0", "source_image": "s.jpg", "target_image": "t.jpg",
+                     "XA": ";".join(f"{v:.6f}" for v in xa),
+                     "YA": ";".join(f"{v:.6f}" for v in sy),
+                     "XB": ";".join(f"{v:.0f}" for v in xb),
+                     "YB": ";".join(f"{v:.0f}" for v in yb)})
+    csv_path, pkl_path = os.path.join(root, "val.csv"), os.path.join(root, "coarse.pkl")
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    with open(pkl_path, "wb") as f:
+        pickle.dump(list(VAL_THETAS), f)
+    return csv_path, os.path.join(root, "val"), pkl_path, hits / (2 * n_points)
+
+
+def _zero_flow_nets(device):
+    """Seeded alignment networks whose fine residual flow is exactly 0
+    (netFlowCoarse.conv4 zeroed): the fine grid is the coarse affine."""
+    from ransacflow_tpu_torch.pipeline import init_alignment_params
+
+    nets = init_alignment_params(torch.Generator().manual_seed(1), device)
+    with torch.no_grad():
+        nets["netFlowCoarse"].conv4.weight.zero_()
+    return nets
+
+
+def _validation_card_vs_cpu(tmp):
+    """`validate` on 480x640 images at val_min_size 480: zero-flow networks
+    on the card and on the CPU give the planted precision; with the accept
+    weights the fine grids of the card and the CPU within 1e-3; launches of
+    the 2 rows; seconds a row."""
+    import pickle
+
+    from PIL import Image
+
+    from ransacflow_tpu_torch.eval.table import read_rows
+    from ransacflow_tpu_torch.models.convert import alignment_params_from_tree, load_params_npz
+    from ransacflow_tpu_torch.train.validation import fine_forward, validate
+
+    csv_path, val_dir, pkl_path, planted = _write_val_set(tmp, np.random.RandomState(9))
+    rows = read_rows(csv_path)
+    with open(pkl_path, "rb") as f:
+        thetas = pickle.load(f)
+    precs = {}
+    for device in ("cuda", "cpu"):
+        nets = _zero_flow_nets(device)
+        call = lambda: validate(rows, val_dir, thetas, nets, device)  # noqa: E731
+        if device == "cuda":
+            precs[device], launches = _launches_of(call)
+            seconds = min(_event_ms(call) for _ in range(3)) / 1e3
+        else:
+            t0 = time.perf_counter()
+            precs[device] = call()
+            cpu_s = time.perf_counter() - t0
+    require(np.array_equal(precs["cuda"], precs["cpu"]) and np.array_equal(precs["cuda"], planted),
+            f"validation: card {precs['cuda']}, CPU {precs['cpu']}, planted {planted}")
+    _require_launched("validation", launches, VAL_KERNELS,
+                      {"warp_sample": 2 * len(rows), "correlation_volume": len(rows),
+                       "head_epilogues": len(rows), "blur_pool": 6 * len(rows),
+                       "ransac_score": 0, "ransac_adaptive": 0, "correlation_pair": 0})
+    tree = load_params_npz(ACCEPT_WEIGHTS)
+    grids = {}
+    for device in ("cuda", "cpu"):
+        nets = alignment_params_from_tree(tree, device)
+        img = lambda n: torch.from_numpy(np.asarray(  # noqa: E731
+            Image.open(os.path.join(val_dir, "0", n)), np.float32) / 255)[None].to(device)
+        with torch.inference_mode():
+            grids[device] = fine_forward(nets, img("s.jpg"), img("t.jpg"),
+                                         torch.from_numpy(thetas[0])[None].to(device)).cpu()
+    grid_err = (grids["cuda"] - grids["cpu"]).abs().max().item()
+    require(grid_err <= 1e-3, f"validation: the fine grid is {grid_err} from the CPU's")
+    return launches, {"prec": precs["cuda"].tolist(), "s_per_row": seconds / len(rows),
+                      "cpu_s_per_row": cpu_s / len(rows), "grid_err": grid_err}
+
+
+def _train_cli_val(tmp):
+    """`python -m ransacflow_tpu_torch.cli.train --stage 3 ... --nativeResize
+    valMegaDepth ...` for 1 epoch of 2 steps at full width (16 pairs of
+    224x224), warm-started from zero-flow networks; the best model must be
+    written as BestModel@8_*."""
+    from PIL import Image
+
+    from ransacflow_tpu_torch.train import save_checkpoint
+
+    data, out = f"{tmp}/train", f"{tmp}/run"
+    os.makedirs(data)
+    rng = np.random.RandomState(10)
+    for idx in range(2 * TRAIN_PAIRS):
+        base = (_blocky(rng, 1, 256, 320)[0] * 255).astype(np.uint8)
+        for view, shift in ((1, 0), (2, 6)):
+            Image.fromarray(np.roll(base, shift, axis=1)).save(f"{data}/{idx}_{view}.jpg")
+    csv_path, val_dir, pkl_path, planted = _write_val_set(f"{tmp}/valset", rng)
+    resume = f"{tmp}/zero_flow.pt"
+    save_checkpoint(resume, _zero_flow_nets("cpu"))
+    cmd = [sys.executable, "-m", "ransacflow_tpu_torch.cli.train", "--trainImgDir", data,
+           "--outDir", out, "--stage", "3", "--batchSize", str(TRAIN_PAIRS),
+           "--imgSize", str(TRAIN_IMG), "--margin", str(TRAIN_MARGIN), "--nEpochs", "1",
+           "--maxStepsPerEpoch", "2", "--device", "cuda", "--resumePth", resume,
+           "--nativeResize", "valMegaDepth", "--valImgDir", val_dir, "--valCSV", csv_path,
+           "--inPklCoarse", pkl_path, "--valMinSize", "480"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.train valMegaDepth exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    best = [p for p in os.listdir(out) if p.startswith("BestModel@8_")]
+    last = [json.loads(line) for line in open(f"{out}/metrics.jsonl")][-1]
+    require(len(best) == 1 and last["step"] == 0 and last["val_prec8"] > 0
+            and all(np.isfinite(last[k]) for k in ("loss", "loss_lr", "loss_match")),
+            f"cli.train valMegaDepth: {os.listdir(out)}, epoch record {last}")
+    return {"seconds": seconds, "best": best[0], "val_prec8": last["val_prec8"],
+            "planted_prec8": float(planted[4]), "epoch_record": last}
+
+
+def phase_affine_refine(card, results):
+    """(k): K3 and K4 in their affine and large-N forms against their plain
+    versions (their readings join the kernels' rows under suffixes), then
+    the paths: `CoarseAligner(transform='affine')` (a small pair against the
+    CPU; the device loop at the HPatches configuration), refine at 480x640,
+    validation on 480x640 images and the training CLI with valMegaDepth and
+    --nativeResize."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    for name, got in check_ransac_affine_and_large().items():
+        for key in [k for k in got if k.startswith("bound_ms")]:
+            dev = got.get("device_ms" + key[len("bound_ms"):])
+            got["share" + key[len("bound_ms"):]] = got[key] / dev if dev else None
+        results[name]["max_abs_err"] = max(
+            [results[name]["max_abs_err"]]
+            + [v for k, v in got.items() if k.startswith("max_abs_err")])
+        results[name].update(got)
+        print(f"(k) {name}: " + ", ".join(f"{k}={v}" for k, v in got.items()), flush=True)
+    small = _small_affine_against_cpu()
+    print(f"(k) affine small pair, card vs CPU: {small}", flush=True)
+    paths, readings = {}, {"small_pair": small}
+    paths["affine_multihomo"], readings["affine_loop"] = _affine_loop(card)
+    print(f"(k) affine device loop at the HPatches configuration: "
+          f"{readings['affine_loop']}; launches {paths['affine_multihomo']} on {card}",
+          flush=True)
+    paths["refine"], readings["refine"] = _refine_card_vs_cpu()
+    print(f"(k) refine_flow_ransac at 480x640: {readings['refine']}; launches "
+          f"{paths['refine']} on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["validation"], readings["validation"] = _validation_card_vs_cpu(tmp)
+        print(f"(k) validate, 2 rows of 480x640: {readings['validation']}; launches "
+              f"{paths['validation']} on {card}", flush=True)
+        readings["train_cli_val"] = _train_cli_val(tmp)
+    print(f"(k) cli.train --nativeResize valMegaDepth, 2 steps at full width: "
+          f"{readings['train_cli_val']}; phase (k) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -2828,11 +3329,12 @@ def main():
         sky, sky_readings = phase_sky(card)
         evals, eval_readings = phase_eval(card, results)
         yfcc_paths, yfcc_readings = phase_yfcc(card)
+        k_paths, k_readings = phase_affine_refine(card, results)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
     by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
-               **yfcc_paths}
+               **yfcc_paths, **k_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -2843,6 +3345,7 @@ def main():
     print(json.dumps({"multihomo": readings, "train": train_readings,
                       "fast_modes": fast_readings, "sky": sky_readings,
                       "eval": {**eval_readings, **yfcc_readings},
+                      "affine_refine_validation": k_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,17 @@ Usage:
   python -m ransacflow_tpu_torch.cli.train --trainImgDir data/train \
       --outDir runs/s3 --stage 3 --device cuda NoVal --epochSaveModel 1
 
+  python -m ransacflow_tpu_torch.cli.train --trainImgDir data/train \
+      --outDir runs/s3 --stage 3 --device cuda --nativeResize valMegaDepth \
+      --valImgDir data/val --valCSV val.csv --inPklCoarse coarse.pkl
+
 `--stage {1,2,3}` applies the reference's stage1/2/3.sh presets; explicit
-flags override. The JAX package's flags are all accepted; valMegaDepth,
---distributed, --nDevices > 1, --computeDtype bfloat16, --remat and
---nativeResize raise NotImplementedError (see ROADMAP.md).
+flags override. valMegaDepth validates every epoch and keeps the best model
+by prec@8 (`BestModel@8_{prec}`); NoVal checkpoints every --epochSaveModel
+epochs. --nativeResize resizes the training crops with the native Lanczos
+resampler (built with g++; it raises without one). The JAX package's flags
+are all accepted; --distributed, --nDevices > 1, --computeDtype bfloat16
+and --remat raise NotImplementedError (see ROADMAP.md).
 """
 
 import argparse
@@ -63,12 +70,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     for flag, unported, item in (
-            ("valMegaDepth", args.subcommand == "valMegaDepth", "item 11"),
             ("--distributed", args.distributed, "item 12"),
             ("--nDevices > 1", args.nDevices > 1, "item 12"),
             ("--computeDtype bfloat16", args.computeDtype == "bfloat16", "item 14"),
-            ("--remat", args.remat, "item 14"),
-            ("--nativeResize", args.nativeResize, "item 11")):
+            ("--remat", args.remat, "item 14")):
         if unported:
             not_ported(flag, item)
     use_full_fp32()  # --computeDtype float32, the one dtype ported
@@ -94,13 +99,17 @@ def main(argv=None):
                                  args.kernelSize)
     if args.resumePth:
         resume_params(args.resumePth, nets, args.kernelSize)
+    val = {}
+    if args.subcommand == "valMegaDepth":
+        val = dict(val_csv=args.valCSV, val_dir=args.valImgDir,
+                   val_coarse_pkl=args.inPklCoarse, val_min_size=args.valMinSize)
     fit(nets, args.trainImgDir, args.outDir, args.device,
         mode=cfg["mode"], mu_cycle=cfg["mu_cycle"], lambda_match=cfg["lambda_match"],
         grad_weight=cfg["grad_weight"], epochs=cfg["epochs"],
         batch_size=args.batchSize, img_size=args.imgSize, margin=args.margin,
         lr=args.lr, kernel_size=args.kernelSize,
         epoch_save_model=getattr(args, "epochSaveModel", 10), seed=args.seed,
-        max_steps_per_epoch=args.maxStepsPerEpoch)
+        max_steps_per_epoch=args.maxStepsPerEpoch, use_native=args.nativeResize, **val)
 
 
 if __name__ == "__main__":

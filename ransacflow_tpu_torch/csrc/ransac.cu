@@ -1,13 +1,13 @@
-// Fixed-count RANSAC homography fit in one launch: draw, solve, score, pick
-// the winner and write its inlier mask.
+// Fixed-count RANSAC fit in one launch: draw, solve, score, pick the winner
+// and write its inlier mask, for 4-point homographies or 3-point affine maps.
 //
-// Replaces: ransacflow_tpu/ops/ransac.py:102 ransac_homography ('homography',
-// the |det| gate): its draws (_sample_minimal_sets in the valid-first
-// order), its solve (_solve_models with ops/homography.py:136
-// dlt_homography, 'projective'), its count (ops/ransac.py:77
-// _make_count_chunk), the argmax (first index on ties) and the winner's
-// mask (ops/ransac.py:181-182). The per-hypothesis steps and the layout of
-// the work are in ransac_common.cuh.
+// Replaces: ransacflow_tpu/ops/ransac.py:102 ransac_homography ('homography'
+// with the |det| gate, n_points 4; 'affine', n_points 3): its draws
+// (_sample_minimal_sets in the valid-first order), its solve (_solve_models
+// with ops/homography.py:136 dlt_homography, 'projective', or :217
+// fit_affine), its count (ops/ransac.py:77 _make_count_chunk), the argmax
+// (first index on ties) and the winner's mask (ops/ransac.py:181-182). The
+// per-hypothesis steps and the layout of the work are in ransac_common.cuh.
 //
 // Block b takes hypotheses [b * kHyp, (b + 1) * kHyp), kHyp = 32: it
 // builds the valid-first order, stages the valid matches, draws and solves
@@ -16,7 +16,9 @@
 // writes its best H and set to its slot. The last block to finish (a
 // __threadfence, then an atomic ticket) reads the winner's slot, writes H,
 // count, set, found and the mask over all N matches, and resets the
-// two-word state for the next launch on the stream.
+// two-word state for the next launch on the stream. Above kSharedOrderMax
+// matches order_kernel writes the valid-first order to global memory first,
+// and every block reads it from there instead of building its own.
 //
 // It keeps a launch of its own beside the adaptive kernel's cooperative loop
 // (ransac_adaptive.cu), which computes the same fit as one loop block of
@@ -46,6 +48,7 @@ struct State {
   unsigned int ticket;      // blocks finished
 };
 
+template <int kNP, bool kGlobalOrder>
 __global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
     Problem P, int n_iter, int tile_len, Outputs out, State* state,
     float* slots) {
@@ -56,14 +59,14 @@ __global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
   __shared__ float s_H[9];
   __shared__ bool s_last;
 
-  int* order = smem;
-  const Tile tile = tile_at(smem, P.N, tile_len);
-  const int n_valid = build_order(P.valid, P.N, order, warp_sum);
+  const int* order;
+  const int n_valid = block_order<kGlobalOrder>(P, smem, &order, warp_sum);
+  const Tile tile = tile_at(smem, kGlobalOrder ? 0 : P.N, tile_len);
   const bool resident = n_valid <= tile_len;
   if (resident) stage(P, order, 0, n_valid, tile);
   const int h0 = blockIdx.x * kHyp;
   const int n_h = min(kHyp, n_iter - h0);
-  solve<kHyp>(P, order, n_valid, h0, n_h, hb);
+  solve<kHyp, kNP>(P, order, n_valid, h0, n_h, hb);
   __syncthreads();
   int c[Layout<kHyp>::kPer] = {};
   score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, c);
@@ -83,23 +86,25 @@ __global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
     atomicExch(&state->ticket, 0u);
     const unsigned h = key_index(win);
     take_winner(win, slots + static_cast<size_t>(h / kHyp) * kSlotWords, false,
-                n_valid, P.N, true, out, s_H);
+                n_valid, kNP, P.N, true, out, s_H);
   }
   __syncthreads();
   write_mask(P, s_H, true, out.mask, threadIdx.x, kThreads);
 }
 
+template <int kNP, bool kGlobalOrder>
 cudaError_t launch(const Problem& P, int n_iter, const Outputs& out, void* state,
                    float* slots, cudaStream_t stream) {
   const int tile_len = max(1, min(P.N, kTileMax));
-  const size_t smem = shared_bytes(P.N, tile_len);
+  const size_t smem = shared_bytes(kGlobalOrder ? 0 : P.N, tile_len);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ransac_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ransac_fit_kernel<kNP, kGlobalOrder>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  ransac_fit_kernel<<<(n_iter + kHyp - 1) / kHyp, kThreads, smem, stream>>>(
+  if (kGlobalOrder) order_kernel<<<1, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
+  ransac_fit_kernel<kNP, kGlobalOrder><<<(n_iter + kHyp - 1) / kHyp, kThreads, smem, stream>>>(
       P, n_iter, tile_len, out, static_cast<State*>(state), slots);
   return cudaGetLastError();
 }
@@ -107,18 +112,31 @@ cudaError_t launch(const Problem& P, int n_iter, const Outputs& out, void* state
 }  // namespace
 
 // m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
-// null with samples: (n_iter, 4) int32 match indices in [0, N); counts:
-// (n_iter,) int32 and sets: (n_iter, 4) int32, each optional (null); H: (9,)
-// fp32; ints: (8,) int32 (count, set); mask: (N + 1,) bytes (the mask, then
-// found); state: two zeroed 64-bit words, left zeroed, one per stream;
-// slots: (ceil(n_iter / 32), 16) fp32 scratch.
+// null with samples: (n_iter, n_points) int32 match indices in [0, N);
+// n_points: 4 (homography) or 3 (affine); counts: (n_iter,) int32 and sets:
+// (n_iter, n_points) int32, each optional (null); H: (9,) fp32; ints: (8,)
+// int32 (count, set); mask: (N + 1,) bytes (the mask, then found); order:
+// (N + 1,) int32 scratch when N > kSharedOrderMax, else null; state: two
+// zeroed 64-bit words, left zeroed, one per stream; slots: (ceil(n_iter /
+// 32), 16) fp32 scratch.
 RF_API int rf_ransac_fit(const float* m1, const float* m2,
                          const unsigned char* valid, int N,
                          const unsigned long long* seed, const int* samples,
-                         int n_iter, float tol, int* counts,
+                         int n_iter, int n_points, float tol, int* counts,
                          int* sets, float* H, int* ints, unsigned char* mask,
-                         void* state, float* slots, cudaStream_t stream) {
-  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets};
+                         int* order, void* state, float* slots, cudaStream_t stream) {
+  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets, order};
   const Outputs out{H, ints, mask};
-  return static_cast<int>(launch(P, n_iter, out, state, slots, stream));
+  cudaError_t err;
+  if (n_points == 4) {
+    err = order != nullptr ? launch<4, true>(P, n_iter, out, state, slots, stream)
+                           : launch<4, false>(P, n_iter, out, state, slots, stream);
+  } else {
+    err = order != nullptr ? launch<3, true>(P, n_iter, out, state, slots, stream)
+                           : launch<3, false>(P, n_iter, out, state, slots, stream);
+  }
+  return static_cast<int>(err);
 }

@@ -1,9 +1,11 @@
 // Adaptive RANSAC in one persistent launch: hypotheses in blocks of `chunk`
 // until a confidence bound is met, the stop test on the device.
 //
-// Replaces: ransacflow_tpu/ops/ransac.py:194 ransac_homography_adaptive,
-// the lax.while_loop over blocks (lines 251-295) and the winner's mask
-// (lines 297-300). One cooperative launch (cudaLaunchCooperativeKernel, at
+// Replaces: ransacflow_tpu/ops/ransac.py:194 ransac_homography_adaptive
+// (4-point homographies or 3-point affine maps, kNP), the lax.while_loop
+// over blocks (lines 251-295) and the winner's mask (lines 297-300). Above
+// kSharedOrderMax matches order_kernel writes the valid-first order to
+// global memory before the loop's launch. One cooperative launch (cudaLaunchCooperativeKernel, at
 // most the co-resident block count) walks the loop; for loop block c:
 //   1. the grid draws, solves and scores hypotheses c * chunk + i, i <
 //      chunk, with the fixed-count kernel's device code and mapping
@@ -18,8 +20,9 @@
 //      the value a slower block is still reading;
 //   3. grid barrier;
 //   4. every block reads best[c] and evaluates the stop test in fp32 as the
-//      reference: w = best / max(n_valid, 1), w4 = min(w^4, 1 - 1e-7),
-//      denom = min(log1p(-w4), -1e-30), n_req = log1p(-confidence) / denom,
+//      reference: w = best / max(n_valid, 1), wn = min(w^kNP, 1 - 1e-7)
+//      (w^4 as (w w)(w w), w^3 as w (w w): lax.integer_pow's products),
+//      denom = min(log1p(-wn), -1e-30), n_req = log1p(-confidence) / denom,
 //      stop when (c + 1) * chunk >= min(n_req, n_iter). The value is the
 //      same on every block, so the grid leaves the loop together.
 // Then every block reads the winner's slot and writes its share of the
@@ -52,17 +55,20 @@ struct Loop {
   float confidence;
 };
 
+template <int kNP>
 __device__ __forceinline__ bool stop_test(int best_count, int n_valid, int evaluated,
                                           const Loop& L) {
   const float w = static_cast<float>(best_count) / static_cast<float>(max(n_valid, 1));
-  const float w2 = w * w;
+  const float w2 = __fmul_rn(w, w);
   // 1 - 1e-7 rounded to fp32 once, as the reference's constant
-  const float w4 = fminf(w2 * w2, static_cast<float>(1.0 - 1e-7));
-  const float denom = fminf(log1pf(-w4), -1e-30f);
+  const float wn = fminf(kNP == 4 ? __fmul_rn(w2, w2) : __fmul_rn(w, w2),
+                         static_cast<float>(1.0 - 1e-7));
+  const float denom = fminf(log1pf(-wn), -1e-30f);
   const float n_req = log1pf(-L.confidence) / denom;
   return static_cast<float>(evaluated) >= fminf(n_req, static_cast<float>(L.n_iter));
 }
 
+template <int kNP, bool kGlobalOrder>
 __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
     Problem P, Loop L, int tile_len, Outputs out, unsigned long long* best,
     float* slots) {
@@ -74,12 +80,12 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
   __shared__ unsigned long long s_best;
   __shared__ float s_H[9];
 
-  int* order = smem;
-  const Tile tile = tile_at(smem, P.N, tile_len);
+  const Tile tile = tile_at(smem, kGlobalOrder ? 0 : P.N, tile_len);
   if (blockIdx.x == 0) {
     for (int c = threadIdx.x; c < L.n_chunks; c += kThreads) best[c] = 0ull;
   }
-  const int n_valid = build_order(P.valid, P.N, order, warp_sum);
+  const int* order;
+  const int n_valid = block_order<kGlobalOrder>(P, smem, &order, warp_sum);
   const bool resident = n_valid <= tile_len;
   if (resident) stage(P, order, 0, n_valid, tile);
   const int chunk_blocks = (L.chunk + kHyp - 1) / kHyp;
@@ -92,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
     for (int j = blockIdx.x; j < chunk_blocks; j += gridDim.x) {
       const int h0 = c * L.chunk + j * kHyp;
       const int n_h = min(kHyp, L.chunk - j * kHyp);
-      solve<kHyp>(P, order, n_valid, h0, n_h, hb);
+      solve<kHyp, kNP>(P, order, n_valid, h0, n_h, hb);
       __syncthreads();
       int cnt[Layout<kHyp>::kPer] = {};
       score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, cnt);
@@ -111,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
     running = s_best;
     const int evaluated = (c + 1) * L.chunk;
     if (c + 1 == L.n_chunks ||
-        stop_test(static_cast<int>(running >> 32), n_valid, evaluated, L)) {
+        stop_test<kNP>(static_cast<int>(running >> 32), n_valid, evaluated, L)) {
       break;
     }
   }
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
   const unsigned j = (h - cw * L.chunk) / kHyp;
   if (threadIdx.x == 0) {
     take_winner(running, slots + (static_cast<size_t>(cw) * chunk_blocks + j) * kSlotWords,
-                true, n_valid, P.N, blockIdx.x == 0, out, s_H);
+                true, n_valid, kNP, P.N, blockIdx.x == 0, out, s_H);
     if (blockIdx.x == 0) {
       out.ints[5] = c + 1;
       out.ints[6] = (c + 1) * L.chunk;
@@ -138,12 +144,13 @@ struct Occupancy {
   int blocks = 0;  // co-resident blocks on the card
 };
 
+template <int kNP, bool kGlobalOrder>
 cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
                    unsigned long long* best, float* slots, cudaStream_t stream) {
-  static Occupancy occ;  // the last query, kept: it costs host time
-  auto kernel = ransac_adaptive_kernel;
+  static Occupancy occ;  // the last query of this kernel, kept: it costs host time
+  auto kernel = ransac_adaptive_kernel<kNP, kGlobalOrder>;
   int tile_len = max(1, min(P.N, kTileMax));
-  size_t smem = shared_bytes(P.N, tile_len);
+  size_t smem = shared_bytes(kGlobalOrder ? 0 : P.N, tile_len);
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -164,6 +171,7 @@ cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
   }
   const int grid = min((L.chunk + kHyp - 1) / kHyp, occ.blocks);
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (kGlobalOrder) order_kernel<<<1, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
   Problem p = P;
   Loop l = L;
   Outputs o = out;
@@ -177,22 +185,35 @@ cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
 }  // namespace
 
 // m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
-// null with samples: (n_chunks * chunk, 4) int32 match indices in [0, N);
-// counts: (n_chunks * chunk,) int32 and sets: (n_chunks * chunk, 4) int32,
-// each optional (null), written for the blocks run; H: (9,) fp32; ints: (8,)
-// int32 (count, set, blocks run, hypotheses evaluated); mask: (N + 1,) bytes
-// (the mask, then found); best: (n_chunks,) 64-bit scratch; slots: (n_chunks
-// * ceil(chunk / 16), 16) fp32 scratch.
+// null with samples: (n_chunks * chunk, n_points) int32 match indices in [0,
+// N); n_points: 4 (homography) or 3 (affine); counts: (n_chunks * chunk,)
+// int32 and sets: (n_chunks * chunk, n_points) int32, each optional (null),
+// written for the blocks run; H: (9,) fp32; ints: (8,) int32 (count, set,
+// blocks run, hypotheses evaluated); mask: (N + 1,) bytes (the mask, then
+// found); order: (N + 1,) int32 scratch when N > kSharedOrderMax, else null;
+// best: (n_chunks,) 64-bit scratch; slots: (n_chunks * ceil(chunk / 16),
+// 16) fp32 scratch.
 RF_API int rf_ransac_adaptive(const float* m1, const float* m2,
                               const unsigned char* valid, int N,
                               const unsigned long long* seed, const int* samples,
-                              int n_chunks, int chunk, int n_iter, float tol,
-                              float confidence, int* counts, int* sets, float* H,
-                              int* ints, unsigned char* mask,
+                              int n_chunks, int chunk, int n_iter, int n_points,
+                              float tol, float confidence, int* counts, int* sets,
+                              float* H, int* ints, unsigned char* mask, int* order,
                               unsigned long long* best, float* slots,
                               cudaStream_t stream) {
-  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets};
+  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets, order};
   const Loop L{n_chunks, chunk, n_iter, confidence};
   const Outputs out{H, ints, mask};
-  return static_cast<int>(launch(P, L, out, best, slots, stream));
+  cudaError_t err;
+  if (n_points == 4) {
+    err = order != nullptr ? launch<4, true>(P, L, out, best, slots, stream)
+                           : launch<4, false>(P, L, out, best, slots, stream);
+  } else {
+    err = order != nullptr ? launch<3, true>(P, L, out, best, slots, stream)
+                           : launch<3, false>(P, L, out, best, slots, stream);
+  }
+  return static_cast<int>(err);
 }

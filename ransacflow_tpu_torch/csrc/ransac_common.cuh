@@ -1,22 +1,33 @@
-// RANSAC homography fits: the device code shared by the fixed-count kernel
-// (ransac.cu) and the adaptive one (ransac_adaptive.cu).
+// RANSAC fits of 4-point homographies and 3-point affine maps: the device
+// code shared by the fixed-count kernel (ransac.cu) and the adaptive one
+// (ransac_adaptive.cu). The set size kNP (4 or 3) is a template parameter,
+// so the homography path's code is the same whatever the affine one does.
 //
 // A thread block of kThreads threads takes kHyp hypotheses at a time (a
 // hypothesis block). For hypothesis h:
 //   1. draw: Philox4x32-10 with counter (h, 0, 0, 0) and the seed's two
-//      32-bit words (low, high) as key gives 4 words x; word t becomes rank
-//      r = min(floor(fp32((x >> 8) * 2^-24) * fp32(n_valid)), n_valid - 1)
-//      of the stable valid-first order, which each block builds with a scan
-//      of `valid` into shared memory (n_valid 0 takes index 0). An injected
-//      set replaces the draw;
+//      32-bit words (low, high) as key gives 4 words x, y, z, w; the first
+//      kNP of them become ranks r = min(floor(fp32((x >> 8) * 2^-24) *
+//      fp32(n_valid)), n_valid - 1) of the stable valid-first order (n_valid
+//      0 takes index 0), so an affine set is the first three indices of the
+//      homography set under the same seed. Up to kSharedOrderMax matches
+//      each block builds that order with a scan of `valid` into shared
+//      memory; above it order_kernel writes it to global memory once, before
+//      the fit's launch. An injected set replaces the draw;
 //   2. a set with a repeated index is rejected (count 0);
-//   3. both 4-point sets are Hartley-normalized, H is built in closed form
-//      from the projective basis, denormalized and scaled to unit Frobenius
-//      norm (the reference's exact sequence of operations,
+//   3. homography: both 4-point sets are Hartley-normalized, H is built in
+//      closed form from the projective basis, denormalized and scaled to
+//      unit Frobenius norm (the reference's exact sequence of operations,
 //      ransacflow_tpu/ops/homography.py:136 dlt_homography, 'projective');
-//      a set with |det H| <= 1e-6 is rejected;
+//      a set with |det H| <= 1e-6 is rejected. Affine: the least-squares fit
+//      through the 3x3 normal equations in closed form (affine_fit; the
+//      reference's fit_affine, ransacflow_tpu/ops/homography.py:217), last
+//      row [0, 0, 1], with no gate (ransacflow_tpu/ops/ransac.py:68-69): a
+//      map with a non-finite entry (collinear points) counts 0 as it does
+//      there, and is scored as a rejected set;
 //   4. count = #{valid m : |dehom(H m2) - m1|^2 < tol^2}
-//      (ransacflow_tpu/ops/ransac.py:77 _make_count_chunk).
+//      (ransacflow_tpu/ops/ransac.py:77 _make_count_chunk; ez is m2's z
+//      for an affine H).
 // Scoring: the valid matches are staged in shared memory as structure of
 // arrays (tiles of kTileMax when there are more); each thread holds kPer
 // hypotheses in registers (4 for the fixed-count kernel's 32 hypotheses a
@@ -29,8 +40,11 @@
 // and is never solved again: ptxas may contract products into FMAs
 // differently at another call site of the same source.
 //
-// The valid-first order (N ints) and one tile must fit in a thread block's
-// shared memory: at most 40960 matches (kernels/ransac.py MAX_MATCHES).
+// The valid-first order (N ints) and one tile fit in a thread block's
+// shared memory up to kSharedOrderMax = 40960 matches; above it the order
+// lives in global memory, and the matches are staged tile by tile. The int32
+// indexing of the (N, 3) match arrays bounds N by (2^31 - 1) / 3
+// (kernels/ransac.py MAX_MATCHES).
 #pragma once
 
 #include <math.h>
@@ -42,6 +56,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileMax = 2048;  // valid matches staged in shared memory at a time
 constexpr int kSlotWords = 16;  // a hypothesis block's winner: H (9 floats), set (4 ints)
 constexpr float kDetEps = 1e-6f;
+constexpr int kSharedOrderMax = 40960;  // kernels/ransac.py SHARED_ORDER_MAX
+constexpr int kOrderThreads = 1024;     // order_kernel's block
 
 // The scoring layout of kHyp hypotheses a block: a thread holds kPer of
 // them in registers, and the kLanes threads of a group walk the matches.
@@ -64,6 +80,8 @@ struct Problem {
   float tol;
   int* counts;  // optional records per hypothesis (null on the alignment
   int* sets;    // paths): its count and its set
+  int* order;   // above kSharedOrderMax: the global valid-first order (N
+                // ints, then n_valid) written by order_kernel; else null
 };
 
 struct Outputs {
@@ -83,14 +101,14 @@ struct HypBlock {
   int ok[kHyp];
 };
 
-// Dynamic shared memory: the valid-first order (N ints), then the tile.
-inline size_t shared_bytes(int N, int tile_len) {
-  return static_cast<size_t>(N) * sizeof(int) +
+// Dynamic shared memory: the shared valid-first order, then the tile.
+inline size_t shared_bytes(int order_len, int tile_len) {
+  return static_cast<size_t>(order_len) * sizeof(int) +
          5 * static_cast<size_t>(tile_len) * sizeof(float);
 }
 
-__device__ __forceinline__ Tile tile_at(int* smem, int N, int tile_len) {
-  float* f = reinterpret_cast<float*>(smem + N);
+__device__ __forceinline__ Tile tile_at(int* smem, int order_len, int tile_len) {
+  float* f = reinterpret_cast<float*>(smem + order_len);
   return {f, f + tile_len, f + 2 * tile_len, f + 3 * tile_len, f + 4 * tile_len};
 }
 
@@ -164,6 +182,67 @@ __device__ __forceinline__ void basis_transform(const float* px,
   }
 }
 
+// Exact-rounding forms of adjugate and det3 for affine_fit: every product
+// and difference rounded on its own, as separate tensor ops round them.
+__device__ __forceinline__ void adjugate_rn(const float* m, float* a) {
+  a[0] = __fsub_rn(__fmul_rn(m[4], m[8]), __fmul_rn(m[5], m[7]));
+  a[1] = __fsub_rn(__fmul_rn(m[2], m[7]), __fmul_rn(m[1], m[8]));
+  a[2] = __fsub_rn(__fmul_rn(m[1], m[5]), __fmul_rn(m[2], m[4]));
+  a[3] = __fsub_rn(__fmul_rn(m[5], m[6]), __fmul_rn(m[3], m[8]));
+  a[4] = __fsub_rn(__fmul_rn(m[0], m[8]), __fmul_rn(m[2], m[6]));
+  a[5] = __fsub_rn(__fmul_rn(m[2], m[3]), __fmul_rn(m[0], m[5]));
+  a[6] = __fsub_rn(__fmul_rn(m[3], m[7]), __fmul_rn(m[4], m[6]));
+  a[7] = __fsub_rn(__fmul_rn(m[1], m[6]), __fmul_rn(m[0], m[7]));
+  a[8] = __fsub_rn(__fmul_rn(m[0], m[4]), __fmul_rn(m[1], m[3]));
+}
+
+// The affine fit X ~ Y M of 3 points (X: m1's x, y; Y: m2's x, y, z) in the
+// order of operations of the plain version, ops/homography.py fit_affine:
+// YtY and YtX summed point by point, M = adj(YtY) YtX / det(YtY), det the
+// first row of YtY against adj's first column. The _rn intrinsics are never
+// contracted into FMAs, so the result is the plain version's bit for bit.
+// H = [M^T; 0 0 1]. Collinear points give inf or nan, as in the reference.
+__device__ __forceinline__ void affine_fit(const float* x1, const float* y1,
+                                           const float (*Y)[3], float* H) {
+  float A[9], B[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) A[i * 3 + j] = __fmul_rn(Y[0][i], Y[0][j]);
+    B[i * 2] = __fmul_rn(Y[0][i], x1[0]);
+    B[i * 2 + 1] = __fmul_rn(Y[0][i], y1[0]);
+  }
+#pragma unroll
+  for (int t = 1; t < 3; ++t) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        A[i * 3 + j] = __fadd_rn(A[i * 3 + j], __fmul_rn(Y[t][i], Y[t][j]));
+      }
+      B[i * 2] = __fadd_rn(B[i * 2], __fmul_rn(Y[t][i], x1[t]));
+      B[i * 2 + 1] = __fadd_rn(B[i * 2 + 1], __fmul_rn(Y[t][i], y1[t]));
+    }
+  }
+  float a[9];
+  adjugate_rn(A, a);
+  const float det = __fadd_rn(__fadd_rn(__fmul_rn(A[0], a[0]), __fmul_rn(A[1], a[3])),
+                              __fmul_rn(A[2], a[6]));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float m = __fadd_rn(__fadd_rn(__fmul_rn(a[i * 3], B[k]),
+                                          __fmul_rn(a[i * 3 + 1], B[2 + k])),
+                                __fmul_rn(a[i * 3 + 2], B[4 + k]));
+      H[k * 3 + i] = __fdiv_rn(m, det);
+    }
+  }
+  H[6] = 0.f;
+  H[7] = 0.f;
+  H[8] = 1.f;
+}
+
 // Philox4x32-10 (Salmon et al., SC'11; Random123's constants and rounds) of
 // the counter (ctr, 0, 0, 0) under the key (k0, k1).
 __device__ __forceinline__ uint4 philox4x32_10(unsigned ctr, unsigned k0,
@@ -221,6 +300,70 @@ __device__ __forceinline__ int build_order(const unsigned char* __restrict__ val
   return base;
 }
 
+// The global valid-first order for more than kSharedOrderMax matches: one
+// block of kOrderThreads threads walks `valid` 4 flags a thread at a time,
+// places each valid index by a block-wide prefix sum of the counts, and
+// writes order[0 .. n_valid) and order[N] = n_valid. A stable compaction,
+// so the order is the one build_order gives. Launched once, before a fit.
+static __global__ void __launch_bounds__(kOrderThreads) order_kernel(
+    const unsigned char* __restrict__ valid, int N, int* __restrict__ order) {
+  __shared__ int warp_incl[kOrderThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int i0 = 0; i0 < N; i0 += 4 * kOrderThreads) {
+    const int i = i0 + 4 * threadIdx.x;
+    bool f[4];
+    int cnt = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      f[t] = i + t < N && valid[i + t];
+      cnt += f[t];
+    }
+    int incl = cnt;  // inclusive prefix over the warp's lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) warp_incl[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {  // inclusive prefix over the block's 32 warps
+      int w = warp_incl[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += v;
+      }
+      warp_incl[lane] = w;
+    }
+    __syncthreads();
+    int pos = base + (warp > 0 ? warp_incl[warp - 1] : 0) + incl - cnt;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (f[t]) order[pos++] = i + t;
+    }
+    base += warp_incl[kOrderThreads / 32 - 1];
+    __syncthreads();  // warp_incl is taken again
+  }
+  if (threadIdx.x == 0) order[N] = base;
+}
+
+// The block's valid-first order and n_valid: the global one written by
+// order_kernel (kGlobalOrder), or built into shared memory at `smem`. A
+// compile-time choice, so that the shared path's loads stay shared-memory
+// loads. Every thread of the block must call it.
+template <bool kGlobalOrder>
+__device__ __forceinline__ int block_order(const Problem& P, int* smem, const int** order,
+                                           int* warp_sum) {
+  if constexpr (kGlobalOrder) {
+    *order = P.order;
+    return P.order[P.N];
+  } else {
+    *order = smem;
+    return build_order(P.valid, P.N, smem, warp_sum);
+  }
+}
+
 // Valid matches order[t0 .. t0 + n) into the tile.
 __device__ __forceinline__ void stage(const Problem& P, const int* order, int t0,
                                       int n, Tile t) {
@@ -234,42 +377,12 @@ __device__ __forceinline__ void stage(const Problem& P, const int* order, int t0
   }
 }
 
-// Thread i < n_h draws (or reads) and solves hypothesis h0 + i into hb.
-template <int kHyp>
-__device__ __forceinline__ void solve(const Problem& P, const int* order,
-                                      int n_valid, int h0, int n_h,
-                                      HypBlock<kHyp>& hb) {
-  const int i = threadIdx.x;
-  if (i >= n_h) return;
-  const int h = h0 + i;
-  int id[4];
-  if (P.samples != nullptr) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) id[t] = P.samples[static_cast<size_t>(h) * 4 + t];
-  } else {
-    const unsigned long long seed = *P.seed;
-    const uint4 x = philox4x32_10(static_cast<unsigned>(h), static_cast<unsigned>(seed),
-                                  static_cast<unsigned>(seed >> 32));
-    id[0] = draw_index(x.x, order, n_valid);
-    id[1] = draw_index(x.y, order, n_valid);
-    id[2] = draw_index(x.z, order, n_valid);
-    id[3] = draw_index(x.w, order, n_valid);
-  }
-  if (P.sets != nullptr) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) P.sets[static_cast<size_t>(h) * 4 + t] = id[t];
-  }
-  const bool unique = id[0] != id[1] && id[0] != id[2] && id[0] != id[3] &&
-                      id[1] != id[2] && id[1] != id[3] && id[2] != id[3];
-  float xx[4], xy[4], yx[4], yy[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    xx[t] = P.m1[id[t] * 3];
-    xy[t] = P.m1[id[t] * 3 + 1];
-    yx[t] = P.m2[id[t] * 3];
-    yy[t] = P.m2[id[t] * 3 + 1];
-  }
-  float T1[9], T2[9], BX[9], BY[9], adjBY[9], Hn[9], T1inv[9], tmp[9], H[9];
+// The 4-point homography of X ~ H Y from the points (xx, xy) and (yx, yy),
+// normalized in place: both sets Hartley-normalized, H in closed form from
+// the projective basis, denormalized and scaled to unit Frobenius norm.
+__device__ __forceinline__ void homography_fit(float* xx, float* xy, float* yx, float* yy,
+                                               float* H) {
+  float T1[9], T2[9], BX[9], BY[9], adjBY[9], Hn[9], T1inv[9], tmp[9];
   hartley(xx, xy, T1);
   hartley(yx, yy, T2);
   basis_transform(xx, xy, BX);
@@ -287,13 +400,74 @@ __device__ __forceinline__ void solve(const Problem& P, const int* order,
   for (int e = 0; e < 9; ++e) nrm += H[e] * H[e];
   nrm = fmaxf(sqrtf(nrm), 1e-12f);
 #pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    H[e] /= nrm;
-    hb.H[i][e] = H[e];
+  for (int e = 0; e < 9; ++e) H[e] /= nrm;
+}
+
+// Thread i < n_h draws (or reads) and solves hypothesis h0 + i into hb: a
+// homography from kNP = 4 points, an affine map from 3.
+template <int kHyp, int kNP>
+__device__ __forceinline__ void solve(const Problem& P, const int* order,
+                                      int n_valid, int h0, int n_h,
+                                      HypBlock<kHyp>& hb) {
+  static_assert(kNP == 3 || kNP == 4, "4-point homographies or 3-point affine maps");
+  const int i = threadIdx.x;
+  if (i >= n_h) return;
+  const int h = h0 + i;
+  int id[4] = {0, 0, 0, 0};
+  if (P.samples != nullptr) {
+#pragma unroll
+    for (int t = 0; t < kNP; ++t) id[t] = P.samples[static_cast<size_t>(h) * kNP + t];
+  } else {
+    const unsigned long long seed = *P.seed;
+    const uint4 x = philox4x32_10(static_cast<unsigned>(h), static_cast<unsigned>(seed),
+                                  static_cast<unsigned>(seed >> 32));
+    id[0] = draw_index(x.x, order, n_valid);
+    id[1] = draw_index(x.y, order, n_valid);
+    id[2] = draw_index(x.z, order, n_valid);
+    if (kNP == 4) id[3] = draw_index(x.w, order, n_valid);
+  }
+  if (P.sets != nullptr) {
+#pragma unroll
+    for (int t = 0; t < kNP; ++t) P.sets[static_cast<size_t>(h) * kNP + t] = id[t];
+  }
+  float H[9];
+  bool ok;
+  if constexpr (kNP == 3) {
+    float x1[3], y1[3], Y[3][3];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      x1[t] = P.m1[id[t] * 3];
+      y1[t] = P.m1[id[t] * 3 + 1];
+      Y[t][0] = P.m2[id[t] * 3];
+      Y[t][1] = P.m2[id[t] * 3 + 1];
+      Y[t][2] = P.m2[id[t] * 3 + 2];
+    }
+    affine_fit(x1, y1, Y, H);
+    // A non-finite entry makes every residual of its row non-finite, so
+    // such a map counts 0 (in the plain version too): it is scored as a
+    // rejected set, off the divide's slow path.
+    bool finite = true;
+#pragma unroll
+    for (int e = 0; e < 6; ++e) finite = finite && isfinite(H[e]);
+    ok = id[0] != id[1] && id[0] != id[2] && id[1] != id[2] && finite;
+  } else {
+    float xx[4], xy[4], yx[4], yy[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      xx[t] = P.m1[id[t] * 3];
+      xy[t] = P.m1[id[t] * 3 + 1];
+      yx[t] = P.m2[id[t] * 3];
+      yy[t] = P.m2[id[t] * 3 + 1];
+    }
+    homography_fit(xx, xy, yx, yy, H);
+    ok = id[0] != id[1] && id[0] != id[2] && id[0] != id[3] && id[1] != id[2] &&
+         id[1] != id[3] && id[2] != id[3] && fabsf(det3(H)) > kDetEps;
   }
 #pragma unroll
+  for (int e = 0; e < 9; ++e) hb.H[i][e] = H[e];
+#pragma unroll
   for (int t = 0; t < 4; ++t) hb.ids[i][t] = id[t];
-  hb.ok[i] = unique && fabsf(det3(H)) > kDetEps;
+  hb.ok[i] = ok;
 }
 
 // This thread's kPer hypotheses of the block. A rejected one (count 0
@@ -419,12 +593,13 @@ __device__ __forceinline__ void write_slot(const HypBlock<kHyp>& hb,
 
 // Thread 0: the winner (packed key `win`, its H and set in `slot`, written
 // by another block) into s_H and, when `write`, into the outputs: H,
-// count, set and found. With `identity_if_none` a winning count of 0 keeps
+// count, set (4 ints, an affine set's fourth 0) and found (n_valid >= the
+// set size n_points). With `identity_if_none` a winning count of 0 keeps
 // the identity and the zero set (the adaptive op's initial best).
 __device__ __forceinline__ void take_winner(unsigned long long win, const float* slot,
                                             bool identity_if_none, int n_valid,
-                                            int N, bool write, Outputs out,
-                                            float* s_H) {
+                                            int n_points, int N, bool write,
+                                            Outputs out, float* s_H) {
   const int count = static_cast<int>(win >> 32);
   const bool none = identity_if_none && count == 0;
   const int* ids = reinterpret_cast<const int*>(slot + 9);
@@ -436,7 +611,7 @@ __device__ __forceinline__ void take_winner(unsigned long long win, const float*
   out.ints[0] = count;
 #pragma unroll
   for (int t = 0; t < 4; ++t) out.ints[1 + t] = none ? 0 : __ldcg(ids + t);
-  out.mask[N] = count > 0 && n_valid >= 4;
+  out.mask[N] = count > 0 && n_valid >= n_points;
 }
 
 // mask[m] for m = first, first + stride, ...: the reference's

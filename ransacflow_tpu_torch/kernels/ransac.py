@@ -1,5 +1,6 @@
 """Kernel 3: the fixed-count RANSAC fit in one launch (`csrc/ransac.cu`):
-draw, solve, score, pick the winner and write its inlier mask.
+draw, solve, score, pick the winner and write its inlier mask, for 4-point
+homographies or 3-point affine maps.
 
 The draws are Philox4x32-10 of the hypothesis index under a seed tensor
 (`draw_sets_ref` is their plain version, bit for bit the kernel's), so a
@@ -12,19 +13,22 @@ from typing import NamedTuple
 import torch
 
 from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
-from ransacflow_tpu_torch.ops.homography import dlt_homography, reprojection_error
+from ransacflow_tpu_torch.ops.homography import dlt_homography, fit_affine, reprojection_error
 
-N_POINTS = 4
-DET_EPS = 1e-6  # kDetEps in the source
+# the minimal set of each transform the kernels fit
+TRANSFORMS = {"homography": 4, "affine": 3}
+DET_EPS = 1e-6  # kDetEps in the source: the homographies' |det| gate
 HYP_PER_BLOCK = 32  # kHyp in csrc/ransac.cu: hypotheses a thread block takes at a time
 SLOT_WORDS = 16  # kSlotWords in the source
-# the valid-first order (N ints) and a tile of kTileMax matches must fit in a
-# thread block's shared memory: the kernels' limit (the plain versions take
-# any N)
-MAX_MATCHES = 40960
+# up to this many matches each thread block keeps the valid-first order in
+# shared memory beside a tile of kTileMax matches (kSharedOrderMax in the
+# source); above it one scan kernel writes the order to global memory first
+SHARED_ORDER_MAX = 40960
+# the kernels index the (N, 3) match arrays with int32: 3 N < 2^31
+MAX_MATCHES = (2 ** 31 - 1) // 3
 KERNEL = Kernel("rf_ransac_fit",
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8)
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 9)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -36,13 +40,13 @@ class RansacResult(NamedTuple):
     num_inliers: torch.Tensor  # () int32
     inlier_mask: torch.Tensor  # (N,) bool over the padded match arrays
     found: torch.Tensor        # () bool: num_inliers > 0 and enough matches
-    best_sample: torch.Tensor  # (4,) match indices of the winning set
+    best_sample: torch.Tensor  # (n_points,) match indices of the winning set
 
 
 class Record(NamedTuple):
     """Per hypothesis, for checks: its count and its set of match indices."""
     counts: torch.Tensor  # (rows,) int32
-    sets: torch.Tensor    # (rows, 4) int32
+    sets: torch.Tensor    # (rows, n_points) int32
 
 
 def _mulhilo(m, x):
@@ -68,11 +72,20 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def draw_sets_ref(valid, seed, n_rows, first=0):
-    """Plain version of the kernels' draws: (n_rows, 4) int32 match indices
-    of hypotheses first .. first + n_rows. Hypothesis h takes Philox4x32-10
-    of counter (h, 0, 0, 0) under key (seed low word, seed high word); word
-    x becomes rank min(floor(fp32((x >> 8) * 2^-24) * fp32(n_valid)),
+def n_points_of(transform):
+    """The minimal set's size of a transform the kernels fit."""
+    if transform not in TRANSFORMS:
+        raise ValueError(f"transform={transform!r}: one of {sorted(TRANSFORMS)}")
+    return TRANSFORMS[transform]
+
+
+def draw_sets_ref(valid, seed, n_rows, first=0, n_points=4):
+    """Plain version of the kernels' draws: (n_rows, n_points) int32 match
+    indices of hypotheses first .. first + n_rows. Hypothesis h takes
+    Philox4x32-10 of counter (h, 0, 0, 0) under key (seed low word, seed
+    high word); its first n_points words (x, y, z, w) are the set, so a
+    3-point set is the first three columns of the 4-point set under one
+    seed. Word x becomes rank min(floor(fp32((x >> 8) * 2^-24) * fp32(n_valid)),
     n_valid - 1) of the stable valid-first order (index 0 when no match is
     valid). seed: (1,) int64 in [0, 2**62) on valid's device."""
     dev = valid.device
@@ -81,20 +94,26 @@ def draw_sets_ref(valid, seed, n_rows, first=0):
     words = philox4x32((h, zero, zero, zero), (seed & _MASK32, seed >> 32))
     order = torch.argsort((~valid).to(torch.uint8), stable=True)
     bound = valid.sum().clamp_min(1)
-    u = (torch.stack(words, dim=1) >> 8).to(torch.float32) * 2.0 ** -24
+    u = (torch.stack(words[:n_points], dim=1) >> 8).to(torch.float32) * 2.0 ** -24
     rank = torch.minimum((u * bound).floor().long(), bound - 1)
     return order[rank].to(torch.int32)
 
 
-def ransac_score_ref(match1, match2, valid, samples, tolerance):
+def ransac_score_ref(match1, match2, valid, samples, tolerance, transform="homography"):
     """Plain PyTorch. match1, match2 (N, 3); valid (N,) bool; samples
-    (n_iter, 4) int32 match indices -> (H21 (n_iter, 3, 3), counts (n_iter,)
-    int32), count 0 for a set with a repeated index or |det H| <= 1e-6."""
+    (n_iter, n_points) int32 match indices -> (H21 (n_iter, 3, 3), counts
+    (n_iter,) int32), count 0 for a set with a repeated index, and for a
+    homography with |det H| <= 1e-6 (affine fits have no such gate, as in
+    the reference)."""
     n_points = samples.shape[1]
     idx = samples.long()
     unique = (idx[:, :, None] == idx[:, None, :]).sum(dim=(1, 2)) <= n_points
-    H = dlt_homography(match1[idx], match2[idx])
-    ok = unique & (torch.linalg.det(H).abs() > DET_EPS)
+    if transform == "affine":
+        H = fit_affine(match1[idx], match2[idx])
+        ok = unique
+    else:
+        H = dlt_homography(match1[idx], match2[idx])
+        ok = unique & (torch.linalg.det(H).abs() > DET_EPS)
     ex = match2 @ H[:, 0, :].T  # (N, n_iter)
     ey = match2 @ H[:, 1, :].T
     ez = match2 @ H[:, 2, :].T
@@ -106,7 +125,7 @@ def ransac_score_ref(match1, match2, valid, samples, tolerance):
 
 
 def boundary_flips(match1, match2, valid, sets, counts, counts_ref, tolerance,
-                   window=1e-5):
+                   window=1e-5, transform="homography"):
     """For checks of a kernel's per-hypothesis counts against the plain
     version's on the same sets: (differ, explained) bool (rows,). A count
     that differs is explained when it differs by no more than the valid
@@ -118,7 +137,7 @@ def boundary_flips(match1, match2, valid, sets, counts, counts_ref, tolerance,
     rows = differ.nonzero()[:, 0]
     explained = torch.zeros_like(differ)
     if rows.numel():
-        H, _ = ransac_score_ref(match1, match2, valid, sets[rows], tolerance)
+        H, _ = ransac_score_ref(match1, match2, valid, sets[rows], tolerance, transform)
         ex, ey, ez = (match2 @ H[:, r, :].T for r in range(3))  # (N, rows)
         du = ex / ez - match1[:, 0:1]
         dv = ey / ez - match1[:, 1:2]
@@ -132,57 +151,64 @@ def winner_mask(match1, match2, valid, H21, tolerance):
     return (reprojection_error(match1, match2, H21[None])[0] < tolerance) & valid
 
 
-def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=None):
-    """Plain PyTorch: the sets drawn under `seed` (or `samples`, (n_iter, 4)
-    int32), scored, the argmax (first index on ties) and the winner's mask.
-    Returns (RansacResult, Record)."""
-    sets = draw_sets_ref(valid, seed, n_iter) if samples is None else samples
-    H, counts = ransac_score_ref(match1, match2, valid, sets, tolerance)
+def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
+                   transform="homography"):
+    """Plain PyTorch: the sets drawn under `seed` (or `samples`, (n_iter,
+    n_points) int32), scored, the argmax (first index on ties) and the
+    winner's mask. Returns (RansacResult, Record)."""
+    n_points = n_points_of(transform)
+    sets = draw_sets_ref(valid, seed, n_iter, n_points=n_points) if samples is None else samples
+    H, counts = ransac_score_ref(match1, match2, valid, sets, tolerance, transform)
     # a (1,) index gathers on the device; a 0-d tensor index is read back
     best = torch.argmax(counts).view(1)
     best_H = H.index_select(0, best)[0]
     n_inl = counts.index_select(0, best)[0]
-    found = (n_inl > 0) & (valid.sum() >= N_POINTS)
+    found = (n_inl > 0) & (valid.sum() >= n_points)
     return (RansacResult(best_H, n_inl, winner_mask(match1, match2, valid, best_H, tolerance),
                          found, sets.index_select(0, best)[0]),
             Record(counts, sets))
 
 
 def check_matches(match1, match2, valid):
-    """The kernels' checks of the match arrays; returns (N, device)."""
+    """The kernels' checks of the match arrays; returns (N, device, the
+    global valid-first order's scratch (N + 1,) int32 or None)."""
     n = match1.shape[0]
     dev = match1.device
+    if n > MAX_MATCHES:
+        raise ValueError(f"{n} matches: the RANSAC kernels take at most {MAX_MATCHES} "
+                         "(int32 indexing of the (N, 3) match arrays)")
     check(match1, "match1", torch.float32, shape=(n, 3))
     check(match2, "match2", torch.float32, shape=(n, 3), device=dev)
     check(valid, "valid", torch.bool, shape=(n,), device=dev)
-    if n > MAX_MATCHES:
-        raise ValueError(f"{n} matches: the RANSAC kernels take at most {MAX_MATCHES}")
-    return n, dev
+    order = (torch.empty(n + 1, dtype=torch.int32, device=dev) if n > SHARED_ORDER_MAX
+             else None)
+    return n, dev, order
 
 
-def draw_source(seed, samples, n_rows, dev):
+def draw_source(seed, samples, n_rows, dev, n_points):
     """Pointer of the seed or of the checked injected sets (exactly one)."""
     if (seed is None) == (samples is None):
         raise ValueError("give exactly one of seed and samples")
     if samples is not None:
-        check(samples, "samples", torch.int32, shape=(n_rows, N_POINTS), device=dev)
+        check(samples, "samples", torch.int32, shape=(n_rows, n_points), device=dev)
         return None, ptr(samples)
     check(seed, "seed", torch.int64, shape=(1,), device=dev)
     return ptr(seed), None
 
 
-def outputs(n, dev):
+def outputs(n, dev, n_points):
     """(H (9,) fp32, ints (8,) int32, mask and found (N + 1,) bool) and the
     RansacResult viewing them."""
     H = torch.empty(9, dtype=torch.float32, device=dev)
     ints = torch.empty(8, dtype=torch.int32, device=dev)
     flags = torch.empty(n + 1, dtype=torch.bool, device=dev)
-    return H, ints, flags, RansacResult(H.view(3, 3), ints[0], flags[:n], flags[n], ints[1:5])
+    return H, ints, flags, RansacResult(H.view(3, 3), ints[0], flags[:n], flags[n],
+                                        ints[1:1 + n_points])
 
 
-def record_outputs(n_rows, dev):
+def record_outputs(n_rows, dev, n_points):
     return Record(torch.empty(n_rows, dtype=torch.int32, device=dev),
-                  torch.empty((n_rows, N_POINTS), dtype=torch.int32, device=dev))
+                  torch.empty((n_rows, n_points), dtype=torch.int32, device=dev))
 
 
 _STATES = {}
@@ -199,26 +225,31 @@ def _state(dev, raw_stream):
 
 
 def ransac_fit(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
-               record=False):
+               record=False, transform="homography"):
     """`ransac_fit_ref` for CPU tensors, one launch of the kernel for CUDA
-    ones: the sets drawn under `seed` ((1,) int64 on the device) or read
-    from `samples` ((n_iter, 4) int32 in [0, N)). Returns (RansacResult,
-    Record or None): the Record of every hypothesis when `record`. Nothing
-    is read back. Forward only: raises when a match array requires grad
-    under grad mode."""
+    ones (above SHARED_ORDER_MAX matches, a scan kernel before it writes the
+    valid-first order): the sets drawn under `seed` ((1,) int64 on the
+    device) or read from `samples` ((n_iter, n_points) int32 in [0, N)).
+    transform: 'homography' (4-point sets) or 'affine' (3-point sets).
+    Returns (RansacResult, Record or None): the Record of every hypothesis
+    when `record`. Nothing is read back. Forward only: raises when a match
+    array requires grad under grad mode."""
     forbid_grad("ransac_fit", match1, match2)
+    n_points = n_points_of(transform)
     if match1.device.type == "cpu":
-        res, rec = ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed, samples)
+        res, rec = ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed, samples,
+                                  transform)
         return res, rec if record else None
-    n, dev = check_matches(match1, match2, valid)
-    seed_ptr, samples_ptr = draw_source(seed, samples, n_iter, dev)
-    H, ints, flags, res = outputs(n, dev)
-    rec = record_outputs(n_iter, dev) if record else None
+    n, dev, order = check_matches(match1, match2, valid)
+    seed_ptr, samples_ptr = draw_source(seed, samples, n_iter, dev, n_points)
+    H, ints, flags, res = outputs(n, dev, n_points)
+    rec = record_outputs(n_iter, dev, n_points) if record else None
     counts_ptr, sets_ptr = (ptr(rec.counts), ptr(rec.sets)) if rec else (None, None)
     slots = torch.empty(-(-n_iter // HYP_PER_BLOCK) * SLOT_WORDS, dtype=torch.float32,
                         device=dev)
     raw_stream = stream(match1)
     KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, seed_ptr, samples_ptr, n_iter,
-           tolerance, counts_ptr, sets_ptr, ptr(H), ptr(ints), ptr(flags),
-           ptr(_state(dev, raw_stream)), ptr(slots), raw_stream)
+           n_points, tolerance, counts_ptr, sets_ptr, ptr(H), ptr(ints), ptr(flags),
+           None if order is None else ptr(order), ptr(_state(dev, raw_stream)), ptr(slots),
+           raw_stream)
     return res, rec

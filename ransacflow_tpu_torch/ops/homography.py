@@ -1,8 +1,9 @@
-"""Homographies: application, warp grids, the 4-point solve and its error.
+"""Homographies: application, warp grids, the 4-point solve, the affine
+least-squares fit and the reprojection error.
 
-Port of `ransacflow_tpu/ops/homography.py` (the 'projective' solve only).
-The torch functions batch over leading dimensions; `dlt_homography_np` is
-the host fp64 solve of one set.
+Port of `ransacflow_tpu/ops/homography.py` (the 'projective' solve and
+`fit_affine`). The torch functions batch over leading dimensions;
+`dlt_homography_np` is the host fp64 solve of one set.
 """
 
 import math
@@ -92,6 +93,37 @@ def dlt_homography(X, Y):
     H = T1_inv @ Hn @ T2
     norm = torch.linalg.norm(H.reshape(*H.shape[:-2], 9), dim=-1)
     return H / norm.clamp_min(1e-12)[..., None, None]
+
+
+def fit_affine(X, Y):
+    """Least-squares affine fit X ~ Y @ M through the 3x3 normal equations
+    (port of `ransacflow_tpu/ops/homography.py:217`), batched.
+
+    Solved in closed form, M = adj(YtY) @ YtX / det(YtY), with the sums over
+    the points taken in order and every product and sum a tensor op of its
+    own: the sequence of roundings that the RANSAC kernels' affine solve
+    repeats (`csrc/ransac_common.cuh` affine_fit), of which this is the
+    plain version. A singular YtY (collinear points) gives inf or nan
+    entries, never an error.
+
+    X: (..., N, 3) source homogeneous points; Y: (..., N, 3) target ones.
+    Returns (..., 3, 3) with last row [0, 0, 1].
+    """
+    X2 = X[..., :2]
+    YtY = Y[..., 0, :, None] * Y[..., 0, None, :]
+    YtX = Y[..., 0, :, None] * X2[..., 0, None, :]
+    for k in range(1, Y.shape[-2]):
+        YtY = YtY + Y[..., k, :, None] * Y[..., k, None, :]
+        YtX = YtX + Y[..., k, :, None] * X2[..., k, None, :]
+    adj = _adjugate_3x3(YtY)
+    det = (YtY[..., 0, 0] * adj[..., 0, 0] + YtY[..., 0, 1] * adj[..., 1, 0]) \
+        + YtY[..., 0, 2] * adj[..., 2, 0]
+    M = (adj[..., :, 0, None] * YtX[..., 0, None, :]
+         + adj[..., :, 1, None] * YtX[..., 1, None, :]) \
+        + adj[..., :, 2, None] * YtX[..., 2, None, :]
+    top = (M / det[..., None, None]).transpose(-1, -2)  # (..., 2, 3)
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=X.dtype, device=X.device)
+    return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 3)], dim=-2)
 
 
 def reprojection_error(match1, match2, H21):

@@ -1,6 +1,6 @@
-"""RANSAC homography over padded match arrays, fixed-count and adaptive
-(port of `ransacflow_tpu/ops/ransac.py:54-304`, 'homography' with the |det|
-gate).
+"""RANSAC over padded match arrays, fixed-count and adaptive (port of
+`ransacflow_tpu/ops/ransac.py:54-304`): 4-point homographies with the |det|
+gate, or 3-point affine maps (least squares, no gate).
 
 A fit draws one int64 seed from the caller's `torch.Generator` (one launch,
 nothing read back; the generator advances by the same amount whatever the
@@ -14,7 +14,7 @@ draws are the kernels' bit for bit.
 
 import torch
 
-from ransacflow_tpu_torch.kernels.ransac import N_POINTS, draw_sets_ref, ransac_fit
+from ransacflow_tpu_torch.kernels.ransac import draw_sets_ref, n_points_of, ransac_fit
 from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive
 
 
@@ -23,68 +23,84 @@ def draw_seed(generator, device):
     return torch.randint(0, 2 ** 62, (1,), generator=generator, device=device)
 
 
-def sample_minimal_sets(valid, n_iter, generator):
-    """(n_iter, 4) int32 match indices drawn uniformly from the valid
+def sample_minimal_sets(valid, n_iter, generator, n_points=4):
+    """(n_iter, n_points) int32 match indices drawn uniformly from the valid
     matches, with replacement (sets with a repeated index are rejected by
     the scorer): the sets a fit of `n_iter` hypotheses draws from the same
     generator state (`kernels.ransac.draw_sets_ref`)."""
-    return draw_sets_ref(valid, draw_seed(generator, valid.device), n_iter)
+    return draw_sets_ref(valid, draw_seed(generator, valid.device), n_iter,
+                         n_points=n_points)
 
 
-def _injected(samples, match1, n_rows):
-    """Injected minimal sets, checked: (n_rows, 4) match indices in [0, N)."""
+def _check_transform(n_points, transform):
+    if n_points_of(transform) != n_points:
+        raise ValueError(f"transform={transform!r} takes {n_points_of(transform)}-point "
+                         f"sets, got n_points={n_points}")
+
+
+def _injected(samples, match1, n_rows, n_points):
+    """Injected minimal sets, checked: (n_rows, n_points) match indices in
+    [0, N)."""
     samples = samples.to(device=match1.device, dtype=torch.int32).contiguous()
-    if tuple(samples.shape) != (n_rows, N_POINTS) or bool(
+    if tuple(samples.shape) != (n_rows, n_points) or bool(
             ((samples < 0) | (samples >= match1.shape[0])).any()):
-        raise ValueError(f"injected_samples must be ({n_rows}, {N_POINTS}) "
+        raise ValueError(f"injected_samples must be ({n_rows}, {n_points}) "
                          "match indices in [0, N)")
     return samples
 
 
 def ransac_homography(match1, match2, valid, tolerance, n_iter=10000,
-                      generator=None, injected_samples=None):
+                      generator=None, injected_samples=None, n_points=4,
+                      transform="homography"):
     """RANSAC over match1, match2 (N, 3) homogeneous points and valid (N,).
 
     tolerance: inlier threshold in normalized [-1, 1] units.
     generator: the `torch.Generator` the seed of the draws comes from (on
       the matches' device).
-    injected_samples: optional (n_iter, 4) int32 match indices used instead of
-      drawing, so that a test can feed the reference's draws.
+    injected_samples: optional (n_iter, n_points) int32 match indices used
+      instead of drawing, so that a test can feed the reference's draws.
+    n_points / transform: 4 and 'homography' (the 4-point solve), or 3 and
+      'affine' (the 3-point least-squares fit).
 
     Returns `kernels.ransac.RansacResult`.
     """
+    _check_transform(n_points, transform)
     if injected_samples is None:
         res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter,
-                            seed=draw_seed(generator, match1.device))
+                            seed=draw_seed(generator, match1.device), transform=transform)
     else:
         res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter,
-                            samples=_injected(injected_samples, match1, n_iter))
+                            samples=_injected(injected_samples, match1, n_iter, n_points),
+                            transform=transform)
     return res
 
 
 def ransac_homography_adaptive(match1, match2, valid, tolerance, n_iter=50000,
                                chunk=4096, confidence=0.999, generator=None,
-                               injected_samples=None):
+                               injected_samples=None, n_points=4,
+                               transform="homography"):
     """RANSAC with confidence-based early termination: hypotheses in blocks
     of `chunk`, stopping once (blocks run) * chunk >= min(n_req, n_iter) with
-    n_req = log(1 - confidence) / log(1 - w^4), w the best inlier ratio over
-    the valid matches (Hartley & Zisserman Alg. 4.5).
+    n_req = log(1 - confidence) / log(1 - w^n_points), w the best inlier
+    ratio over the valid matches (Hartley & Zisserman Alg. 4.5).
 
     Hypothesis h of the loop takes the set that hypothesis h of the
     fixed-count fit takes from the same generator state, so the sets do not
     depend on where the loop stops; the stop test never leaves the device.
-    injected_samples: optional (ceil(n_iter / chunk) * chunk, 4) int32 match
-      indices used instead of drawing, block after block, so that a test can
-      feed the reference's per-block draws.
+    injected_samples: optional (ceil(n_iter / chunk) * chunk, n_points)
+      int32 match indices used instead of drawing, block after block, so
+      that a test can feed the reference's per-block draws.
+    n_points / transform: as `ransac_homography`.
 
     Returns (RansacResult, n_evaluated): n_evaluated () int32 is the number
     of hypotheses scored, a multiple of `chunk`, as a device tensor.
     """
+    _check_transform(n_points, transform)
     if injected_samples is None:
         draws = {"seed": draw_seed(generator, match1.device)}
     else:
         n_rows = -(-n_iter // chunk) * chunk
-        draws = {"samples": _injected(injected_samples, match1, n_rows)}
+        draws = {"samples": _injected(injected_samples, match1, n_rows, n_points)}
     res, n_eval, _ = ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk,
-                                     confidence, **draws)
+                                     confidence, transform=transform, **draws)
     return res, n_eval

@@ -1,5 +1,5 @@
 """Coarse alignment: multi-scale features -> mutual matching -> RANSAC (port
-of `ransacflow_tpu/pipeline/coarse.py`, homography).
+of `ransacflow_tpu/pipeline/coarse.py`, homography or affine).
 
 PIL resizing on the host; features, matching and the whole RANSAC search on
 the aligner's device. The winning minimal set is optionally re-solved on the
@@ -18,8 +18,8 @@ from ransacflow_tpu_torch.device import as_device
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
 from ransacflow_tpu_torch.ops.homography import dlt_homography_np
 from ransacflow_tpu_torch.ops.matching import mutual_matching
+from ransacflow_tpu_torch.kernels.ransac import n_points_of
 from ransacflow_tpu_torch.ops.ransac import (
-    N_POINTS,
     ransac_homography,
     ransac_homography_adaptive,
 )
@@ -71,7 +71,7 @@ def _mask_to_cells(mask_full, fh, fw):
 
 
 class CoarseAligner:
-    """Multi-scale coarse alignment (homography).
+    """Multi-scale coarse alignment (homography or affine).
 
     Args:
       resnet: `ResNet50Layer3` on `device`, in eval mode.
@@ -79,8 +79,8 @@ class CoarseAligner:
       nb_scale: source pyramid size.
       n_iter: RANSAC hypothesis count (the cap with adaptive_chunk).
       tolerance: inlier threshold in normalized units.
-      transform: 'homography' only; 'affine' waits for `fit_affine`
-        (ROADMAP queue 1 item 2).
+      transform: 'homography' (4-point sets) or 'affine' (3-point
+        least-squares fits; no fp64 polish).
       min_size: resized image min (or max, see resize_mode) dimension.
       scale_r: pyramid scale range (scale_r .. 1/scale_r).
       resize_mode: 'min' (eval harnesses) | 'max' (quick-start demo).
@@ -107,10 +107,6 @@ class CoarseAligner:
                  resize_mode="min", rematch_per_call=False, polish_fp64=True,
                  seed=0, adaptive_chunk=0, anchor_stride=0, relax_cells=0,
                  stem_s2d=False):
-        if transform != "homography":
-            raise ValueError(f"transform={transform!r}: the port fits homographies "
-                             "only; 'affine' waits for fit_affine (ROADMAP queue 1 "
-                             "item 2)")
         if stem_s2d:
             raise ValueError("stem_s2d is a TPU rewrite of the stem that the port "
                              "leaves out (ROADMAP, 'Not ported')")
@@ -120,6 +116,11 @@ class CoarseAligner:
         self.device = as_device(device)
         self.n_iter = int(n_iter)
         self.tolerance = float(tolerance)
+        self.transform = transform
+        self.n_points = n_points_of(transform)
+        # the fits' keyword arguments: none for the default homography
+        self._fit_kw = ({} if transform == "homography"
+                        else {"n_points": self.n_points, "transform": transform})
         self.min_size = int(min_size)
         self.scales = scale_list(nb_scale, scale_r)
         self.rematch = bool(rematch_per_call)
@@ -203,20 +204,20 @@ class CoarseAligner:
         if self.adaptive_chunk:
             res, _ = ransac_homography_adaptive(
                 m1, m2, valid, self.tolerance, n_iter=self.n_iter,
-                chunk=self.adaptive_chunk, generator=generator)
+                chunk=self.adaptive_chunk, generator=generator, **self._fit_kw)
             return res
         return ransac_homography(m1, m2, valid, self.tolerance, n_iter=self.n_iter,
-                                 generator=generator)
+                                 generator=generator, **self._fit_kw)
 
     @torch.inference_mode()
     def get_coarse(self, exclusion_mask=None, injected_samples=None):
-        """Fit the dominant homography on the not-yet-excluded target region.
+        """Fit the dominant transform on the not-yet-excluded target region.
 
         exclusion_mask: (Ht, Wt) float/bool array, 1 = exclude (already
           matched / sky); None = use everything.
-        injected_samples: optional (n, 4) int array of target-cell indices
-          used as the minimal sets instead of drawing (fixed-count RANSAC
-          over exactly these n sets).
+        injected_samples: optional (n, n_points) int array of target-cell
+          indices used as the minimal sets instead of drawing (fixed-count
+          RANSAC over exactly these n sets).
 
         Returns (H21, inlier_mask_image): H21 a float32 (3, 3) numpy array
         mapping target normalized coords to source normalized coords, or
@@ -224,19 +225,19 @@ class CoarseAligner:
         inlier target cells on the (feat_h, feat_w) grid.
         """
         m1, m2, valid = self._masked_matches(exclusion_mask)
-        if int(valid.sum()) < N_POINTS:
+        if int(valid.sum()) < self.n_points:
             return None, None
         if injected_samples is None:
             res = self._ransac(m1, m2, valid, self.generator)
         else:
             samples = torch.as_tensor(np.asarray(injected_samples, np.int32))
             res = ransac_homography(m1, m2, valid, self.tolerance,
-                                    n_iter=samples.shape[0],
-                                    injected_samples=samples)
+                                    n_iter=samples.shape[0], injected_samples=samples,
+                                    **self._fit_kw)
         if not bool(res.found):
             return None, None
         H = res.H21.cpu().numpy().astype(np.float64)
-        if self.polish_fp64:
+        if self.polish_fp64 and self.transform == "homography":
             sample = res.best_sample.cpu().numpy()
             H = dlt_homography_np(m1.cpu().numpy()[sample, :2],
                                   m2.cpu().numpy()[sample, :2])

@@ -87,7 +87,7 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
                       cached_valid, src, featt_fine, bg_mask, generator,
                       tolerance, mask_region_th, *, feat_h, feat_w, max_coarse,
                       cycle_match, kernel_size, n_iter, rematch,
-                      adaptive_chunk=0, relax_cells=0):
+                      adaptive_chunk=0, relax_cells=0, n_points=4, transform="homography"):
     """The multi-homography loop with its state on the device.
 
     The loop state lives on the device of `bg_mask` in fixed shapes: the
@@ -102,6 +102,8 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
     use the host loop for the reference's exact numbers.
 
     generator: the `torch.Generator` (on that device) of the RANSAC draws.
+    n_points / transform: 4 and 'homography', or 3 and 'affine' (each slot's
+    fit; the fine stage warps by the affine map as a homography).
     adaptive_chunk > 0 fits each homography with adaptive RANSAC in blocks of
     this size, n_iter being the cap; 0 draws exactly n_iter hypotheses.
     relax_cells: relaxed reciprocity of the fresh matching in rematch mode
@@ -135,11 +137,12 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
         if adaptive_chunk:
             res, n_eval = ransac_homography_adaptive(
                 m1, m2, valid, tolerance, n_iter=n_iter, chunk=adaptive_chunk,
-                generator=generator)
+                generator=generator, n_points=n_points, transform=transform)
             n_evaluated[slot] = n_eval
         else:
             res = ransac_homography(m1, m2, valid, tolerance, n_iter=n_iter,
-                                    generator=generator)
+                                    generator=generator, n_points=n_points,
+                                    transform=transform)
             n_evaluated[slot].fill_(n_iter)
         h_used = torch.where(res.found, res.H21, eye)
         out = pred_flow_mask_homography(params, src, featt_fine, h_used[None], (ht, wt),
@@ -202,7 +205,8 @@ def multi_homography_dispatch(coarse, params, max_coarse=10, mask_region_th=0.01
         coarse.tolerance, mask_region_th, feat_h=coarse.feat_h,
         feat_w=coarse.feat_w, max_coarse=max_coarse, cycle_match=cycle_match,
         kernel_size=kernel_size, n_iter=coarse.n_iter, rematch=coarse.rematch,
-        adaptive_chunk=coarse.adaptive_chunk, relax_cells=coarse.relax_cells)
+        adaptive_chunk=coarse.adaptive_chunk, relax_cells=coarse.relax_cells,
+        n_points=coarse.n_points, transform=coarse.transform)
     return final, bg
 
 

@@ -1,5 +1,5 @@
-"""Training of the alignment networks on one device (port of
-`ransacflow_tpu/train`, without MegaDepth validation and data parallelism)."""
+"""Training of the alignment networks on one device, with MegaDepth
+validation (port of `ransacflow_tpu/train`, without data parallelism)."""
 
 from ransacflow_tpu_torch.train.checkpoint import (  # noqa: F401
     load_checkpoint,
@@ -19,3 +19,4 @@ from ransacflow_tpu_torch.train.trainer import (  # noqa: F401
     split_trainable,
     train_step,
 )
+from ransacflow_tpu_torch.train.validation import PIXEL_GRID, validate  # noqa: F401

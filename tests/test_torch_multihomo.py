@@ -252,10 +252,13 @@ def test_dispatch_inlier_count_is_get_coarse_inlier_sum(rng, nets):
 
 
 def test_coarse_aligner_rejects_modes_the_port_lacks(nets):
-    """The affine transform and the TPU's stem rewrite raise; the anchor and
-    relaxed-matching modes are taken (held to JAX in test_torch_fastmodes)."""
+    """A transform other than 'homography' and 'affine' and the TPU's stem
+    rewrite raise; the affine transform (held to JAX in test_torch_affine)
+    and the anchor and relaxed-matching modes (test_torch_fastmodes) are
+    taken."""
     resnet = nets[2]
-    for kw in ({"transform": "affine"}, {"stem_s2d": True}):
+    assert CoarseAligner(resnet, "cpu", transform="affine").n_points == 3
+    for kw in ({"transform": "similarity"}, {"stem_s2d": True}):
         with pytest.raises(ValueError):
             CoarseAligner(resnet, "cpu", **kw)
 

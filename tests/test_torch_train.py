@@ -409,18 +409,20 @@ def test_flow_helpers_match_jax_and_tie_gradient():
 
 
 def test_pair_folder_yields_the_jax_batches(tmp_path):
+    """PIL's resize and the native one (tests/test_torch_native.py holds the
+    resampler itself)."""
     _groups(str(tmp_path), np.random.RandomState(2), n=5)
-    ours = PairFolder(str(tmp_path), img_size=32, seed=3)
-    ref = _jax_train()[0].PairFolder(str(tmp_path), img_size=32, seed=3)
-    assert len(ours) == len(ref) == 5 and ours.cycle == ref.cycle == 2
-    for _ in range(2):  # two epochs: the generator state carries over
-        got, want = list(ours.epoch_batches(2)), list(ref.epoch_batches(2))
-        assert len(got) == len(want) == 2
-        for a, b in zip(got, want):
-            for key in ("I1", "I2"):
-                np.testing.assert_array_equal(a[key], b[key])
-    with pytest.raises(NotImplementedError):
-        PairFolder(str(tmp_path), use_native=True)
+    for use_native in (False, True):
+        ours = PairFolder(str(tmp_path), img_size=32, seed=3, use_native=use_native)
+        ref = _jax_train()[0].PairFolder(str(tmp_path), img_size=32, seed=3,
+                                         use_native=use_native)
+        assert len(ours) == len(ref) == 5 and ours.cycle == ref.cycle == 2
+        for _ in range(2):  # two epochs: the generator state carries over
+            got, want = list(ours.epoch_batches(2)), list(ref.epoch_batches(2))
+            assert len(got) == len(want) == 2
+            for a, b in zip(got, want):
+                for key in ("I1", "I2"):
+                    np.testing.assert_array_equal(a[key], b[key])
 
 
 def test_port_imports_no_jax():
@@ -437,7 +439,8 @@ def test_port_imports_no_jax():
             "             'eval.artifacts', 'eval.table', 'eval.compose', 'eval.hpatches',\n"
             "             'eval.kitti', 'eval.corr', 'cli.eval_hpatches', 'cli.eval_kitti',\n"
             "             'cli.eval_corr', 'eval.pose', 'eval.yfcc', 'eval.aachen',\n"
-            "             'cli.eval_yfcc', 'cli.generate_pairs', 'cli.resize_dataset'):\n"
+            "             'cli.eval_yfcc', 'cli.generate_pairs', 'cli.resize_dataset',\n"
+            "             'pipeline.refine', 'train.validation', 'native'):\n"
             "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n"
@@ -467,7 +470,8 @@ def test_cli_trains_and_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--nDevices", "2"], ["--distributed"], ["--remat"],
-                                  ["--computeDtype", "bfloat16"], ["--nativeResize"]])
+                                  ["--computeDtype", "bfloat16"],
+                                  ["--nativeResize", "--remat"]])
 def test_cli_rejects_what_is_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_train.main(["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path),
@@ -475,8 +479,7 @@ def test_cli_rejects_what_is_not_ported(tmp_path, flag):
 
 
 def test_fit_rejects_what_is_not_ported(tmp_path):
-    for kw in (dict(val_csv="x.csv"), dict(n_devices=2), dict(remat=True),
-               dict(compute_dtype="bfloat16")):
+    for kw in (dict(n_devices=2), dict(remat=True), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fit({}, str(tmp_path), str(tmp_path), "cpu", **kw)
 
