@@ -2,7 +2,8 @@
 """Drive the PyTorch + CUDA port once on one CUDA card: the serving path,
 the multi-homography loop, training, the opt-in fast modes through the
 public entry points, the sky mask, the eval harnesses, affine fits,
-iterative refinement and MegaDepth validation.
+iterative refinement, MegaDepth validation, the eval pool and the bf16
+policies with remat.
 
     python3 chip_smoke.py
 
@@ -154,6 +155,26 @@ Phases, each of which must pass:
       ransacflow_tpu_torch.cli.train --stage 3 ... --nativeResize
       valMegaDepth ...` for 1 epoch of 2 steps at full width, warm-started
       from zero-flow networks, which must write BestModel@8_*.
+  (l) pool, bf16, remat: phase (i)'s HPatches pairs and phase (j)'s YFCC
+      pairs through `--nDevices 1`, `--nDevices 1 --batchPairs 2` and a
+      pool of two slots on cuda:0 (`n_devices=["cuda:0", "cuda:0"]`), and
+      `pooled_kitti_predict` with two slots against the sequential KITTI
+      pass: the artifacts equal bit for bit (else the largest difference,
+      held to POOL_TOL); the boundary casts' cost at the eval path's shapes
+      (each bf16 wrapper against its fp32 upcast, and the matching GEMM in
+      bf16 with an fp32 score); the serving path and the device loop on
+      (e)'s 4 related pairs at the headline shape in fp32 and bf16 (the eval
+      policy), timed in turns: pairs/s, MFU against the dense peak of the
+      dtype (`utils.flops`), homographies a pair, a profiler split, each bf16
+      H within JAX's tests' tolerance of fp32's (0.05, 0.01); one bf16
+      anchor-mode serving call (K12 on bf16 maps); `cli.eval_hpatches
+      predict --computeDtype bfloat16` (one pair a scene); the stage-3
+      step at full width in fp32, bf16 (the training policy), with remat
+      and with both: step ms, peak GB, step 0's loss (bf16 within 5e-3 of
+      fp32's; remat equal to the plain step's, and its BatchNorm
+      statistics), fp32 masters and Adam state; every bf16 path launching
+      the kernels bf16 reaches (K2, K6's pair, K7, K8, K9; K12 in the anchor
+      call; K7 and its backward in training).
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
@@ -162,7 +183,10 @@ launch each per compose_tail launch, no correlation_volume, and no
 grid-form warp_sample but align_images' warped_fine and KITTI's pass 2.
 Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
 `eval_yfcc_device`, `eval_aachen` and `generate_pairs`; phase (k)'s
-`affine_multihomo`, `refine` and `validation`.
+`affine_multihomo`, `refine` and `validation`; phase (l)'s
+`{hpatches,yfcc}_pool_{one,batched,two_slots}`, `kitti_pool_two_slots`,
+`eval_hpatches_bf16`, `{serving,multihomo}_{fp32,bf16}`,
+`serving_bf16_anchor` and `train_{fp32,bf16,remat,bf16_remat}`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -1438,6 +1462,44 @@ def _slot_stages_ms(align, bank, featt, src_idx, valid, coords_a, coords_b, src,
     return {name: float(np.median([smp[name] for smp in samples[1:]])) for name in samples[0]}
 
 
+def _loop_batch(resnet, align, sources, targets, shapes, adaptive_chunk):
+    """`_fused_multi_homo_batch` at bench.py's HPatches configuration over
+    the pairs (sources, targets): each pair's bank from the device pyramid,
+    its cached matches and fine features, pair k drawing from seed
+    MH_SEED + k."""
+    from ransacflow_tpu_torch.ops.grid import feature_cell_coords
+    from ransacflow_tpu_torch.ops.matching import mutual_matching
+    from ransacflow_tpu_torch.pipeline.bank import bank_coords
+    from ransacflow_tpu_torch.pipeline.coarse import _coarse_feats
+    from ransacflow_tpu_torch.pipeline.fine import fine_features
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid
+    from ransacflow_tpu_torch.pipeline.multihomo import _fused_multi_homo_batch
+
+    ht, wt = TARGET_HW
+    fh, fw = ht // 16, wt // 16
+    y, x = feature_cell_coords(fh, fw, "cuda")
+    coords_a, coords_b = bank_coords(shapes, "cuda"), torch.stack([x, y], dim=1)
+
+    def setup(source, target):
+        pyr = device_pyramid(source, shapes)
+        bank = torch.cat([_coarse_feats(resnet, im) for im in pyr])
+        featt = _coarse_feats(resnet, target)
+        m = mutual_matching(bank.T, featt.T)
+        return (bank, featt, m.src_idx, m.valid, pyr[len(shapes) // 2],
+                fine_features(align, target))
+
+    with torch.inference_mode():
+        banks, featts, src_idx, valids, mids, ffines = (
+            torch.stack(z) for z in zip(*map(setup, sources, targets)))
+        gens = [torch.Generator(device="cuda").manual_seed(MH_SEED + k)
+                for k in range(len(sources))]
+        return _fused_multi_homo_batch(
+            align, banks, featts, coords_a, coords_b, src_idx, valids, mids, ffines,
+            torch.ones((len(sources), ht, wt), device="cuda"), gens, 0.05, 0.01, feat_h=fh,
+            feat_w=fw, max_coarse=MH_MAX_COARSE, cycle_match=False, kernel_size=7,
+            n_iter=MH_N_ITER, rematch=False, adaptive_chunk=adaptive_chunk)
+
+
 def phase_multihomo(card):
     from PIL import Image
 
@@ -1451,7 +1513,6 @@ def phase_multihomo(card):
     from ransacflow_tpu_torch.pipeline.fine import fine_features
     from ransacflow_tpu_torch.pipeline.bank import bank_coords
     from ransacflow_tpu_torch.pipeline.fused import device_pyramid
-    from ransacflow_tpu_torch.pipeline.multihomo import _fused_multi_homo_batch
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
     t0 = time.perf_counter()
@@ -1462,7 +1523,6 @@ def phase_multihomo(card):
     targets = torch.from_numpy(tgts_np).cuda()[:, None]
     resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
     align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
-    bgs = torch.ones((N_PAIRS, ht, wt), device="cuda")
     fh, fw = ht // 16, wt // 16
     y, x = feature_cell_coords(fh, fw, "cuda")
     coords_a, coords_b = bank_coords(shapes, "cuda"), torch.stack([x, y], dim=1)
@@ -1476,17 +1536,8 @@ def phase_multihomo(card):
         return (bank, featt, m.src_idx, m.valid, pyr[len(shapes) // 2],
                 fine_features(align, target))
 
-    @torch.inference_mode()
     def run(adaptive_chunk):
-        banks, featts, src_idx, valids, mids, ffines = (
-            torch.stack(z) for z in zip(*map(setup, sources, targets)))
-        gens = [torch.Generator(device="cuda").manual_seed(MH_SEED + k)
-                for k in range(N_PAIRS)]
-        return _fused_multi_homo_batch(
-            align, banks, featts, coords_a, coords_b, src_idx, valids, mids, ffines,
-            bgs, gens, 0.05, 0.01, feat_h=fh, feat_w=fw, max_coarse=MH_MAX_COARSE,
-            cycle_match=False, kernel_size=7, n_iter=MH_N_ITER, rematch=False,
-            adaptive_chunk=adaptive_chunk)
+        return _loop_batch(resnet, align, sources, targets, shapes, adaptive_chunk)
 
     series = {"adaptive": MH_CHUNK, "fixed": 0}
     outs, launches = {}, {}
@@ -3275,6 +3326,436 @@ def phase_affine_refine(card, results):
     return paths, readings
 
 
+POOL_SLOTS = ["cuda:0", "cuda:0"]  # a pool of two slots on the one card
+# the three routes of the pool's artifacts, held to `--nDevices 1`'s
+POOL_ROUTES = {"pool_one": dict(n_devices=1),
+               "pool_batched": dict(n_devices=1, batch_pairs=2),
+               "pool_two_slots": dict(n_devices=POOL_SLOTS)}
+# Between routes the artifacts must be equal bit for bit: the slots' copies of
+# the networks run the same cuDNN algorithms and every hand kernel is
+# deterministic. Were cuDNN to pick other algorithms for a copy, fp32 sums in
+# another order would differ by ~1e-6 of the values; POOL_TOL bounds that.
+POOL_TOL = 1e-5
+# the kernels that bf16 reaches under the eval policy (PERF.md's table)
+BF16_EVAL_KERNELS = ("mutual_argmax", "correlation_pair", "head_epilogues", "compose_tail",
+                     "blur_pool")
+TRAIN_POLICIES = {"fp32": {}, "bf16": dict(compute_dtype="bfloat16"),
+                  "remat": dict(remat=True),
+                  "bf16_remat": dict(compute_dtype="bfloat16", remat=True)}
+TRAIN_TIMED_STEPS = 8
+
+
+def _artifact_gap(name, dir_a, dir_b, extra=()):
+    """The largest difference between two routes' artifacts of the eval
+    pairs (0.0: bit for bit), held to POOL_TOL; equal fields, shapes and
+    homography counts."""
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+
+    gap = 0.0
+    for i in range(EVAL_PAIRS):
+        a, b = load_pair(dir_a, i), load_pair(dir_b, i)
+        require(a is not None and b is not None and set(a) == set(b),
+                f"{name}: pair {i}: artifacts {a and sorted(a)} vs {b and sorted(b)}")
+        for key in a:
+            require(a[key].shape == b[key].shape,
+                    f"{name}: pair {i}: {key} {a[key].shape} vs {b[key].shape}")
+            diff = np.abs(a[key].astype(np.float64) - b[key].astype(np.float64))
+            gap = max(gap, float(diff.max()) if diff.size else 0.0)
+    require(gap <= POOL_TOL, f"{name}: artifacts {gap} apart, above {POOL_TOL}")
+    return gap
+
+
+def _pool_routes(card, root, resnet, align):
+    """HPatches (phase (i)'s pairs) and YFCC (phase (j)'s) through the pool's
+    three routes, KITTI's thread pool of two slots against its sequential
+    pass: each route's artifacts against the first's."""
+    from ransacflow_tpu_torch.eval import hpatches, kitti, yfcc
+
+    hp = f"{root}/hpatches"
+    pkl, scene, _ = _yfcc_dataset(root)
+    launches, readings = {}, {}
+    harnesses = {
+        "hpatches": (lambda out, kw: hpatches.predict_hpatches(
+            hp, hp, out, resnet, align, "cuda", scenes=(2,), **kw), "2", ()),
+        "yfcc": (lambda out, kw: yfcc.predict_yfcc(pkl, scene, out, resnet, align, "cuda",
+                                                   **kw), "", ("rotation",)),
+    }
+    for harness, (predict, sub, extra) in harnesses.items():
+        gaps, seconds = {}, {}
+        for route, kw in POOL_ROUTES.items():
+            out = f"{root}/{harness}_{route}"
+            (_, got), seconds[route] = _timed(lambda: _launches_of(lambda: predict(out, kw)))
+            _check_artifacts(f"{harness} {route}", f"{out}/{sub}", n_max=11, extra=extra)
+            _require_launched(f"{harness} {route}", got, EVAL_KERNELS,
+                              {"lanczos_pyramid": 0, **_per_fine_pass(got)})
+            launches[f"{harness}_{route}"] = got
+            gaps[route] = _artifact_gap(f"{harness} {route}", f"{root}/{harness}_pool_one/{sub}",
+                                        f"{out}/{sub}")
+        readings[harness] = {"max_abs_diff": gaps, "pairs_s": {
+            r: EVAL_PAIRS / t for r, t in seconds.items()}}
+        print(f"(l) {harness} predict through --nDevices 1, --nDevices 1 --batchPairs 2 and "
+              f"a pool of 2 slots on cuda:0: artifacts apart by {gaps} (0.0: bit for bit), "
+              f"pairs/s {readings[harness]['pairs_s']}; launches "
+              f"{ {r: launches[f'{harness}_{r}']['compose_tail'] for r in POOL_ROUTES} } "
+              f"compose_tail on {card}", flush=True)
+
+    kt = f"{root}/kitti/image_2"
+    (_, seq), seq_s = _timed(lambda: _launches_of(lambda: kitti.predict_kitti(
+        kt, f"{root}/kitti_seq", resnet, align, "cuda", end_index=EVAL_PAIRS)))
+    (_, pool), pool_s = _timed(lambda: _launches_of(lambda: kitti.pooled_kitti_predict(
+        kt, f"{root}/kitti_pool", resnet, align, POOL_SLOTS, end_index=EVAL_PAIRS)))
+    _check_artifacts("kitti pool", f"{root}/kitti_pool", extra=("fine_flow_d2_down8",))
+    gap = _artifact_gap("kitti pool", f"{root}/kitti_seq", f"{root}/kitti_pool")
+    require(seq == pool, f"kitti pool: launches {pool}, the sequential pass's {seq}")
+    launches["kitti_pool_two_slots"] = pool
+    readings["kitti"] = {"max_abs_diff": gap, "pairs_s": {"sequential": EVAL_PAIRS / seq_s,
+                                                          "pool_two_slots": EVAL_PAIRS / pool_s}}
+    print(f"(l) KITTI predict, a thread pool of 2 slots on cuda:0 against the sequential "
+          f"pass: artifacts apart by {gap}, the same launches {pool}; pairs/s "
+          f"{readings['kitti']['pairs_s']} on {card}", flush=True)
+    return launches, readings
+
+
+def _best_ms(fn, reps=3):
+    """The best of `reps` CUDA-event times of fn() (ms)."""
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _mfu(flops_per_pair, pairs_s, dtype):
+    """Model FLOPs per second over the card's dense peak for `dtype`
+    (`utils.flops.peak_flops`), or None for a card the table lacks."""
+    from ransacflow_tpu_torch.utils.flops import peak_flops
+
+    peak = peak_flops(torch.cuda.get_device_name(0), dtype)
+    return None if peak is None else flops_per_pair * pairs_s / peak
+
+
+def _loop_flops(shapes, n_evaluated):
+    """Model FLOPs of one pair of the device loop (`utils.flops`' counts):
+    the bank and target trunks, the cached matching GEMM and the target's
+    fine features once, then each slot run (n_evaluated > 0): its RANSAC
+    hypotheses, the warped source's fine features, both correlations and
+    the three heads."""
+    from ransacflow_tpu_torch.utils import flops
+
+    ht, wt = TARGET_HW
+    h8, w8 = ht // 8, wt // 8
+    n_target = (ht // 16) * (wt // 16)
+    total = sum(flops.resnet50_layer3_flops(h, w) for h, w in shapes)
+    total += flops.resnet50_layer3_flops(ht, wt) + flops.feature_extractor_flops(ht, wt)
+    total += flops.matching_flops(sum((h // 16) * (w // 16) for h, w in shapes), n_target)
+    for n in n_evaluated:
+        if n > 0:
+            total += (flops.ransac_flops(n_target, n) + flops.feature_extractor_flops(ht, wt)
+                      + 2 * flops.correlation_flops(h8, w8) + flops.head_flops(h8, w8)
+                      + 2 * flops.head_flops(h8, w8, 7, 1))
+    return total
+
+
+def _cast_costs(card):
+    """What the boundary casts cost at the eval path's shapes: each wrapper
+    on bf16 inputs (upcast, the fp32 kernel, outputs rounded where the
+    reference returns bf16) against the same wrapper on the fp32 upcasts,
+    CUDA events around 20 calls (host included) and the profiler's device
+    time; and the matching GEMM in fp32 (TF32 off) against bf16 with an fp32
+    score, which the eval policy runs instead."""
+    from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_bank
+    from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool
+    from ransacflow_tpu_torch.kernels.compose import compose_tail
+    from ransacflow_tpu_torch.kernels.correlation import correlation_pair
+    from ransacflow_tpu_torch.kernels.heads import head_epilogues
+    from ransacflow_tpu_torch.ops.homography import warp_grid
+    from ransacflow_tpu_torch.ops.matching import score_gemm
+    from ransacflow_tpu_torch.pipeline.bank import nearest_anchors
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b16 = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(b16)
+
+    h8, w8 = TARGET_HW[0] // 8, TARGET_HW[1] // 8
+    shapes = pyramid_shapes()
+    nearest = nearest_anchors(shapes, 3)
+    grid = warp_grid(torch.eye(3, device="cuda")[None], *TARGET_HW).contiguous()
+    blur_in = rand(1, 64, TARGET_HW[0] - 1, TARGET_HW[1] - 1).contiguous(
+        memory_format=torch.channels_last)
+    cases = {
+        "correlation_pair": (lambda a: correlation_pair(*a, 7),
+                             [rand(1, h8, w8, 256, scale=0.06), rand(1, h8, w8, 256, scale=0.06)]),
+        "head_epilogues": (lambda a: head_epilogues(*a, 7),
+                           [rand(1, h8, w8, 49, scale=3), rand(1, h8, w8, 1, scale=3),
+                            rand(1, h8, w8, 1, scale=3)]),
+        "compose_tail": (lambda a: compose_tail(*a, True),
+                         [rand(1, h8, w8, 2, scale=0.02),
+                          torch.rand((1, h8, w8, 1), generator=gen, device="cuda").to(b16),
+                          torch.rand((1, h8, w8, 1), generator=gen, device="cuda").to(b16),
+                          grid]),
+        "blur_pool": (lambda a: blur_pool(a[0], a[1]),
+                      [blur_in, binomial_filter(64, 3, "cuda").to(b16)]),
+        "anchor_resample": (lambda a: anchor_resample_bank(dict(enumerate(a)), shapes, nearest),
+                            [rand(1, h // 16, w // 16, N_CHANNELS) for h, w in shapes]),
+    }
+    out = {}
+    for name, (fn, args) in cases.items():
+        up = [a.float() for a in args]
+        got, want = fn(args), fn(up)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            require(g.dtype in (torch.float32, b16) and bool(torch.isfinite(g).all()),
+                    f"{name}: bf16 output")
+            require((g.float() - w.to(g.dtype).float()).abs().max().item()
+                    <= 2 ** -7 * w.abs().max().item() + 1e-5,
+                    f"{name}: the bf16 call is not the fp32 call's rounding")
+        k1, f1, f2, k2 = (cuda_ms(lambda: fn(a)) for a in (args, up, up, args))
+        out[name] = {"bf16_ms": (k1 + k2) / 2, "fp32_ms": (f1 + f2) / 2,
+                     "bf16_device_ms": device_ms(lambda: fn(args)),
+                     "fp32_device_ms": device_ms(lambda: fn(up))}
+        row = out[name]
+        if row["bf16_device_ms"] is not None and row["fp32_device_ms"] is not None:
+            row["cast_device_ms"] = row["bf16_device_ms"] - row["fp32_device_ms"]
+    bank = torch.randn((N_CHANNELS, N_BANK), generator=gen, device="cuda")
+    featt = torch.randn((N_CHANNELS, N_TARGET), generator=gen, device="cuda")
+    f32, fb = (bank, featt), (bank.to(b16), featt.to(b16))
+    out["matching_gemm"] = {"fp32_ms": cuda_ms(lambda: score_gemm(*f32)),
+                            "bf16_fp32_out_ms": cuda_ms(lambda: score_gemm(*fb)),
+                            "fp32_device_ms": device_ms(lambda: score_gemm(*f32)),
+                            "bf16_fp32_out_device_ms": device_ms(lambda: score_gemm(*fb))}
+    require(score_gemm(*fb).dtype == torch.float32, "the bf16 GEMM's score is not fp32")
+    print(f"(l) the boundary casts at the eval path's shapes (bf16 inputs against their fp32 "
+          f"upcasts, ms a call): {out} on {card}", flush=True)
+    return out
+
+
+def _bf16_alignment(card, resnet, align):
+    """The serving path and the device loop on phase (e)'s 4 related pairs
+    at the headline shape, fp32 and bf16 (the eval policy) timed in turns
+    (fp32, bf16, bf16, fp32; the best of each dtype's two): pairs/s, MFU,
+    homographies, the device split of a call (profiled last);
+    each bf16 H against fp32's within JAX's tests' tolerances; and one bf16
+    serving call in the anchor mode (K12 on bf16 maps)."""
+    from ransacflow_tpu_torch.cli.common import cast_for_dtype
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
+    from ransacflow_tpu_torch.utils.flops import fused_align_flops
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    shapes = pyramid_shapes()
+    srcs_np, tgts_np = _related_pairs(np.random.RandomState(1), N_PAIRS, shapes[0])
+    sources = torch.from_numpy(srcs_np).cuda()
+    targets = torch.from_numpy(tgts_np).cuda()[:, None]
+    nets = {"fp32": (resnet, align),
+            "bf16": (cast_for_dtype(resnet, "bfloat16"), cast_for_dtype(align, "bfloat16"))}
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+    def serve(key, **mode):
+        r, a = nets[key]
+        pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
+        return fused_align_batch(r, a, pyramids, targets,
+                                 torch.Generator(device="cuda").manual_seed(2),
+                                 n_iter=N_ITER, **mode)
+
+    def loop(key):
+        return _loop_batch(*nets[key], sources[:, None], targets, shapes, MH_CHUNK)
+
+    launches, outs = {}, {}
+    flops = fused_align_flops(shapes, TARGET_HW, n_iter=N_ITER)
+    readings = {"flops_per_pair": flops}
+    for path, fn in (("serving", serve), ("multihomo", loop)):
+        for key in nets:
+            outs[path, key], launches[f"{path}_{key}"] = _launches_of(lambda: fn(key))
+        _require_launched(f"bf16 {path}", launches[f"{path}_bf16"], BF16_EVAL_KERNELS,
+                          _per_fine_pass(launches[f"{path}_bf16"]))
+        ms = {key: [] for key in nets}
+        for key in ("fp32", "bf16", "bf16", "fp32"):
+            ms[key].append(_best_ms(lambda: fn(key), reps=1))
+        for key in nets:
+            best = min(ms[key])
+            pairs_s = N_PAIRS / (best / 1e3)
+            out = outs[path, key]
+            reading = {"pairs_s": pairs_s, "best_ms": best, "ms_in_turns": ms[key]}
+            if path == "serving":
+                reading["mfu"] = _mfu(flops["total"], pairs_s, dtypes[key])
+                reading["found"] = out["found"].tolist()
+                reading["inliers"] = out["num_inliers"].tolist()
+            else:
+                reading["homographies"] = out["count"].tolist()
+                reading["avg_homographies"] = float(np.mean(reading["homographies"]))
+                loop_flops = sum(_loop_flops(shapes, row)
+                                 for row in out["n_evaluated"].tolist())
+                reading["mfu"] = _mfu(loop_flops / N_PAIRS, pairs_s, dtypes[key])
+            readings[f"{path}_{key}"] = reading
+        if path == "serving":
+            h32, h16 = (outs[path, k]["H21"].double().cpu().numpy() for k in ("fp32", "bf16"))
+            gap = float(np.abs(h16 / h16[:, 2:, 2:] - h32 / h32[:, 2:, 2:]).max())
+            require(all(readings["serving_bf16"]["found"]) and gap <= 0.05,
+                    f"bf16 serving: H21 {gap} from fp32's (JAX's tolerance 0.05), found "
+                    f"{readings['serving_bf16']['found']}")
+        else:
+            gap = max(_h_error(outs[path, "bf16"]["hs"][k, 0].cpu().numpy(),
+                               outs[path, "fp32"]["hs"][k, 0].cpu().numpy())
+                      for k in range(N_PAIRS))
+            require(gap <= 0.01, f"bf16 loop: first H {gap} from fp32's (JAX's 0.01)")
+            for key in nets:
+                for field in ("hs", "flows", "matches"):
+                    require(bool(torch.isfinite(outs[path, key][field]).all()),
+                            f"{key} loop: {field} is not finite")
+        readings[f"{path}_h_gap"] = gap
+        print(f"(l) {path}, {N_PAIRS} related pairs at 480x640 (7 scales; serving 10k "
+              f"hypotheses, the loop adaptive blocks of {MH_CHUNK} to {MH_N_ITER}), fp32 vs "
+              f"bf16 (the eval policy), best of 2 in turns: "
+              f"{ {k: readings[f'{path}_{k}'] for k in nets} }; bf16 H within {gap:.3e} of "
+              f"fp32's; launches {launches[f'{path}_bf16']} on {card}", flush=True)
+    _, launches["serving_bf16_anchor"] = _launches_of(
+        lambda: serve("bf16", anchor_stride=3, relax_cells=1))
+    _require_launched("bf16 serving, anchor mode", launches["serving_bf16_anchor"],
+                      BF16_EVAL_KERNELS + ("anchor_resample",))
+    # the device split last: the profiler slows the host's launches after it
+    profiles = {}
+    for path, fn in (("serving", serve), ("multihomo", loop)):
+        for key in nets:
+            prof = _profile_step(lambda: fn(key), reps=1)
+            profiles[f"{path}_{key}"] = {
+                "device_ms": prof["device_ms"], "families_ms": prof["families_ms"],
+                "idle_share": max(0.0, 1.0 - prof["device_ms"]
+                                  / readings[f"{path}_{key}"]["best_ms"])}
+    readings["profiles"] = profiles
+    print(f"(l) the device split of a call, fp32 and bf16: {profiles} on {card}", flush=True)
+    return launches, readings
+
+
+def _train_policies(card):
+    """The stage-3 step at full width (16 pairs of 224x224, margin 88) in
+    fp32, bf16 (the training policy), with remat and with both, fresh
+    networks of one seed each: step 0's loss (bf16 within 5e-3 of fp32's,
+    JAX's tests/test_train.py:246-272 tolerance; remat equal to its plain
+    step's, loss rtol 1e-6 and BatchNorm statistics rtol 2e-5 / atol 2e-6,
+    tests/test_train.py:91-110), fp32 masters after bf16 steps, the median
+    step ms of TRAIN_TIMED_STEPS and the peak memory."""
+    from ransacflow_tpu_torch.train import train_step
+
+    batch = _train_batch(_related_train_images(np.random.RandomState(6), TRAIN_PAIRS,
+                                               TRAIN_IMG).cuda(),
+                         TRAIN_PAIRS, TRAIN_IMG, TRAIN_MARGIN)
+    launches, readings, firsts = {}, {}, {}
+    for name, kw in TRAIN_POLICIES.items():
+        nets, opt = _new_trainer("cuda", 3)
+        step = lambda: train_step(nets, opt, *batch, **_stage_kwargs(3), **kw)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first, launches[f"train_{name}"] = _launches_of(step)
+        _require_launched(f"train {name}", launches[f"train_{name}"], TRAIN_KERNELS,
+                          {"head_epilogues": 2, "head_epilogues_bwd": 2})
+        stats = {f"{n}.{k}": b.clone() for n, net in nets.items()
+                 for k, b in net.named_buffers() if "running" in k}
+        firsts[name] = (float(first["loss"]), stats)
+        for _ in range(2):  # warm-up
+            step()
+        times = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        require(all(np.isfinite(float(v)) for v in metrics.values()),
+                f"train {name}: losses {metrics}")
+        dtypes = {t.dtype for net in nets.values() for t in net.state_dict().values()
+                  if t.is_floating_point()}
+        dtypes |= {v.dtype for st in opt.state.values() for v in st.values()
+                   if v.is_floating_point()}
+        require(dtypes == {torch.float32}, f"train {name}: masters and Adam state {dtypes}")
+        step_ms = float(np.median(times))
+        readings[name] = {"step_ms": step_ms, "step_ms_min": min(times),
+                          "step_ms_max": max(times), "pairs_s": TRAIN_PAIRS / (step_ms / 1e3),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "loss_step0": firsts[name][0]}
+        del nets, opt, step
+    gaps = {"bf16_vs_fp32_loss": abs(firsts["bf16"][0] - firsts["fp32"][0])}
+    require(gaps["bf16_vs_fp32_loss"] < 5e-3,
+            f"bf16 step 0's loss {gaps['bf16_vs_fp32_loss']} from fp32's (tolerance 5e-3)")
+    for remat, plain in (("remat", "fp32"), ("bf16_remat", "bf16")):
+        (la, sa), (lb, sb) = firsts[remat], firsts[plain]
+        gaps[f"{remat}_loss_rel"] = abs(la - lb) / abs(lb)
+        gaps[f"{remat}_bn_stats"] = max((sa[k] - sb[k]).abs().max().item() for k in sb)
+        require(gaps[f"{remat}_loss_rel"] <= 1e-6, f"{remat}: step 0's loss {la}, plain {lb}")
+        for k in sb:
+            require(torch.allclose(sa[k], sb[k], rtol=2e-5, atol=2e-6),
+                    f"{remat}: BatchNorm statistic {k} differs from the plain step's")
+    readings["gaps"] = gaps
+    print(f"(l) training, stage 3 at full width ({TRAIN_PAIRS} pairs of {TRAIN_IMG}x"
+          f"{TRAIN_IMG}), median of {TRAIN_TIMED_STEPS} steps: {readings}; launches "
+          f"{launches} on {card}", flush=True)
+    return launches, readings
+
+
+def phase_pool_bf16(card):
+    """(l) The pool, --batchPairs, the bf16 policies and remat (see the
+    module docstring)."""
+    import tempfile
+
+    from ransacflow_tpu_torch.cli import eval_hpatches
+    from ransacflow_tpu_torch.eval import hpatches
+    from ransacflow_tpu_torch.eval.artifacts import load_pair
+    from ransacflow_tpu_torch.models.convert import (
+        alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
+
+    t0 = time.perf_counter()
+    resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    with tempfile.TemporaryDirectory() as root:
+        _eval_datasets(root)
+        paths, readings = _pool_routes(card, root, resnet, align)
+
+        # the CLI reads scenes 2-6: each a link to scene 2's CSV, its first pair
+        hp, out = f"{root}/hpatches", f"{root}/hpatches_bf16"
+        for scene in hpatches.SCENES[1:]:
+            os.link(f"{hp}/hpatches_1_2.csv", f"{hp}/hpatches_1_{scene}.csv")
+        (_, predict), seconds = _timed(lambda: _launches_of(lambda: eval_hpatches.main([
+            "predict", "--csv-path", hp, "--image-data-path", hp, "--outDir", out,
+            "--endIndex", "1", "--device", "cuda", "--computeDtype", "bfloat16"])))
+        counts = []
+        for scene in hpatches.SCENES:
+            art = load_pair(f"{out}/{scene}", 0)
+            require(art is not None and all(bool(np.isfinite(a).all()) for a in art.values()),
+                    f"hpatches bf16: scene {scene}: artifact {art and sorted(art)}")
+            require(art["fine_flow_down8"].dtype == np.float32, "hpatches bf16: artifact dtype")
+            counts.append(art["coarse_h"].shape[0])
+        _require_launched("hpatches bf16 predict", predict, EVAL_KERNELS + BF16_EVAL_KERNELS,
+                          _per_fine_pass(predict))
+        paths["eval_hpatches_bf16"] = predict
+        readings["hpatches_bf16"] = {"pairs_s": len(hpatches.SCENES) / seconds,
+                                     "homographies": counts}
+        print(f"(l) `cli.eval_hpatches predict --computeDtype bfloat16` (the host loop at "
+              f"its defaults, seeded networks, one pair a scene): {readings['hpatches_bf16']}; "
+              f"launches {predict} on {card}", flush=True)
+
+    marks = {"pool_and_bf16_predict": time.perf_counter() - t0}
+    got, readings["train"] = _train_policies(card)
+    paths.update(got)
+    marks["train"] = time.perf_counter() - t0
+    got, readings["alignment"] = _bf16_alignment(card, resnet, align)
+    paths.update(got)
+    marks["alignment"] = time.perf_counter() - t0
+    readings["casts"] = _cast_costs(card)
+    readings["seconds"] = marks["casts"] = time.perf_counter() - t0
+    readings["seconds_at"] = marks
+    print(f"(l) phase (l) {readings['seconds']:.1f} s (elapsed after each part: {marks}) "
+          f"on {card}", flush=True)
+    return paths, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -3330,11 +3811,12 @@ def main():
         evals, eval_readings = phase_eval(card, results)
         yfcc_paths, yfcc_readings = phase_yfcc(card)
         k_paths, k_readings = phase_affine_refine(card, results)
+        l_paths, l_readings = phase_pool_bf16(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
     by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
-               **yfcc_paths, **k_paths}
+               **yfcc_paths, **k_paths, **l_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -3346,6 +3828,7 @@ def main():
                       "fast_modes": fast_readings, "sky": sky_readings,
                       "eval": {**eval_readings, **yfcc_readings},
                       "affine_refine_validation": k_readings,
+                      "pool_bf16_remat": l_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

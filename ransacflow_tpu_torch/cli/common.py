@@ -1,10 +1,12 @@
-"""Shared CLI plumbing: weight loading, coarse-net selection and the sky
-mask (the port's copy of `ransacflow_tpu/cli/common.py`: importing the JAX
-package imports JAX). Every loader takes the device."""
+"""Shared CLI plumbing: weight loading, coarse-net selection, the sky mask,
+the pool size and the compute dtype (the port's copy of
+`ransacflow_tpu/cli/common.py`: importing the JAX package imports JAX).
+Every loader takes the device."""
 
 import torch
 
 from ransacflow_tpu_torch.device import use_full_fp32
+from ransacflow_tpu_torch.eval.pooled import pool_devices
 from ransacflow_tpu_torch.models.convert import (
     init_alignment_params,
     init_resnet50_layer3,
@@ -12,9 +14,8 @@ from ransacflow_tpu_torch.models.convert import (
     load_resnet50_trunk,
     load_segnet,
 )
-from ransacflow_tpu_torch.pipeline.multihomo import use_device_loop
+from ransacflow_tpu_torch.models.layers import cast_params
 from ransacflow_tpu_torch.train.checkpoint import load_checkpoint
-from ransacflow_tpu_torch.train.loop import not_ported
 
 
 def load_align_params(resume_path, device, kernel_size=7):
@@ -107,23 +108,39 @@ def add_fused_flag(parser):
 
 def resolve_n_devices(args):
     """--nDevices, or 1 for --fused without it; None keeps the host loop.
-    A pool of more devices and --batchPairs raise NotImplementedError
-    (`pipeline.multihomo.use_device_loop`)."""
+    A pool larger than the machine's count of `--device`'s type raises,
+    naming the count (`eval.pooled.pool_devices`)."""
     n = args.nDevices
     if n is None and getattr(args, "fused", False):
         n = 1
-    use_device_loop(n, getattr(args, "batchPairs", None))
+    if n is not None:
+        pool_devices(n, args.device)
     return n
+
+
+def add_batch_pairs_flag(parser):
+    parser.add_argument(
+        "--batchPairs", type=int, default=None,
+        help="with --nDevices: batch same-resized-shape pairs into one "
+             "multi-homography dispatch (eval.pooled); the same artifacts")
 
 
 def add_compute_dtype_flag(parser):
     parser.add_argument(
         "--computeDtype", type=str, default="float32", choices=["float32", "bfloat16"],
         help="compute dtype of the networks on the eval path: float32, the "
-             "reference-parity default (TF32 off); bfloat16 is not ported yet")
+             "reference-parity default (TF32 off); bfloat16 casts every "
+             "network weight and buffer (models.layers.cast_params), so the "
+             "convolutions and the matching GEMM run in bf16 while the "
+             "coordinates, RANSAC and the masks stay fp32")
 
 
-def check_compute_dtype(args):
-    """float32 is the one compute dtype ported; bfloat16 raises."""
-    if args.computeDtype == "bfloat16":
-        not_ported("--computeDtype bfloat16", "item 14")
+def cast_for_dtype(nets, dtype_str):
+    """The networks for --computeDtype: a module or a dict of modules as they
+    are for float32 (or None), else cast copies (`models.layers.cast_params`,
+    every float parameter and buffer in the dtype). SegNet is never cast."""
+    if nets is None or dtype_str in (None, "float32"):
+        return nets
+    if isinstance(nets, dict):
+        return {k: cast_params(v, dtype_str) for k, v in nets.items()}
+    return cast_params(nets, dtype_str)

@@ -15,13 +15,13 @@ from ransacflow_tpu_torch.cli.common import (
     add_model_args,
     add_segnet_args,
     build_sky_fn,
-    check_compute_dtype,
+    cast_for_dtype,
     load_align_params,
     load_coarse_net,
-    resolve_n_devices,
 )
 from ransacflow_tpu_torch.device import use_full_fp32
-from ransacflow_tpu_torch.eval.kitti import evaluate_kitti, predict_kitti
+from ransacflow_tpu_torch.eval.kitti import evaluate_kitti, pooled_kitti_predict, predict_kitti
+from ransacflow_tpu_torch.eval.pooled import pool_devices
 
 
 def main(argv=None):
@@ -46,10 +46,11 @@ def main(argv=None):
     p.add_argument("--beginIndex", type=int, default=0)
     p.add_argument("--endIndex", type=int, default=200)
     p.add_argument("--nDevices", type=int, default=None,
-                   help="1 runs the sequential loop (the loop stays on the "
-                        "host: its accept decision runs scipy's connected-"
-                        "component cleanup each iteration); a pool of more "
-                        "devices is not ported yet")
+                   help="a pool of this many slots, one a card (cuda:0 ... "
+                        "cuda:n-1, raises when the machine has fewer), each "
+                        "pair on its slot's sequential loop (the accept "
+                        "decision runs the host's connected-component "
+                        "cleanup). Default: one device")
 
     r = sub.add_parser("results")
     r.add_argument("--predDir", type=str, required=True)
@@ -64,17 +65,13 @@ def main(argv=None):
                    help="the torch device the flows are composed on")
 
     args = parser.parse_args(argv)
-    if args.cmd == "predict":
-        check_compute_dtype(args)
-        resolve_n_devices(args)  # 1 is the sequential loop; more raise
+    devices = None
+    if args.cmd == "predict" and args.nDevices is not None:
+        devices = pool_devices(args.nDevices, args.device)
     use_full_fp32()
 
     if args.cmd == "predict":
-        predict_kitti(
-            args.testImg, args.outDir,
-            load_coarse_net(args.device, args.mocoPth, args.imageNetPth),
-            load_align_params(args.resumePth, args.device, args.kernelSize),
-            args.device,
+        kw = dict(
             coarse_size=args.coarseSize, fine_size=args.fineSize,
             nb_scale=args.nbScale, scale_r=args.scaleR,
             n_iter=args.coarseIter, tolerance=args.coarsetolerance,
@@ -85,6 +82,14 @@ def main(argv=None):
             anchor_stride=args.anchorStride,
             relax_cells=args.relaxCells,
         )
+        resnet = cast_for_dtype(load_coarse_net(args.device, args.mocoPth, args.imageNetPth),
+                                args.computeDtype)
+        align = cast_for_dtype(load_align_params(args.resumePth, args.device, args.kernelSize),
+                               args.computeDtype)
+        if devices is None:
+            predict_kitti(args.testImg, args.outDir, resnet, align, args.device, **kw)
+        else:
+            pooled_kitti_predict(args.testImg, args.outDir, resnet, align, devices, **kw)
     else:
         mean_epe, _ = evaluate_kitti(
             args.predDir, args.gtPath, args.device, n_pairs=args.nPairs,

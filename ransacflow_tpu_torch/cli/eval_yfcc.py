@@ -16,12 +16,13 @@ import os
 
 from ransacflow_tpu_torch.cli.common import (
     add_adaptive_flag,
+    add_batch_pairs_flag,
     add_compute_dtype_flag,
     add_fused_flag,
     add_model_args,
     add_segnet_args,
     build_sky_fn,
-    check_compute_dtype,
+    cast_for_dtype,
     load_align_params,
     load_coarse_net,
     resolve_n_devices,
@@ -51,11 +52,11 @@ def main(argv=None):
     p.add_argument("--beginIndex", type=int, default=0)
     p.add_argument("--endIndex", type=int, default=1000)
     p.add_argument("--nDevices", type=int, default=None,
-                   help="1: the pre-test dispatched and the device-resident "
-                        "multi-homography loop; a pool of more is not ported "
-                        "yet. Default: the host loop")
-    p.add_argument("--batchPairs", type=int, default=None,
-                   help="batched pairs over a device pool: not ported yet")
+                   help="a pool of this many slots, one a card (cuda:0 ... "
+                        "cuda:n-1, raises when the machine has fewer), each "
+                        "pair on the device-resident multi-homography loop. "
+                        "Default: the host loop")
+    add_batch_pairs_flag(p)
     add_fused_flag(p)
     add_adaptive_flag(p)
     add_compute_dtype_flag(p)
@@ -78,13 +79,14 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
     if args.cmd == "predict":
-        check_compute_dtype(args)
         n_devices = resolve_n_devices(args)
     use_full_fp32()
 
     if args.cmd == "predict":
-        resnet = load_coarse_net(args.device, args.mocoPth, args.imageNetPth)
-        align = load_align_params(args.resumePth, args.device, args.kernelSize)
+        resnet = cast_for_dtype(load_coarse_net(args.device, args.mocoPth, args.imageNetPth),
+                                args.computeDtype)
+        align = cast_for_dtype(load_align_params(args.resumePth, args.device, args.kernelSize),
+                               args.computeDtype)
         sky = build_sky_fn(args, args.device, rotated=True)
         for scene in [args.testScene] if args.testScene else list(SCENES):
             predict_yfcc(

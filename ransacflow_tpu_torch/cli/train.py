@@ -12,9 +12,11 @@ Usage:
 flags override. valMegaDepth validates every epoch and keeps the best model
 by prec@8 (`BestModel@8_{prec}`); NoVal checkpoints every --epochSaveModel
 epochs. --nativeResize resizes the training crops with the native Lanczos
-resampler (built with g++; it raises without one). The JAX package's flags
-are all accepted; --distributed, --nDevices > 1, --computeDtype bfloat16
-and --remat raise NotImplementedError (see ROADMAP.md).
+resampler (built with g++; it raises without one). --computeDtype bfloat16
+trains under the mixed-precision policy (bf16 convolutions from fp32
+masters) and --remat recomputes the feature trunk in the backward. The JAX
+package's flags are all accepted; --distributed and --nDevices > 1 raise
+NotImplementedError (ROADMAP.md queue 1, item 12b).
 """
 
 import argparse
@@ -50,7 +52,8 @@ def parse_args(argv=None):
     parser.add_argument("--computeDtype", choices=["float32", "bfloat16"],
                         default="float32")
     parser.add_argument("--nativeResize", action="store_true")
-    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the feature trunk in the backward")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--maxStepsPerEpoch", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda",
@@ -69,14 +72,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, unported, item in (
-            ("--distributed", args.distributed, "item 12"),
-            ("--nDevices > 1", args.nDevices > 1, "item 12"),
-            ("--computeDtype bfloat16", args.computeDtype == "bfloat16", "item 14"),
-            ("--remat", args.remat, "item 14")):
+    for flag, unported in (("--distributed", args.distributed),
+                           ("--nDevices > 1", args.nDevices > 1)):
         if unported:
-            not_ported(flag, item)
-    use_full_fp32()  # --computeDtype float32, the one dtype ported
+            not_ported(flag, "item 12b")
+    use_full_fp32()  # float32 stays float32 (BatchNorm, the losses, the masters)
 
     cfg = dict(mode="flow", mu_cycle=0.0, lambda_match=0.01, grad_weight=0.0,
                epochs=150)
@@ -109,7 +109,9 @@ def main(argv=None):
         batch_size=args.batchSize, img_size=args.imgSize, margin=args.margin,
         lr=args.lr, kernel_size=args.kernelSize,
         epoch_save_model=getattr(args, "epochSaveModel", 10), seed=args.seed,
-        max_steps_per_epoch=args.maxStepsPerEpoch, use_native=args.nativeResize, **val)
+        max_steps_per_epoch=args.maxStepsPerEpoch, use_native=args.nativeResize,
+        compute_dtype=None if args.computeDtype == "float32" else args.computeDtype,
+        remat=args.remat, **val)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The eval harnesses of the port (see `ransacflow_tpu/eval`): HPatches,
 KITTI 2015, the sparse-correspondence harness and YFCC (with its cv2-free
 pose estimator, `eval.pose`), the Aachen correspondence export, their
-shared compose core and artifact schema, and the sky-mask hooks."""
+shared compose core and artifact schema, the sky-mask hooks and the pool of
+slots that spreads their pairs (`eval.pooled`)."""
 
 from ransacflow_tpu_torch.eval.aachen import export_correspondences, write_match_file  # noqa: F401
 
@@ -20,8 +21,14 @@ from ransacflow_tpu_torch.eval.hpatches import (  # noqa: F401
 )
 from ransacflow_tpu_torch.eval.kitti import (  # noqa: F401
     evaluate_kitti,
+    pooled_kitti_predict,
     predict_kitti,
     read_kitti_flow,
+)
+from ransacflow_tpu_torch.eval.pooled import (  # noqa: F401
+    make_device_pool,
+    pool_devices,
+    pooled_multihomo_predict,
 )
 from ransacflow_tpu_torch.eval.pose import (  # noqa: F401
     eight_point_fundamental,
@@ -43,6 +50,7 @@ from ransacflow_tpu_torch.eval.yfcc import (  # noqa: F401
     matches_from_flow,
     norm_kp,
     pick_rotation,
+    pooled_yfcc_predict,
     pose_error,
     predict_yfcc,
 )

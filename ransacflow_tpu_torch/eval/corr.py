@@ -16,14 +16,11 @@ from PIL import Image
 
 from ransacflow_tpu_torch.eval.artifacts import load_pair, save_pair
 from ransacflow_tpu_torch.eval.compose import merge_multi_h, reconstruct_flows
+from ransacflow_tpu_torch.eval.pooled import pool_devices, pooled_multihomo_predict
 from ransacflow_tpu_torch.eval.table import read_rows
 from ransacflow_tpu_torch.pipeline.coarse import CoarseAligner
-from ransacflow_tpu_torch.pipeline.multihomo import (
-    multi_homography_predict,
-    multi_homography_predict_fused,
-    use_device_loop,
-)
-from ransacflow_tpu_torch.utils.image import min_size_shape_wh
+from ransacflow_tpu_torch.pipeline.multihomo import multi_homography_predict
+from ransacflow_tpu_torch.utils.image import min_size_shape_wh, resized_shape_min_size
 
 PIXEL_GRID = np.around(np.logspace(0, np.log10(36), 8))
 
@@ -84,19 +81,28 @@ def predict_corr(
     bg_mask_fn: optional callable(target image path, (Ht, Wt)) -> foreground
       mask, as in the other harnesses. (The JAX package hands it the CSV
       row, which its sky network cannot read: `ROADMAP.md` queue 3.)
-    n_devices: None runs the host loop, 1 the device-resident loop on draws
-      that depend on the pair index alone; more, and batch_pairs, are not
-      ported yet (`pipeline.multihomo.use_device_loop`).
+    n_devices: None runs the host loop; otherwise a pool of slots
+      (`eval.pooled.pool_devices`) runs each pair through the
+      device-resident loop on draws that depend on the pair index alone,
+      batch_pairs > 1 in batches of same-resized-shape pairs; the artifacts
+      are the same for any pool and batching.
     """
-    fused = use_device_loop(n_devices, batch_pairs)
     rows = read_rows(csv_path)
-    coarse = CoarseAligner(
-        resnet, device, nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance,
-        min_size=min_size, scale_r=scale_r, resize_mode="min",
-        adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride,
-        relax_cells=relax_cells,
+    coarse_kwargs = dict(
+        nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance, min_size=min_size,
+        scale_r=scale_r, resize_mode="min", adaptive_chunk=adaptive_chunk,
+        anchor_stride=anchor_stride, relax_cells=relax_cells,
     )
+    loop_kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th, cycle_match=True)
     end = len(rows) if end_index is None else min(end_index, len(rows))
+    if n_devices is not None:
+        pooled_multihomo_predict(
+            _pooled_pairs(test_dir, rows, range(begin_index, end), min_size, bg_mask_fn),
+            resnet, align_params, pool_devices(n_devices, device), coarse_kwargs,
+            save_fn=lambda idx, art: save_pair(out_dir, idx, art),
+            batch_pairs=batch_pairs, **loop_kw)
+        return
+    coarse = CoarseAligner(resnet, device, **coarse_kwargs)
     for idx in range(begin_index, end):
         src_path, tgt_path = _pair_paths(test_dir, rows[idx])
         coarse.set_pair(Image.open(src_path).convert("RGB"),
@@ -104,15 +110,21 @@ def predict_corr(
         bg = None
         if bg_mask_fn is not None:
             bg = bg_mask_fn(tgt_path, coarse.tgt_array.shape[:2])
-        kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th,
-                  cycle_match=True, bg_mask=bg)
-        if fused:
-            coarse.reseed(idx)
-            pred = multi_homography_predict_fused(coarse, align_params, **kw)
-        else:
-            pred = multi_homography_predict(coarse, align_params, **kw)
+        pred = multi_homography_predict(coarse, align_params, bg_mask=bg, **loop_kw)
         if pred is not None:
             save_pair(out_dir, idx, pred)
+
+
+def _pooled_pairs(test_dir, rows, indices, min_size, bg_mask_fn):
+    """(idx, source, target, bg_mask or None) of the rows at `indices` for
+    `pooled_multihomo_predict`, the mask at the target's resized shape."""
+    for idx in indices:
+        _, tgt_path = _pair_paths(test_dir, rows[idx])
+        i_s, i_t = _open_pair(test_dir, rows[idx])
+        bg = None
+        if bg_mask_fn is not None:
+            bg = bg_mask_fn(tgt_path, resized_shape_min_size(i_t, min_size))
+        yield idx, i_s, i_t, bg
 
 
 def pair_precision_hits(flow, match_agg, m, xs, ys, xt, yt, ws, hs):

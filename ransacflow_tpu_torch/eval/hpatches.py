@@ -17,15 +17,13 @@ from PIL import Image
 from ransacflow_tpu_torch.device import as_device
 from ransacflow_tpu_torch.eval.artifacts import load_pair, save_pair
 from ransacflow_tpu_torch.eval.compose import merge_multi_h, put, reconstruct_flows
+from ransacflow_tpu_torch.eval.pooled import pool_devices, pooled_multihomo_predict
 from ransacflow_tpu_torch.eval.table import read_hpatches
 from ransacflow_tpu_torch.ops.grid import normalized_grid
 from ransacflow_tpu_torch.ops.homography import warp_grid
 from ransacflow_tpu_torch.pipeline.coarse import CoarseAligner
-from ransacflow_tpu_torch.pipeline.multihomo import (
-    multi_homography_predict,
-    multi_homography_predict_fused,
-    use_device_loop,
-)
+from ransacflow_tpu_torch.pipeline.multihomo import multi_homography_predict
+from ransacflow_tpu_torch.utils.image import resized_shape_min_size
 
 SCENES = (2, 3, 4, 5, 6)
 
@@ -69,22 +67,33 @@ def predict_hpatches(
       bg_mask_fn: optional callable(img_path, (Ht, Wt)) -> foreground mask
         (the segNet sky-removal hook).
       n_devices: None runs the host loop (`multi_homography_predict`, with
-        the fp64 polish of each winner); 1 runs each pair through the
-        device-resident loop (`multi_homography_predict_fused`) on draws
-        that depend on the pair index alone. A pool of more devices and
-        batch_pairs are not ported yet (`pipeline.multihomo.use_device_loop`).
+        the fp64 polish of each winner); otherwise a pool of slots
+        (`eval.pooled.pool_devices`: a count of `device`'s type, or a list
+        of devices) runs each pair through the device-resident loop on
+        draws that depend on the pair index alone, batch_pairs > 1 in
+        batches of same-resized-shape pairs (`eval.pooled`). The artifacts
+        are the same for any pool and batching.
     """
-    fused = use_device_loop(n_devices, batch_pairs)
-    coarse = CoarseAligner(
-        resnet, device, nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance,
-        min_size=min_size, scale_r=scale_r, resize_mode="min",
-        adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride,
-        relax_cells=relax_cells,
+    coarse_kwargs = dict(
+        nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance, min_size=min_size,
+        scale_r=scale_r, resize_mode="min", adaptive_chunk=adaptive_chunk,
+        anchor_stride=anchor_stride, relax_cells=relax_cells,
     )
+    loop_kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th, cycle_match=False)
+    if n_devices is None:
+        coarse = CoarseAligner(resnet, device, **coarse_kwargs)
     for scene in scenes:
         rows = read_hpatches(os.path.join(csv_dir, f"hpatches_1_{scene}.csv"))
         scene_out = os.path.join(out_dir, str(scene))
         end = len(rows) if end_index is None else min(end_index, len(rows))
+        if n_devices is not None:
+            pooled_multihomo_predict(
+                _pooled_pairs(image_dir, rows, range(begin_index, end), min_size,
+                              bg_mask_fn),
+                resnet, align_params, pool_devices(n_devices, device), coarse_kwargs,
+                save_fn=lambda idx, art: save_pair(scene_out, idx, art),
+                batch_pairs=batch_pairs, **loop_kw)
+            continue
         for idx in range(begin_index, end):
             src_path, tgt_path = _paths(image_dir, rows[idx])
             coarse.set_pair(Image.open(src_path).convert("RGB"),
@@ -92,15 +101,22 @@ def predict_hpatches(
             bg = None
             if bg_mask_fn is not None:
                 bg = bg_mask_fn(tgt_path, coarse.tgt_array.shape[:2])
-            kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th,
-                      cycle_match=False, bg_mask=bg)
-            if fused:
-                coarse.reseed(idx)
-                pred = multi_homography_predict_fused(coarse, align_params, **kw)
-            else:
-                pred = multi_homography_predict(coarse, align_params, **kw)
+            pred = multi_homography_predict(coarse, align_params, bg_mask=bg, **loop_kw)
             if pred is not None:
                 save_pair(scene_out, idx, pred)
+
+
+def _pooled_pairs(image_dir, rows, indices, min_size, bg_mask_fn):
+    """(idx, source, target, bg_mask or None) of the rows at `indices` for
+    `pooled_multihomo_predict`; the mask is made at the target's resized
+    shape, which the PIL size gives before the pair is set."""
+    for idx in indices:
+        src_path, tgt_path = _paths(image_dir, rows[idx])
+        i_t = Image.open(tgt_path).convert("RGB")
+        bg = None
+        if bg_mask_fn is not None:
+            bg = bg_mask_fn(tgt_path, resized_shape_min_size(i_t, min_size))
+        yield idx, Image.open(src_path).convert("RGB"), i_t, bg
 
 
 def hpatches_gt_grid(row, out_size, image_dir):

@@ -174,6 +174,60 @@ def predict_kitti(
         )
 
 
+def pooled_kitti_predict(
+    image_dir,
+    out_dir,
+    resnet,
+    align_params,
+    devices,
+    coarse_size=800,
+    fine_size=650,
+    nb_scale=3,
+    scale_r=1.2,
+    n_iter=50000,
+    tolerance=0.05,
+    mask_region_th=0.005,
+    cc_th=0.01,
+    begin_index=0,
+    end_index=200,
+    seed=1000,
+    bg_mask_fn=None,
+    max_coarse=None,
+    adaptive_chunk=0,
+    anchor_stride=0,
+    relax_cells=0,
+):
+    """`predict_kitti` over a pool of slots (`eval.pooled.make_device_pool`
+    on `devices`), one worker thread a slot. KITTI's accept decision runs
+    the connected-component cleanup on the host at every iteration, so the
+    loop cannot live on the device; each worker runs the sequential pair
+    procedure on its own aligner, the pair indices striped over the
+    workers. Each pair's draws depend on its index alone
+    (`CoarseAligner.reseed`), so the artifacts are the sequential pass's
+    for any pool size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ransacflow_tpu_torch.eval.pooled import make_device_pool
+
+    pool = make_device_pool(
+        resnet, align_params, devices,
+        dict(nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance,
+             min_size=coarse_size, scale_r=scale_r, resize_mode="min", seed=seed,
+             adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride,
+             relax_cells=relax_cells))
+    kwargs = dict(fine_size=fine_size, mask_region_th=mask_region_th, cc_th=cc_th,
+                  seed=seed, bg_mask_fn=bg_mask_fn, max_coarse=max_coarse)
+
+    def worker(w):
+        aligner, nets = pool[w]
+        for i in range(begin_index + w, end_index, len(pool)):
+            _predict_one_kitti_pair(aligner, nets, image_dir, out_dir, i, **kwargs)
+
+    with ThreadPoolExecutor(max_workers=len(pool)) as ex:
+        for done in [ex.submit(worker, w) for w in range(len(pool))]:
+            done.result()  # a worker's exception raises here
+
+
 @torch.inference_mode()
 def _predict_one_kitti_pair(
     coarse, align_params, image_dir, out_dir, i, *,
@@ -223,14 +277,15 @@ def _predict_one_kitti_pair(
         # pass 2: fine at fineSize on that grid, composed at the original size
         out_full = pred_flow_mask(align_params, src, featt_rs, flow_coarse,
                                   cycle_match=True, out_hw=(h_org, w_org))
-        match_fine = remove_small_cc(out_full["match"].cpu().numpy(), cc_th, match_th=0.99)
+        match_fine = remove_small_cc(out_full["match"].float().cpu().numpy(), cc_th,
+                                     match_th=0.99)
 
         accept = ((match_fine > 0.9999) * (1.0 - fg)).mean() > mask_region_th
         if accept or nb_coarse == 0:
             hs.append(H)
-            flows_d2.append(out_d2["flow_down8"][0].cpu().numpy())
-            flows_full.append(out_full["flow_down8"][0].cpu().numpy())
-            matches_full.append(out_full["match_down8"][0].cpu().numpy())
+            flows_d2.append(out_d2["flow_down8"][0].float().cpu().numpy())
+            flows_full.append(out_full["flow_down8"][0].float().cpu().numpy())
+            matches_full.append(out_full["match_down8"][0].float().cpu().numpy())
             nb_coarse += 1
             match_fine = match_fine * (1.0 - fg)
             mask = ((mask + match_fine) > 0.9999).astype(np.float32)

@@ -28,11 +28,16 @@ from ransacflow_tpu_torch.eval.pose import (
     find_essential_mat,
     recover_pose,
 )
+from ransacflow_tpu_torch.eval.pooled import (
+    BatchedMultiHomoDispatcher,
+    PendingDrain,
+    make_device_pool,
+    pool_devices,
+)
 from ransacflow_tpu_torch.pipeline.coarse import CoarseAligner
 from ransacflow_tpu_torch.pipeline.multihomo import (
+    multi_homography_dispatch,
     multi_homography_predict,
-    multi_homography_predict_fused,
-    use_device_loop,
 )
 from ransacflow_tpu_torch.utils.image import min_size_shape_wh
 
@@ -110,47 +115,111 @@ def predict_yfcc(
       bg_mask_fn: optional callable(img_path, (Ht, Wt), angle) -> foreground
         mask (the segNet hook, `eval.sky.make_sky_bg_fn_rotated`).
       n_devices: None runs the rotation pre-test and the host loop
-        (`multi_homography_predict`, the fp64 polish of each winner); 1 runs
-        each pair on draws that depend on its index alone: the pre-test
-        dispatched, then the device-resident loop
-        (`multi_homography_predict_fused`). A pool of more devices and
-        batch_pairs are not ported yet (`pipeline.multihomo.use_device_loop`).
+        (`multi_homography_predict`, the fp64 polish of each winner);
+        otherwise `pooled_yfcc_predict` over a pool of slots
+        (`eval.pooled.pool_devices`), with batch_pairs.
     """
-    fused = use_device_loop(n_devices, batch_pairs)
-    coarse = CoarseAligner(
-        resnet, device, nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance,
-        min_size=min_size, scale_r=scale_r, resize_mode="min",
+    coarse_kwargs = dict(
+        nb_scale=nb_scale, n_iter=n_iter, tolerance=tolerance, min_size=min_size,
+        scale_r=scale_r, resize_mode="min",
         # the quick-start matching variant: the masked target is re-matched
         # against the bank on every coarse call, so excluded regions free
         # their source cells (evalYFCC/coarseAlignFeatMatch.py:163-169)
         rematch_per_call=True, adaptive_chunk=adaptive_chunk,
         anchor_stride=anchor_stride, relax_cells=relax_cells,
     )
-    with open(pairs_pkl, "rb") as f:
-        pairs = pickle.load(f)
-    with open(os.path.join(image_dir, "images.txt")) as f:
-        img_list = [line.strip() for line in f if line.strip()]
-
-    for i in range(begin_index, min(end_index, len(pairs))):
-        id_a, id_b = pairs[i]
-        tgt_path = os.path.join(image_dir, img_list[id_b])
-        coarse.set_source(Image.open(os.path.join(image_dir, img_list[id_a])).convert("RGB"))
-        if fused:
-            coarse.reseed(i)
-        rot_mask_fn = None
-        if bg_mask_fn is not None:
-            rot_mask_fn = lambda a, hw: bg_mask_fn(tgt_path, hw, a)  # noqa: E731
+    loop_kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th,
+                   begin_index=begin_index, end_index=end_index, bg_mask_fn=bg_mask_fn)
+    if n_devices is not None:
+        pooled_yfcc_predict(pairs_pkl, image_dir, out_dir, resnet, align_params,
+                            pool_devices(n_devices, device), coarse_kwargs,
+                            batch_pairs=batch_pairs, **loop_kw)
+        return
+    coarse = CoarseAligner(resnet, device, **coarse_kwargs)
+    for i, i_s, tgt_path in _scene_pairs(pairs_pkl, image_dir, begin_index, end_index):
+        coarse.set_source(i_s)
         angle, rotated, _ = pick_rotation(coarse, Image.open(tgt_path).convert("RGB"),
-                                          rot_mask_fn, dispatch=fused)
+                                          _rotation_mask_fn(bg_mask_fn, tgt_path))
         coarse.set_target(rotated)
         bg = None
         if bg_mask_fn is not None:
             bg = bg_mask_fn(tgt_path, coarse.tgt_array.shape[:2], angle)
-        loop = multi_homography_predict_fused if fused else multi_homography_predict
-        pred = loop(coarse, align_params, max_coarse=max_coarse,
-                    mask_region_th=mask_region_th, cycle_match=True, bg_mask=bg)
+        pred = multi_homography_predict(coarse, align_params, max_coarse=max_coarse,
+                                        mask_region_th=mask_region_th, cycle_match=True,
+                                        bg_mask=bg)
         if pred is not None:
             save_pair(out_dir, i, pred, rotation=np.int32(angle))
+
+
+def _scene_pairs(pairs_pkl, image_dir, begin_index, end_index):
+    """(pair index, source PIL, target path) of the scene's pairs in
+    [begin_index, end_index)."""
+    with open(pairs_pkl, "rb") as f:
+        pairs = pickle.load(f)
+    with open(os.path.join(image_dir, "images.txt")) as f:
+        img_list = [line.strip() for line in f if line.strip()]
+    for i in range(begin_index, min(end_index, len(pairs))):
+        id_a, id_b = pairs[i]
+        yield (i, Image.open(os.path.join(image_dir, img_list[id_a])).convert("RGB"),
+               os.path.join(image_dir, img_list[id_b]))
+
+
+def _rotation_mask_fn(bg_mask_fn, tgt_path):
+    """`pick_rotation`'s mask callable(angle, (Ht, Wt)), or None."""
+    if bg_mask_fn is None:
+        return None
+    return lambda a, hw: bg_mask_fn(tgt_path, hw, a)
+
+
+def pooled_yfcc_predict(pairs_pkl, image_dir, out_dir, resnet, align_params, devices,
+                        coarse_kwargs, max_coarse=10, mask_region_th=0.01,
+                        begin_index=0, end_index=1000, bg_mask_fn=None, batch_pairs=None):
+    """`predict_yfcc` over a pool of slots (`eval.pooled`): the pairs go
+    round robin over the slots (with batch_pairs > 1, by shape bucket); each
+    pair's rotation pre-test is dispatched (`pick_rotation(dispatch=True)`:
+    the four fits' counts read back once) and its loop is the
+    device-resident one, drained through the bounded queue.
+
+    devices: the slots' devices (`eval.pooled.pool_devices`);
+    coarse_kwargs: `CoarseAligner`'s. Pair i's pre-test and loop draw from
+    `reseed(i)`'s generator, so the artifacts, the stored rotation
+    included, are the same for any pool and batching.
+    """
+    pool = make_device_pool(resnet, align_params, devices, coarse_kwargs)
+    drain = PendingDrain(len(pool), lambda idx, art, angle: save_pair(
+        out_dir, idx, art, rotation=np.int32(angle)))
+    loop_kw = dict(max_coarse=max_coarse, mask_region_th=mask_region_th, cycle_match=True)
+    batcher = None
+    if batch_pairs and batch_pairs > 1:
+        batcher = BatchedMultiHomoDispatcher(pool, drain, batch_pairs, **loop_kw)
+    pairs = _scene_pairs(pairs_pkl, image_dir, begin_index, end_index)
+    for k, (i, i_s, tgt_path) in enumerate(pairs):
+        i_t = Image.open(tgt_path).convert("RGB")
+        if batcher is not None:
+            # the proxy key fixes the slot before the pre-test; 0/180 and
+            # 90/270 winners then land in other shape buckets of one slot
+            proxy = (i_s.size, i_t.size)
+            aligner, nets = pool[batcher.slot(proxy)]
+        else:
+            aligner, nets = pool[k % len(pool)]
+        aligner.set_source(i_s)
+        aligner.reseed(i)
+        angle, rotated, _ = pick_rotation(aligner, i_t, _rotation_mask_fn(bg_mask_fn,
+                                                                          tgt_path),
+                                          dispatch=True)
+        aligner.set_target(rotated)
+        bg = None
+        if bg_mask_fn is not None:
+            bg = bg_mask_fn(tgt_path, aligner.tgt_array.shape[:2], angle)
+        if batcher is not None:
+            batcher.add(proxy, i, bg, aligner.generator, angle)
+            continue
+        final, bgf = multi_homography_dispatch(aligner, nets, bg_mask=bg, **loop_kw)
+        drain.add(i, final, bgf, angle)
+    if batcher is not None:
+        batcher.flush()
+    else:
+        drain.flush()
 
 
 def matches_from_flow(flow, match_binary, size_a, size_b, angle):

@@ -6,7 +6,14 @@ import ctypes
 import numpy as np
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.build import (
+    Kernel,
+    check,
+    forbid_grad,
+    ptr,
+    stream,
+    upcast,
+)
 from ransacflow_tpu_torch.kernels.pyramid import taps, resize_weights
 from ransacflow_tpu_torch.models.layers import l2_normalize
 
@@ -151,12 +158,17 @@ def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
     each a contiguous (1, h, w, C) fp32 map; shapes: (H, W) per scale;
     nearest: the anchor index per scale (`pipeline.bank.nearest_anchors`).
     `out`: an optional contiguous (nA, C) place for the bank. At most
-    MAX_SCALES scales. Forward only."""
+    MAX_SCALES scales. Forward only. bf16 maps (the eval policy's trunk) are
+    upcast and the bank rounded to bf16, the reference's dtype."""
     srcs = [maps[i] for i in nearest]
     if not 1 <= len(srcs) <= MAX_SCALES or len(shapes) != len(srcs):
         raise ValueError(f"anchor_resample_bank: {len(shapes)} scales and {len(srcs)} "
                          f"anchors; expected the same number, 1 to {MAX_SCALES}")
     forbid_grad("anchor_resample_bank", *srcs)
+    if srcs[0].dtype == torch.bfloat16:
+        fp32 = {i: upcast(maps[i])[0] for i in set(nearest)}
+        bank = anchor_resample_bank(fp32, shapes, nearest, stride=stride).bfloat16()
+        return bank if out is None else out.copy_(bank)
     if srcs[0].device.type == "cpu":
         bank = anchor_resample_bank_ref(maps, shapes, nearest, stride)
         return bank if out is None else out.copy_(bank)

@@ -6,7 +6,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ransacflow_tpu_torch.kernels.build import Kernel, ptr, stream
+from ransacflow_tpu_torch.kernels.build import Kernel, ptr, stream, upcast
 
 KERNEL = Kernel("rf_blurpool_fwd",
                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -73,9 +73,12 @@ class _BlurPool(torch.autograd.Function):
 def blur_pool(x, filt, stride=2):
     """`blur_pool_ref` for a CPU tensor. For a CUDA one, the kernel (the
     binomial-3 filter with stride 2 only), differentiable: its backward is
-    a kernel too."""
+    a kernel too. bf16 activations (the eval policy) are upcast and the
+    output rounded to bf16; their cotangent comes back in bf16."""
+    dtype = x.dtype
+    x, filt = upcast(x, filt)
     if x.device.type == "cpu":
-        return blur_pool_ref(x, filt, stride)
+        return blur_pool_ref(x, filt, stride).to(dtype)
     if filt.shape[-1] != 3 or stride != 2:
         raise ValueError("the blur-pool kernel takes filt_size 3 and stride 2 only")
-    return _BlurPool.apply(x)
+    return _BlurPool.apply(x).to(dtype)

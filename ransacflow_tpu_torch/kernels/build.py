@@ -14,7 +14,12 @@ on that stream, allocates nothing, and returns `cudaGetLastError()`;
 succeeded. The launch path is kept light, since the kernels run microseconds
 on the card: a `Kernel` binds its symbol once, pointers and the stream pass
 as Python ints, and the device is switched only when it is not the current
-one.
+one. Threads may launch (the KITTI pool runs a thread per slot): one lock
+makes the first build, each bind and each count happen once.
+
+The kernels compute in fp32. A wrapper handed bf16 tensors (the bf16 compute
+policies, `models/layers.py`) upcasts them at its boundary (`upcast`, exact)
+and rounds its outputs to bf16 where the reference's op returns bf16.
 """
 
 import ctypes
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _library = None
+_LOCK = threading.RLock()  # the build, the binds and the launch counts
 BUILD_LOG = {"seconds": None, "built": False, "ptxas": ""}
 
 
@@ -50,9 +57,14 @@ def _nvcc():
 
 def library():
     """The loaded kernel library, compiled first if its sources changed."""
-    global _library
     if _library is not None:
         return _library
+    with _LOCK:
+        return _library if _library is not None else _build()
+
+
+def _build():
+    global _library
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(_CSRC.glob("*.cu*")):
@@ -106,11 +118,13 @@ class Kernel:
         self._fn = None
 
     def _bind(self):
-        fn = getattr(library(), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        self._fn = fn
-        return fn
+        with _LOCK:
+            if self._fn is None:
+                fn = getattr(library(), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+        return self._fn
 
     def __call__(self, device, *args):
         """Launch on `device` (its current stream is among `args`)."""
@@ -123,7 +137,14 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
                                f"{library().rf_error_string(err).decode()}")
-        self.launches += 1
+        with _LOCK:
+            self.launches += 1
+
+
+def upcast(*tensors):
+    """The tensors with bf16 ones as fp32 (exact), the others as they are."""
+    return [t.float() if t is not None and t.dtype == torch.bfloat16 else t
+            for t in tensors]
 
 
 def check(t, name, dtype, shape=None, ndim=None, device=None):

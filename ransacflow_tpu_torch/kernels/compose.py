@@ -5,7 +5,14 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.build import (
+    Kernel,
+    check,
+    forbid_grad,
+    ptr,
+    stream,
+    upcast,
+)
 from ransacflow_tpu_torch.ops.grid import normalized_grid
 from ransacflow_tpu_torch.ops.sampler import grid_sample, interpolate_bilinear
 
@@ -57,18 +64,39 @@ def compose_tail_ref(flow_down8, match12_down8, match21_down8, flow_coarse,
     return flow12, (match * in_bounds.to(match.dtype))[..., 0]
 
 
+def _out_dtypes(flow_coarse, match12, match21, cycle_match, same_size):
+    """(flow12, match) dtypes of the reference's compose (`fine.py:69-92`):
+    flow12 is flow_coarse sampled, with match21 in one concatenated map at
+    one size; match is match12, times the sampled match21 with
+    cycle_match."""
+    promote = torch.promote_types
+    flow = (promote(flow_coarse.dtype, match21.dtype) if cycle_match and same_size
+            else flow_coarse.dtype)
+    if not cycle_match:
+        return flow, match12.dtype
+    return flow, promote(match12.dtype, flow if same_size else match21.dtype)
+
+
 def compose_tail(flow_down8, match12_down8, match21_down8, flow_coarse,
                  cycle_match, out_hw=None):
     """`compose_tail_ref` for CPU tensors, the kernel for CUDA ones.
-    Forward only: raises when an input requires grad under grad mode."""
+    Forward only: raises when an input requires grad under grad mode.
+    bf16 maps (the eval policy's heads) are upcast and the kernel composes
+    in fp32 (the reference rounds its upsampled grid to bf16 there); each
+    output is rounded to the reference's dtype (`_out_dtypes`)."""
     forbid_grad("compose_tail", flow_down8, match12_down8, match21_down8,
                 flow_coarse)
-    if flow_coarse.device.type == "cpu":
-        return compose_tail_ref(flow_down8, match12_down8, match21_down8,
-                                flow_coarse, cycle_match, out_hw)
-    dev = flow_coarse.device
     b, hc, wc = flow_coarse.shape[:3]
     ht, wt = out_hw if out_hw is not None else (hc, wc)
+    flow_dtype, match_dtype = _out_dtypes(flow_coarse, match12_down8, match21_down8,
+                                          cycle_match, (ht, wt) == (hc, wc))
+    flow_down8, match12_down8, match21_down8, flow_coarse = upcast(
+        flow_down8, match12_down8, match21_down8, flow_coarse)
+    if flow_coarse.device.type == "cpu":
+        flow12, match = compose_tail_ref(flow_down8, match12_down8, match21_down8,
+                                         flow_coarse, cycle_match, out_hw)
+        return flow12.to(flow_dtype), match.to(match_dtype)
+    dev = flow_coarse.device
     h8, w8 = flow_down8.shape[1:3]
     check(flow_coarse, "flow_coarse", torch.float32, shape=(b, hc, wc, 2))
     check(flow_down8, "flow_down8", torch.float32, shape=(b, h8, w8, 2), device=dev)
@@ -84,4 +112,4 @@ def compose_tail(flow_down8, match12_down8, match21_down8, flow_coarse,
     KERNEL(dev, ptr(flow_down8), ptr(match12_down8), ptr(match21_down8),
            ptr(flow_coarse), ptr(flow12), ptr(match), b, h8, w8, hc, wc, ht, wt,
            int(cycle_match), stream(flow_coarse))
-    return flow12, match
+    return flow12.to(flow_dtype), match.to(match_dtype)

@@ -6,7 +6,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.build import (
+    Kernel,
+    check,
+    forbid_grad,
+    ptr,
+    stream,
+    upcast,
+)
 
 MAX_KERNEL_SIZE = 11  # the source's kernels are instantiated for odd k up to 11
 
@@ -50,14 +57,18 @@ def _check_kernel_size(kernel_size):
 
 
 def correlation_pair(x, y, kernel_size=7):
-    """(B, H, W, C) fp32 x, y -> (corr(x, y), corr(y, x)), each (B, H, W,
-    k*k): the fine stage's two volumes. A CPU tensor takes the plain
-    version; a CUDA one launches one kernel that writes both (each value of
-    corr(x, y) also to its place in corr(y, x)), equal bit for bit to two
-    `correlation_volume` launches. Forward only."""
+    """(B, H, W, C) x, y -> (corr(x, y), corr(y, x)), each (B, H, W, k*k):
+    the fine stage's two volumes. A CPU tensor takes the plain version; a
+    CUDA one launches one kernel that writes both (each value of corr(x, y)
+    also to its place in corr(y, x)), equal bit for bit to two
+    `correlation_volume` launches. Forward only. bf16 features (the eval
+    policy) are upcast and the volumes rounded to bf16, the reference's
+    dtype."""
     forbid_grad("correlation_pair", x, y)
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    x, y = upcast(x, y)
     if x.device.type == "cpu":
-        return correlation_pair_ref(x, y, kernel_size)
+        return tuple(v.to(dtype) for v in correlation_pair_ref(x, y, kernel_size))
     _check_kernel_size(kernel_size)
     check(x, "x", torch.float32, ndim=4)
     check(y, "y", torch.float32, shape=x.shape, device=x.device)
@@ -66,7 +77,7 @@ def correlation_pair(x, y, kernel_size=7):
                          device=x.device)
     KERNEL_PAIR(x.device, ptr(x), ptr(y), ptr(xy), ptr(yx), b, h, w, c, kernel_size,
                 stream(x))
-    return xy, yx
+    return xy.to(dtype), yx.to(dtype)
 
 
 class _Correlation(torch.autograd.Function):
@@ -99,12 +110,16 @@ class _Correlation(torch.autograd.Function):
 
 
 def correlation_volume(x, y, kernel_size=7):
-    """(B, H, W, C) fp32 x, y -> (B, H, W, k*k) local correlation.
+    """(B, H, W, C) x, y -> (B, H, W, k*k) local correlation.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-    differentiable in x and y: the backward is a kernel too.
+    differentiable in x and y: the backward is a kernel too. bf16 inputs are
+    upcast and the volume rounded to bf16; their cotangents come back in
+    bf16.
     """
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    x, y = upcast(x, y)
     if x.device.type == "cpu":
-        return correlation_volume_ref(x, y, kernel_size)
+        return correlation_volume_ref(x, y, kernel_size).to(dtype)
     _check_kernel_size(kernel_size)
-    return _Correlation.apply(x, y, kernel_size)
+    return _Correlation.apply(x, y, kernel_size).to(dtype)

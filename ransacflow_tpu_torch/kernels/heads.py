@@ -5,7 +5,14 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.build import (
+    Kernel,
+    check,
+    forbid_grad,
+    ptr,
+    stream,
+    upcast,
+)
 from ransacflow_tpu_torch.ops.correlation import corr_offset_grids
 
 # every forward launch counts here: a fine pass's three epilogues, or one
@@ -55,10 +62,17 @@ def _check_flow_logits(logits, kernel_size):
 
 def head_epilogues(flow_logits, match12_logits, match21_logits, kernel_size=7):
     """`head_epilogues_ref` for CPU tensors, one kernel launch for CUDA ones.
-    Forward only: raises when an input requires grad under grad mode."""
+    Forward only: raises when an input requires grad under grad mode. bf16
+    logits (the eval policy) are upcast, and each output is rounded to its
+    logits' dtype, the reference's."""
     forbid_grad("head_epilogues", flow_logits, match12_logits, match21_logits)
+    dtypes = (flow_logits.dtype, match12_logits.dtype, match21_logits.dtype,
+              torch.promote_types(match12_logits.dtype, match21_logits.dtype))
+    flow_logits, match12_logits, match21_logits = upcast(flow_logits, match12_logits,
+                                                         match21_logits)
     if flow_logits.device.type == "cpu":
-        return head_epilogues_ref(flow_logits, match12_logits, match21_logits, kernel_size)
+        outs = head_epilogues_ref(flow_logits, match12_logits, match21_logits, kernel_size)
+        return tuple(o.to(d) for o, d in zip(outs, dtypes))
     dev = flow_logits.device
     _check_flow_logits(flow_logits, kernel_size)
     b, h, w, _ = flow_logits.shape
@@ -70,7 +84,7 @@ def head_epilogues(flow_logits, match12_logits, match21_logits, kernel_size=7):
     KERNEL(dev, ptr(flow_logits), ptr(match12_logits), ptr(match21_logits), ptr(flow),
            ptr(m12), ptr(m21), ptr(match), b * h * w, kernel_size, h, w,
            stream(flow_logits))
-    return flow, m12, m21, match
+    return tuple(o.to(d) for o, d in zip((flow, m12, m21, match), dtypes))
 
 
 class _FlowEpilogue(torch.autograd.Function):
@@ -119,16 +133,22 @@ class _MatchEpilogue(torch.autograd.Function):
 def flow_epilogue(logits, kernel_size=7):
     """`flow_epilogue_ref` for a CPU tensor, the kernel for a CUDA one,
     differentiable: its backward is a kernel too. The training path's flow
-    head; the alignment paths take `head_epilogues`."""
+    head; the alignment paths take `head_epilogues`. bf16 logits (both
+    policies) are upcast and the flow rounded to bf16; their cotangent
+    comes back in bf16."""
+    dtype = logits.dtype
+    (logits,) = upcast(logits)
     if logits.device.type == "cpu":
-        return flow_epilogue_ref(logits, kernel_size)
-    return _FlowEpilogue.apply(logits, kernel_size)
+        return flow_epilogue_ref(logits, kernel_size).to(dtype)
+    return _FlowEpilogue.apply(logits, kernel_size).to(dtype)
 
 
 def match_epilogue(logits):
     """`match_epilogue_ref` for a CPU tensor, the kernel for a CUDA one,
     differentiable: its backward is a kernel too. The training path's
-    matchability head."""
+    matchability head. bf16 as `flow_epilogue`."""
+    dtype = logits.dtype
+    (logits,) = upcast(logits)
     if logits.device.type == "cpu":
-        return match_epilogue_ref(logits)
-    return _MatchEpilogue.apply(logits)
+        return match_epilogue_ref(logits).to(dtype)
+    return _MatchEpilogue.apply(logits).to(dtype)

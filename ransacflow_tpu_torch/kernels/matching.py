@@ -5,7 +5,14 @@ import ctypes
 
 import torch
 
-from ransacflow_tpu_torch.kernels.build import Kernel, check, forbid_grad, ptr, stream
+from ransacflow_tpu_torch.kernels.build import (
+    Kernel,
+    check,
+    forbid_grad,
+    ptr,
+    stream,
+    upcast,
+)
 
 KERNEL = Kernel("rf_mutual_argmax",
                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6)
@@ -76,8 +83,12 @@ def mutual_argmax(score, relax_cells=0, grid_w=None, valid_b=None):
     read; two launches, nothing read back. Forward only: raises when
     `score` requires grad under grad mode."""
     forbid_grad("mutual_argmax", score)
+    dtype = score.dtype
+    (score,) = upcast(score)  # exact: every tie stays a tie
     if score.device.type == "cpu":
-        return mutual_argmax_ref(score, relax_cells, grid_w, valid_b)
+        best_src, best_tgt, valid, pair_score = mutual_argmax_ref(score, relax_cells,
+                                                                   grid_w, valid_b)
+        return best_src, best_tgt, valid, pair_score.to(dtype)
     _check_relax(relax_cells, grid_w)
     check(score, "score", torch.float32, ndim=2)
     n_a, n_b = score.shape
@@ -99,4 +110,4 @@ def mutual_argmax(score, relax_cells=0, grid_w=None, valid_b=None):
            n_chunks, rows_per_block, n_slices, slice_w, int(vec), int(relax_cells),
            int(grid_w or 0), ptr(keys), ptr(best_src), ptr(best_tgt), ptr(valid),
            ptr(pair_score), stream(score))
-    return best_src, best_tgt, valid, pair_score
+    return best_src, best_tgt, valid, pair_score.to(dtype)

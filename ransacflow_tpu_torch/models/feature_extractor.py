@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ransacflow_tpu_torch.models.layers import conv, nchw, nhwc
+from ransacflow_tpu_torch.models.layers import BatchNorm2d, conv, nchw, nhwc
 from ransacflow_tpu_torch.ops.blurpool import BlurPool
 
 LAYER_PLAN = (("layer1", 64, 64, 1), ("layer2", 64, 128, 2), ("layer3", 128, 256, 2))
@@ -21,14 +21,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin, cout, stride):
         super().__init__()
         self.conv1 = conv(cin, cout, 3, stride, 1)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = conv(cout, cout, 3, 1, 1)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(BlurPool(cin, 3, stride),
                                             conv(cin, cout, 1),
-                                            nn.BatchNorm2d(cout))
+                                            BatchNorm2d(cout))
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -41,7 +41,7 @@ class FeatureExtractor(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = conv(3, 64, 3, 1, 1)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.blur = BlurPool(64, 3, 2)
         for name, cin, cout, stride in LAYER_PLAN:
             setattr(self, name, nn.Sequential(BasicBlock(cin, cout, stride),

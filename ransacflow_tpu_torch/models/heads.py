@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ransacflow_tpu_torch.kernels.heads import flow_epilogue, match_epilogue
-from ransacflow_tpu_torch.models.layers import conv, nchw, nhwc
+from ransacflow_tpu_torch.models.layers import BatchNorm2d, conv, nchw, nhwc
 from ransacflow_tpu_torch.ops.sampler import upsample_bilinear_x8
 
 TRUNK = (512, 256, 128)
@@ -28,7 +28,7 @@ class Head(nn.Module):
         widths = (kernel_size * kernel_size,) + TRUNK
         for i in range(3):
             setattr(self, f"conv{i + 1}", conv(widths[i], widths[i + 1], 3, 1, 1))
-            setattr(self, f"bn{i + 1}", nn.BatchNorm2d(widths[i + 1]))
+            setattr(self, f"bn{i + 1}", BatchNorm2d(widths[i + 1]))
         self.conv4 = conv(TRUNK[-1], out_ch, 3, 1, 1)
 
     def forward(self, x):

@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ransacflow_tpu_torch.models.layers import conv, nchw, nhwc
+from ransacflow_tpu_torch.models.layers import BatchNorm2d, conv, nchw, nhwc
 
 LAYERS = (("layer1", 3, 64, 1), ("layer2", 4, 128, 2), ("layer3", 6, 256, 2))
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -23,15 +23,15 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, planes, stride, dilation=1):
         super().__init__()
         self.conv1 = conv(cin, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv(planes, planes, 3, stride, dilation, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = None
         if stride != 1 or cin != planes * 4:
             self.downsample = nn.Sequential(conv(cin, planes * 4, 1, stride),
-                                            nn.BatchNorm2d(planes * 4))
+                                            BatchNorm2d(planes * 4))
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -45,7 +45,7 @@ class ResNet50Layer3(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, 3)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for name, blocks, planes, stride in LAYERS:
             mods = [Bottleneck(inplanes, planes, stride)]

@@ -2,9 +2,10 @@
 `ransacflow_tpu/ops/matching.py:24-74`).
 
 The score GEMM is `torch.matmul`; its argmax/reciprocity epilogue is kernel 2
-(`kernels/matching.py`). With exact reciprocity a source cell matches at
-most one target cell; with `relax_cells > 0` several target cells may keep
-the same source cell.
+(`kernels/matching.py`). bf16 banks (the eval policy) give an fp32 score, as
+the reference's `preferred_element_type=float32` does (`:53`). With exact
+reciprocity a source cell matches at most one target cell; with
+`relax_cells > 0` several target cells may keep the same source cell.
 """
 
 from typing import NamedTuple
@@ -22,8 +23,20 @@ class MatchResult(NamedTuple):
     score: torch.Tensor    # score of the pair
 
 
+def score_gemm(featA, featB):
+    """(nA, nB) cosine score ``featA.T @ featB`` of (C, nA) and (C, nB) banks.
+    bf16 banks: bf16 products (exact in fp32) summed in fp32 to an fp32
+    score, on the card by cuBLAS's bf16 GEMM with an fp32 output."""
+    a = featA.T
+    if featA.dtype != torch.bfloat16:
+        return a @ featB
+    if featA.device.type == "cuda":
+        return torch.mm(a, featB, out_dtype=torch.float32)
+    return a.float() @ featB.float()
+
+
 def _score(featA, featB, validB):
-    score = featA.T @ featB  # (nA, nB)
+    score = score_gemm(featA, featB)  # (nA, nB)
     if validB is not None:
         score = score * validB.to(score.dtype)[None, :]
     return score
@@ -43,8 +56,8 @@ def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     on a masked cell (score 0, when every unmasked score of the source row
     is negative) still validates its unmasked neighbours.
     """
-    best_src, _, valid, pair_score = mutual_argmax(featA.T @ featB, relax_cells, grid_w,
-                                                   validB)
+    best_src, _, valid, pair_score = mutual_argmax(score_gemm(featA, featB), relax_cells,
+                                                   grid_w, validB)
     return MatchResult(best_src, valid, pair_score)
 
 

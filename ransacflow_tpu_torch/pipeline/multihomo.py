@@ -59,11 +59,11 @@ def multi_homography_predict(coarse, params, max_coarse=10, mask_region_th=0.01,
             break
         out = pred_flow_mask_homography(params, src, featt, coarse.put(H)[None], (ht, wt),
                                         cycle_match=cycle_match, kernel_size=kernel_size)
-        match_fine = out["match"].cpu().numpy()
+        match_fine = out["match"].float().cpu().numpy()
         if (match_fine * (1.0 - fg_mask)).mean() > mask_region_th or nb_coarse == 0:
             hs.append(H)
-            flows.append(out["flow_down8"][0].cpu().numpy())
-            matches.append(out["match_down8"][0].cpu().numpy())
+            flows.append(out["flow_down8"][0].float().cpu().numpy())
+            matches.append(out["match_down8"][0].float().cpu().numpy())
             nb_coarse += 1
             # the reference's `len == 0` guard is dead code (the append comes
             # first), so the accepted region is always re-masked by (1 - fg)
@@ -237,16 +237,3 @@ def multi_homography_predict_fused(coarse, params, max_coarse=10,
         cycle_match=cycle_match, bg_mask=bg_mask, kernel_size=kernel_size,
         generator=generator)
     return multi_homography_finalize(final, bg)
-
-
-def use_device_loop(n_devices, batch_pairs=None):
-    """The eval harnesses' `n_devices`: None runs the host loop, 1 the
-    device-resident loop (one pair at a time, each on its own draws). A pool
-    of devices and batched pairs are not ported yet."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(f"a pool of {n_devices} devices is not ported yet "
-                                  "(ROADMAP.md queue 1, item 12)")
-    if batch_pairs is not None:
-        raise NotImplementedError("batched pairs (--batchPairs) are not ported yet "
-                                  "(ROADMAP.md queue 1, item 12)")
-    return n_devices == 1

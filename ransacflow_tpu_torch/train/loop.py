@@ -56,20 +56,23 @@ def fit(nets, train_dir, out_dir, device, mode="flow", mu_cycle=0.0,
     `BestModel@8_{prec:.3f}` at the end. Without it, checkpoints go to
     `out_dir` as `checkpoint_epoch{e}.pt` every `epoch_save_model` epochs and
     prec@8 is logged as 0. use_native: resize the training crops with the
-    native Lanczos resampler (`ransacflow_tpu_torch.native`).
+    native Lanczos resampler (`ransacflow_tpu_torch.native`). compute_dtype
+    ('bfloat16'): the mixed-precision policy (bf16 convolutions, fp32
+    masters, BatchNorm and Adam state); remat: recompute the feature trunk
+    in the backward (`train.losses.compute_losses`). Validation runs the
+    fp32 networks, as the reference's does.
 
     Returns (the optimizer, the best prec@8, 0.0 without validation).
     """
     if n_devices != 1:
-        not_ported("data-parallel training (n_devices > 1)", "item 12")
-    if compute_dtype is not None or remat:
-        not_ported("bf16 compute and remat", "item 14")
+        not_ported("data-parallel training (n_devices > 1)", "item 12b")
     device = as_device(device)
     os.makedirs(out_dir, exist_ok=True)
     logger = MetricsLogger(out_dir)
     opt = make_optimizer(split_trainable(nets, mode)[0], lr)
     loss_kwargs = dict(mode=mode, mu_cycle=mu_cycle, lambda_match=lambda_match,
-                       grad_weight=grad_weight, kernel_size=kernel_size)
+                       grad_weight=grad_weight, kernel_size=kernel_size,
+                       compute_dtype=compute_dtype, remat=remat)
     roll = local_index_roll(batch_size, device)
     grid = normalized_grid(img_size, img_size, device)[None]
     mask = margin_mask(2 * batch_size, img_size, margin, device)

@@ -15,9 +15,18 @@ A network outside the mode's trained set runs in eval mode under
 CUDA tensors the losses run through hand kernels with kernel backwards:
 correlation (K6), head epilogues (K7), blur-pool (K9, in the feature
 extractor), masked SSIM (K10) and `grid_sample` (K5 forward, K11 backward).
+
+`compute_dtype` is the reference's mixed-precision policy
+(`models.layers.cast_compute_params`): bf16 convolutions from fp32 masters,
+fp32 BatchNorm, so the features are fp32 and only the heads' last
+convolution gives bf16 (K7 takes bf16 logits); the flow and matchability
+become fp32 where the reference casts them (`ransacflow_tpu/train/
+losses.py:121`). `remat` recomputes the feature trunk in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint`).
 """
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ransacflow_tpu_torch.kernels.correlation import correlation_volume
 from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss
@@ -29,7 +38,11 @@ from ransacflow_tpu_torch.models.heads import (
     net_flow_coarse,
     net_matchability,
 )
-from ransacflow_tpu_torch.models.layers import l2_normalize
+from ransacflow_tpu_torch.models.layers import (
+    cast_compute_params,
+    frozen_bn_stats,
+    l2_normalize,
+)
 
 TRAIN_MODULES = {
     "flow": ("netFeatCoarse", "netFlowCoarse"),
@@ -49,8 +62,30 @@ def _ratio(num, den):
     return num.sum() / (den.sum() + 0.001)
 
 
+def _rematerialized(compute_dtype):
+    """The feature trunk under `checkpoint`: its activations are recomputed
+    in the backward, not kept. The recompute runs under the same compute
+    dtype (the backward runs outside `compute_losses`' policy block) and
+    normalizes with the batch's moments again, but leaves the running
+    statistics alone, so that they move once, as in the plain step
+    (`jax.checkpoint` is pure)."""
+    def trunk_of(net, images):
+        runs = []
+
+        def trunk(x):
+            with cast_compute_params([net], compute_dtype), \
+                    frozen_bn_stats(net, frozen=bool(runs)):
+                runs.append(1)
+                return feature_extractor(net, x)
+
+        return checkpoint(trunk, images, use_reentrant=False)
+
+    return trunk_of
+
+
 def compute_losses(nets, images, index_roll, grid, mask_margin, mode="flow",
-                   mu_cycle=1.0, lambda_match=0.01, grad_weight=0.0, kernel_size=7):
+                   mu_cycle=1.0, lambda_match=0.01, grad_weight=0.0, kernel_size=7,
+                   compute_dtype=None, remat=False):
     """Returns (total_loss, dict of the four loss terms).
 
     nets: dict of the alignment networks ('netFeatCoarse', 'netFlowCoarse',
@@ -59,7 +94,18 @@ def compute_losses(nets, images, index_roll, grid, mask_margin, mode="flow",
     images: (2B, H, W, 3) in [0, 1]; index_roll: (2B,) permutation pairing
       each image with its counterpart; grid: (1, H, W, 2) identity grid;
       mask_margin: (2B, H, W, 1) central-crop supervision mask.
+    compute_dtype: None (fp32) or the convolutions' dtype (torch.bfloat16 or
+      'bfloat16') under the mixed-precision policy; remat: recompute the
+      feature trunk in the backward.
     """
+    trunk = _rematerialized(compute_dtype) if remat else feature_extractor
+    with cast_compute_params(nets.values(), compute_dtype):
+        return _losses(nets, trunk, images, index_roll, grid, mask_margin, mode,
+                       mu_cycle, lambda_match, grad_weight, kernel_size)
+
+
+def _losses(nets, trunk, images, index_roll, grid, mask_margin, mode, mu_cycle,
+            lambda_match, grad_weight, kernel_size):
     trained = TRAIN_MODULES[mode]
     with_match = mode in ("flow+match", "grad")
 
@@ -71,14 +117,14 @@ def compute_losses(nets, images, index_roll, grid, mask_margin, mode="flow",
         with torch.no_grad():
             return fn(net, *args)
 
-    f = l2_normalize(run("netFeatCoarse", feature_extractor, images))
+    f = l2_normalize(run("netFeatCoarse", trunk, images))
     corr = correlation_volume(f[index_roll], f, kernel_size)
-    flow = run("netFlowCoarse", net_flow_coarse, corr, True, kernel_size)
+    flow = run("netFlowCoarse", net_flow_coarse, corr, True, kernel_size).float()
     flow_grad = flow_gradient_magnitude(flow)  # (2B, H-1, W-1, 1)
     final = flow_to_grid(flow, grid)           # (2B, H, W, 2)
 
     if with_match:
-        match = run("netMatch", net_matchability, corr, True) * mask_margin
+        match = run("netMatch", net_matchability, corr, True).float() * mask_margin
         match_cycle = grid_sample(match[index_roll], final) * match
         cycle_weight = recon_mask = match_cycle
     else:

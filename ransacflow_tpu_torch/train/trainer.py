@@ -27,9 +27,12 @@ def local_index_roll(batch_size, device):
 
 
 def train_step(nets, opt, images, index_roll, grid, mask_margin, mode="flow",
-               mu_cycle=0.0, lambda_match=0.01, grad_weight=0.0, kernel_size=7):
+               mu_cycle=0.0, lambda_match=0.01, grad_weight=0.0, kernel_size=7,
+               compute_dtype=None, remat=False):
     """One Adam step of `opt` (built over `split_trainable(nets, mode)[0]`)
     on the batch; the trained networks' BatchNorm statistics move too.
+    compute_dtype, remat: `train.losses.compute_losses`'s; the master
+    weights, their gradients and Adam's state stay fp32 under either.
 
     Returns the metrics dict {'loss', 'loss_lr', 'loss_cycle', 'loss_match',
     'loss_grad'} of 0-d tensors on the batch's device (nothing is read back).
@@ -38,7 +41,8 @@ def train_step(nets, opt, images, index_roll, grid, mask_margin, mode="flow",
     loss, terms = compute_losses(nets, images, index_roll, grid, mask_margin,
                                  mode=mode, mu_cycle=mu_cycle,
                                  lambda_match=lambda_match, grad_weight=grad_weight,
-                                 kernel_size=kernel_size)
+                                 kernel_size=kernel_size, compute_dtype=compute_dtype,
+                                 remat=remat)
     loss.backward()
     opt.step()
     return {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}

@@ -93,6 +93,9 @@ def validate(rows, val_dir, coarse_transforms, nets, device, kernel_size=7, min_
       modes are restored after).
     Returns the precision (8,) at the PIXEL_GRID thresholds.
     """
+    if len(coarse_transforms) < len(rows):
+        raise ValueError(f"{len(coarse_transforms)} coarse transforms for {len(rows)} "
+                         "rows: the coarse.pkl holds one (2, 3) affine per CSV row")
     modes = {name: nets[name].training for name in FINE_NETS}
     for name in FINE_NETS:
         nets[name].eval()

@@ -22,9 +22,9 @@ from ransacflow_tpu.models import init_resnet50_layer3 as j_init_resnet
 from ransacflow_tpu.pipeline import init_alignment_params as j_init_align
 from ransacflow_tpu_torch.cli import common as cli_common
 from ransacflow_tpu_torch.cli import eval_corr, eval_hpatches, eval_kitti
-from ransacflow_tpu_torch.eval import artifacts, corr, hpatches, kitti
+from ransacflow_tpu_torch.eval import artifacts, corr, hpatches, kitti, pooled
 from ransacflow_tpu_torch.models import convert, segnet
-from ransacflow_tpu_torch.pipeline import CoarseAligner, multihomo
+from ransacflow_tpu_torch.pipeline import CoarseAligner
 from test_torch_eval import (
     H_IMG,
     W_IMG,
@@ -108,26 +108,40 @@ def test_predict_hpatches_matches_jax(tmp_path, rng, nets, monkeypatch):
     _same_schema(ours, ref, ("coarse_h", "fine_flow_down8", "fine_match_down8", "bg_mask"))
 
 
+def _same_artifacts(dir_a, dir_b, ids):
+    """The pair artifacts `ids` of two output directories, bit for bit."""
+    for i in ids:
+        a, b = artifacts.load_pair(dir_a, i), artifacts.load_pair(dir_b, i)
+        assert a is not None and set(a) == set(b), i
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=f"{i} {key}")
+
+
 def test_predict_hpatches_fused_and_pools(tmp_path, rng, nets, monkeypatch):
-    """n_devices=1 runs each pair through the device-resident loop and
-    recovers the translation; a pool of more devices and batched pairs
-    raise, naming their ROADMAP item."""
+    """n_devices=1 runs each pair through the pool's device-resident loop
+    and recovers the translation; batched pairs and a pool of two slots on
+    the CPU write the same artifacts bit for bit; a pool of 2 CPU devices
+    raises, naming the count and ROADMAP item 12b."""
     _, _, resnet, align = nets
     csv_dir, image_dir, kw = _hpatches_case(tmp_path, rng)
     calls = []
-    fused = multihomo.multi_homography_predict_fused
-    monkeypatch.setattr(hpatches, "multi_homography_predict_fused",
-                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    dispatch = pooled.multi_homography_dispatch
+    monkeypatch.setattr(pooled, "multi_homography_dispatch",
+                        lambda *a, **k: calls.append(1) or dispatch(*a, **k))
     hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / "fused"), resnet, align,
                               "cpu", n_devices=1, **kw)
     assert calls == [1]
     res, _ = hpatches.evaluate_hpatches(str(tmp_path / "fused"), csv_dir, image_dir, "cpu",
                                         scenes=(2,), out_size=160, only_coarse=True)
     assert res[2] < 1.0, res
-    for pool in (dict(n_devices=2), dict(n_devices=1, batch_pairs=4)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / "x"), resnet, align,
-                                      "cpu", **dict(kw, **pool))
+    for name, pool in (("batched", dict(n_devices=1, batch_pairs=4)),
+                       ("two_slots", dict(n_devices=["cpu", "cpu"]))):
+        hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / name), resnet, align,
+                                  "cpu", **dict(kw, **pool))
+        _same_artifacts(str(tmp_path / "fused" / "2"), str(tmp_path / name / "2"), [0])
+    with pytest.raises(RuntimeError, match="2 cpu devices: this machine has 1.*item 12b"):
+        hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / "x"), resnet, align,
+                                  "cpu", **dict(kw, n_devices=2))
 
 
 def test_predict_corr_matches_jax(tmp_path, rng, nets, monkeypatch):
@@ -222,9 +236,9 @@ def test_eval_hpatches_cli(tmp_path, rng, monkeypatch, capsys):
     csv_dir, image_dir = _write_hpatches_dataset(tmp_path, rng)
     paths = ["--csv-path", csv_dir, "--image-data-path", image_dir]
     calls = []
-    fused = multihomo.multi_homography_predict_fused
-    monkeypatch.setattr(hpatches, "multi_homography_predict_fused",
-                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    dispatch = pooled.multi_homography_dispatch
+    monkeypatch.setattr(pooled, "multi_homography_dispatch",
+                        lambda *a, **k: calls.append(1) or dispatch(*a, **k))
     for scene in (3, 4, 5, 6):  # the CLI reads scenes 2-6
         os.link(os.path.join(csv_dir, "hpatches_1_2.csv"),
                 os.path.join(csv_dir, f"hpatches_1_{scene}.csv"))
@@ -240,9 +254,27 @@ def test_eval_hpatches_cli(tmp_path, rng, monkeypatch, capsys):
     assert "Scene 2, Average end-point error (EPE)" in out and "Overall mean AEPE" in out
 
 
-CLI_PATHS = {"hpatches": (eval_hpatches, ["--csv-path", "c", "--image-data-path", "i"]),
-             "corr": (eval_corr, ["--testCSV", "c", "--testDir", "i"]),
-             "kitti": (eval_kitti, ["--testImg", "i"])}
+def _cli_case(cli, tmp_path, rng):
+    """(CLI module, its predict function's name, the index of the coarse
+    trunk among that function's arguments, the predict arguments on a
+    160-px set, the artifact directories under --outDir)."""
+    if cli == "hpatches":
+        csv_dir, image_dir = _write_hpatches_dataset(tmp_path, rng)
+        for scene in (3, 4, 5, 6):  # the CLI reads scenes 2-6
+            os.link(os.path.join(csv_dir, "hpatches_1_2.csv"),
+                    os.path.join(csv_dir, f"hpatches_1_{scene}.csv"))
+        return (eval_hpatches, "predict_hpatches", 3,
+                ["--csv-path", csv_dir, "--image-data-path", image_dir, "--minSize", "160",
+                 "--maxCoarse", "0"], [str(s) for s in range(2, 7)])
+    if cli == "corr":
+        csv_path, img_dir = _write_corr_dataset(tmp_path, rng)
+        return (eval_corr, "predict_corr", 3,
+                ["--testCSV", csv_path, "--testDir", img_dir, "--minSize", "160",
+                 "--maxCoarse", "0"], [""])
+    img_dir, _ = _kitti_dataset(tmp_path, rng)
+    return (eval_kitti, "predict_kitti", 2,
+            ["--testImg", img_dir, "--coarseSize", "160", "--fineSize", "128",
+             "--endIndex", "1"], [""])
 
 
 @pytest.mark.parametrize("cli,flags,item", [
@@ -250,12 +282,38 @@ CLI_PATHS = {"hpatches": (eval_hpatches, ["--csv-path", "c", "--image-data-path"
     *[(cli, ["--batchPairs", "2", "--fused"], "item 12") for cli in ("hpatches", "corr")],
     *[(cli, ["--computeDtype", "bfloat16"], "item 14") for cli in ("hpatches", "corr", "kitti")],
 ])
-def test_eval_clis_reject_what_is_not_ported(tmp_path, cli, flags, item):
-    """A pool of devices, batched pairs (eval_kitti has no --batchPairs, as
-    the JAX CLI has none) and bfloat16 raise, naming their ROADMAP item."""
-    main, paths = CLI_PATHS[cli]
-    with pytest.raises(NotImplementedError, match=item):
-        main.main(["predict", *paths, "--outDir", str(tmp_path), "--device", "cpu", *flags])
+def test_eval_clis_reject_what_is_not_ported(tmp_path, rng, monkeypatch, cli, flags, item):
+    """--nDevices 2 on a machine with one device (the CPU) raises, naming the
+    count and ROADMAP item 12b. The flags of items 12a and 14 run now:
+    --batchPairs 2 --fused writes --fused's artifacts bit for bit (eval_kitti
+    has no --batchPairs, as the JAX CLI has none), and --computeDtype
+    bfloat16 hands the harness networks cast to bf16, parameters and
+    BatchNorm statistics alike, and writes finite fp32 artifacts."""
+    main, fn_name, trunk_arg, args, subdirs = _cli_case(cli, tmp_path, rng)
+    argv = ["predict", *args, *SMALL]
+    if flags[0] == "--nDevices":
+        with pytest.raises(RuntimeError, match=f"2 cpu devices: this machine has 1.*{item}b"):
+            main.main([*argv, "--outDir", str(tmp_path / "x"), *flags])
+        return
+    if flags[0] == "--batchPairs":
+        main.main([*argv, "--outDir", str(tmp_path / "fused"), "--fused"])
+        main.main([*argv, "--outDir", str(tmp_path / "batched"), *flags])
+        for sub in subdirs:
+            _same_artifacts(str(tmp_path / "fused" / sub), str(tmp_path / "batched" / sub),
+                            [0])
+        return
+    seen = []
+    predict = getattr(main, fn_name)
+    monkeypatch.setattr(main, fn_name, lambda *a, **k: seen.append(a) or predict(*a, **k))
+    main.main([*argv, "--outDir", str(tmp_path / "bf16"), *flags])
+    resnet, align = seen[0][trunk_arg], seen[0][trunk_arg + 1]
+    for net in (resnet, *align.values()):
+        assert {t.dtype for t in net.state_dict().values() if t.is_floating_point()} == \
+            {torch.bfloat16}
+    for sub in subdirs:
+        art = artifacts.load_pair(str(tmp_path / "bf16" / sub), 0)
+        for key in ("coarse_h", "fine_flow_down8", "fine_match_down8"):
+            assert art[key].dtype == np.float32 and np.isfinite(art[key]).all(), key
 
 
 def test_eval_corr_cli(tmp_path, rng, monkeypatch, capsys):

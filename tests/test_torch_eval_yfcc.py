@@ -20,7 +20,7 @@ from PIL import Image
 from ransacflow_tpu_torch.cli import eval_yfcc, generate_pairs, resize_dataset
 from ransacflow_tpu_torch.eval import aachen, artifacts, yfcc
 from ransacflow_tpu_torch.kernels import warp_sample
-from ransacflow_tpu_torch.pipeline import CoarseAligner, multihomo
+from ransacflow_tpu_torch.pipeline import CoarseAligner
 from test_torch_eval import (
     DX_PX,
     DY_PX,
@@ -116,12 +116,14 @@ def test_predict_yfcc_matches_jax(tmp_path, rng, nets, jx, monkeypatch):
 
 def test_predict_yfcc_device_loop_and_pools(tmp_path, rng, nets, monkeypatch):
     """n_devices=1 dispatches the four rotations' fits, reads their counts
-    back once, picks 270 and runs the device-resident loop; a pool of more
-    devices and batched pairs raise, naming their ROADMAP item."""
+    back once, picks 270 and runs the device-resident loop; batched pairs
+    and a pool of two slots on the CPU write the same artifacts bit for bit,
+    the rotation included; a pool of 2 CPU devices raises, naming the count
+    and ROADMAP item 12b."""
     _, _, resnet, align = nets
     pkl, scene = _rotated_scene(tmp_path, rng)
     calls = {"dispatch": 0, "fused": 0}
-    dispatch, fused = CoarseAligner.dispatch_inlier_count, multihomo.multi_homography_predict_fused
+    dispatch, fused = CoarseAligner.dispatch_inlier_count, yfcc.multi_homography_dispatch
 
     def counting(name, fn):
         def wrapped(*args, **kwargs):
@@ -130,7 +132,7 @@ def test_predict_yfcc_device_loop_and_pools(tmp_path, rng, nets, monkeypatch):
         return wrapped
 
     monkeypatch.setattr(CoarseAligner, "dispatch_inlier_count", counting("dispatch", dispatch))
-    monkeypatch.setattr(yfcc, "multi_homography_predict_fused", counting("fused", fused))
+    monkeypatch.setattr(yfcc, "multi_homography_dispatch", counting("fused", fused))
     yfcc.predict_yfcc(pkl, scene, str(tmp_path / "fused"), resnet, align, "cpu", n_devices=1,
                       **PREDICT_KW)
     assert calls == {"dispatch": 4, "fused": 1}
@@ -139,10 +141,17 @@ def test_predict_yfcc_device_loop_and_pools(tmp_path, rng, nets, monkeypatch):
     h = art["coarse_h"][0] / art["coarse_h"][0, 2, 2]
     tx, ty = h[0, 2] * (W_IMG - 1) / 2, h[1, 2] * (H_IMG - 1) / 2  # the planted shift, px
     assert abs(tx - DX_PX) < 1 and abs(ty - DY_PX) < 1, (tx, ty)
-    for pool in (dict(n_devices=2), dict(n_devices=1, batch_pairs=4)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            yfcc.predict_yfcc(pkl, scene, str(tmp_path / "x"), resnet, align, "cpu",
-                              **dict(PREDICT_KW, **pool))
+    for name, pool in (("batched", dict(n_devices=1, batch_pairs=4)),
+                       ("two_slots", dict(n_devices=["cpu", "cpu"]))):
+        yfcc.predict_yfcc(pkl, scene, str(tmp_path / name), resnet, align, "cpu",
+                          **dict(PREDICT_KW, **pool))
+        other = artifacts.load_pair(str(tmp_path / name), 0)
+        assert set(other) == set(art)
+        for key in art:
+            np.testing.assert_array_equal(other[key], art[key], err_msg=f"{name} {key}")
+    with pytest.raises(RuntimeError, match="2 cpu devices: this machine has 1.*item 12b"):
+        yfcc.predict_yfcc(pkl, scene, str(tmp_path / "x"), resnet, align, "cpu",
+                          **dict(PREDICT_KW, n_devices=2))
 
 
 @pytest.mark.parametrize("angle", [0, 90, 180, 270])
@@ -371,7 +380,39 @@ def test_eval_yfcc_cli(tmp_path, rng):
 @pytest.mark.parametrize("flag,item", [(["--nDevices", "2"], "item 12"),
                                        (["--batchPairs", "2"], "item 12"),
                                        (["--computeDtype", "bfloat16"], "item 14")])
-def test_eval_yfcc_cli_rejects_what_is_not_ported(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        eval_yfcc.main(["predict", "--testImg", str(tmp_path), "--testPair", str(tmp_path),
-                        "--outDir", str(tmp_path), "--device", "cpu", *flag])
+def test_eval_yfcc_cli_rejects_what_is_not_ported(tmp_path, rng, monkeypatch, flag, item):
+    """--nDevices 2 on a machine with one device (the CPU) raises, naming the
+    count and ROADMAP item 12b. The flags of items 12a and 14 run now:
+    --batchPairs 2 with --fused writes --fused's artifact bit for bit, and
+    --computeDtype bfloat16 hands `predict_yfcc` networks cast to bf16 and
+    writes a finite fp32 artifact with its rotation."""
+    _rotated_scene(tmp_path, rng)
+    argv = ["predict", "--testImg", str(tmp_path / "imgs"), "--testPair",
+            str(tmp_path / "pairs"), "--testScene", "reichstag", "--minSize", str(H_IMG),
+            "--nbScale", "1", "--coarseIter", "300", "--maxCoarse", "0", "--device", "cpu"]
+    out = lambda name: ["--outDir", str(tmp_path / name)]  # noqa: E731
+    if flag[0] == "--nDevices":
+        with pytest.raises(RuntimeError, match=f"2 cpu devices: this machine has 1.*{item}b"):
+            eval_yfcc.main([*argv, *out("x"), *flag])
+        return
+    if flag[0] == "--batchPairs":
+        eval_yfcc.main([*argv, *out("fused"), "--fused"])
+        eval_yfcc.main([*argv, *out("batched"), "--fused", *flag])
+        a = artifacts.load_pair(str(tmp_path / "fused" / "reichstag"), 0)
+        b = artifacts.load_pair(str(tmp_path / "batched" / "reichstag"), 0)
+        assert set(a) == set(b)
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        return
+    seen = []
+    predict = eval_yfcc.predict_yfcc
+    monkeypatch.setattr(eval_yfcc, "predict_yfcc",
+                        lambda *a, **k: seen.append(a) or predict(*a, **k))
+    eval_yfcc.main([*argv, *out("bf16"), *flag])
+    for net in (seen[0][3], *seen[0][4].values()):
+        assert {t.dtype for t in net.state_dict().values() if t.is_floating_point()} == \
+            {torch.bfloat16}
+    art = artifacts.load_pair(str(tmp_path / "bf16" / "reichstag"), 0)
+    assert int(art["rotation"]) in yfcc.ANGLES
+    for key in ("coarse_h", "fine_flow_down8", "fine_match_down8"):
+        assert art[key].dtype == np.float32 and np.isfinite(art[key]).all(), key

@@ -28,7 +28,10 @@ from ransacflow_tpu_torch import kernels
 from ransacflow_tpu_torch.kernels import compose as kcompose
 from ransacflow_tpu_torch.kernels import pyramid
 from ransacflow_tpu_torch.kernels.adaptive_pool import ppm_pool
-from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_feats
+from ransacflow_tpu_torch.kernels.anchor_resample import (
+    anchor_resample_feats,
+    anchor_resample_feats_ref,
+)
 from ransacflow_tpu_torch.kernels.blurpool import binomial_filter, blur_pool, blur_pool_ref
 from ransacflow_tpu_torch.kernels.compose import compose_tail, compose_tail_ref
 from ransacflow_tpu_torch.kernels.correlation import (
@@ -1186,3 +1189,96 @@ def _check_masked_ssim_on_card(cuda, rng, b, h, w):
     torch.testing.assert_close(d_k, d_r, atol=1e-5 * float(d_r.abs().max()), rtol=0)
     with pytest.raises(RuntimeError, match="img2"):
         masked_ssim_loss(img1, img2.clone().requires_grad_(), match)
+
+
+def _close_bf16(got, want):
+    """A bf16 output against its plain version's fp32 result rounded to bf16:
+    within one bf16 spacing (the kernel's and the plain version's fp32 sums
+    may round to neighbouring bf16 values), and bf16 itself."""
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(), rtol=2**-7,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bf16_inputs_launch_the_kernels_on_card(cuda, rng):
+    """The boundary casts of the eval and training policies: each wrapper of
+    a bf16 path (K2, K6 and its pair form, K7, K8, K9, K12), handed bf16
+    CUDA tensors, launches its kernel (and its backward kernel) and matches
+    its plain version run on the fp32 upcast of the same inputs; the
+    cotangents come back in bf16. K2's answer is its plain version's bit for
+    bit (the upcast is exact)."""
+    b16 = torch.bfloat16
+
+    def on(a):
+        return t(a).to(cuda).to(b16)
+
+    def launched(name, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        assert kernels.launch_counts()[name] >= 1, name
+        return out
+
+    x, y = on(rng.randn(1, 9, 21, 256)), on(rng.randn(1, 9, 21, 256))
+    for got, want in zip(launched("correlation_pair", lambda: correlation_pair(x, y, 7)),
+                         correlation_pair_ref(x.float(), y.float(), 7)):
+        _close_bf16(got, want)
+    xg, xr = x.clone().requires_grad_(), x.float().requires_grad_()
+    out = launched("correlation_volume", lambda: correlation_volume(xg, y, 7))
+    ref = correlation_volume_ref(xr, y.float(), 7)
+    _close_bf16(out, ref)
+    g = on(rng.randn(*out.shape))
+    launched("correlation_volume_bwd", lambda: out.backward(g))
+    ref.backward(g.float())
+    _close_bf16(xg.grad, xr.grad)
+
+    logits, m12, m21 = on(rng.randn(2, 7, 9, 49)), on(rng.randn(2, 7, 9, 1)), \
+        on(rng.randn(2, 7, 9, 1))
+    for got, want in zip(launched("head_epilogues", lambda: head_epilogues(logits, m12, m21)),
+                         head_epilogues_ref(logits.float(), m12.float(), m21.float())):
+        _close_bf16(got, want)
+    for fn, ref_fn, arg in ((flow_epilogue, flow_epilogue_ref, logits),
+                            (match_epilogue, match_epilogue_ref, m12)):
+        ag, ar = arg.clone().requires_grad_(), arg.float().requires_grad_()
+        out = launched("head_epilogues", lambda: fn(ag))
+        ref = ref_fn(ar)
+        _close_bf16(out, ref)
+        g = on(rng.randn(*out.shape))
+        launched("head_epilogues_bwd", lambda: out.backward(g))
+        ref.backward(g.float())
+        _close_bf16(ag.grad, ar.grad)
+
+    a, bnk, valid_b = _banks(rng, c=32, n_a=3001, n_b=301)
+    score = (t(a).T @ t(bnk)).to(cuda).to(b16)  # bf16 rounding makes ties common
+    got = launched("mutual_argmax", lambda: mutual_argmax(score, 1, 7))
+    want = mutual_argmax_ref(score.float(), 1, 7)
+    for gi, wi in zip(got[:3], want[:3]):
+        assert torch.equal(gi, wi)
+    assert got[3].dtype == b16 and torch.equal(got[3].float(), want[3])
+
+    fmap = on(rng.randn(1, 13, 17, 64))
+    _close_bf16(launched("anchor_resample", lambda: anchor_resample_feats(fmap, 5, 7)),
+                anchor_resample_feats_ref(fmap.float(), 5, 7))
+
+    flow8, c12, c21, coarse = _compose_inputs(rng, b=1, identity=False)
+    args = (on(flow8), on(c12), on(c21), t(coarse).to(cuda))
+    for cycle_match in (True, False):
+        flow, match = launched("compose_tail", lambda: compose_tail(*args, cycle_match))
+        flow_r, match_r = compose_tail_ref(*(a.float() for a in args), cycle_match)
+        assert flow.dtype == torch.float32
+        torch.testing.assert_close(flow, flow_r, atol=1e-5, rtol=0)
+        if cycle_match:  # match12 times the fp32 sample: fp32, as in JAX
+            torch.testing.assert_close(match, match_r, atol=1e-5, rtol=0)
+        else:
+            _close_bf16(match, match_r)
+
+    xb = on(rng.randn(2, 64, 13, 18)).contiguous(memory_format=torch.channels_last)
+    filt = binomial_filter(64, 3, cuda).to(b16)
+    xg, xr = xb.clone().requires_grad_(), xb.float().requires_grad_()
+    out = launched("blur_pool", lambda: blur_pool(xg, filt))
+    ref = blur_pool_ref(xr, filt.float())
+    _close_bf16(out, ref)
+    g = on(rng.randn(*out.shape))
+    launched("blur_pool_bwd", lambda: out.backward(g))
+    ref.backward(g.float())
+    _close_bf16(xg.grad, xr.grad)

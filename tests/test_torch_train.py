@@ -38,7 +38,7 @@ from ransacflow_tpu_torch.kernels.ssim import (
     ssim_partials_ref,
 )
 from ransacflow_tpu_torch.kernels.warp_sample import warp_sample
-from ransacflow_tpu_torch.models.convert import alignment_params_from_tree
+from ransacflow_tpu_torch.models.convert import alignment_params_from_tree, init_alignment_params
 from ransacflow_tpu_torch.models.heads import flow_gradient_magnitude, flow_to_grid
 from ransacflow_tpu_torch.ops.grid import normalized_grid
 from ransacflow_tpu_torch.train import (
@@ -440,7 +440,8 @@ def test_port_imports_no_jax():
             "             'eval.kitti', 'eval.corr', 'cli.eval_hpatches', 'cli.eval_kitti',\n"
             "             'cli.eval_corr', 'eval.pose', 'eval.yfcc', 'eval.aachen',\n"
             "             'cli.eval_yfcc', 'cli.generate_pairs', 'cli.resize_dataset',\n"
-            "             'pipeline.refine', 'train.validation', 'native'):\n"
+            "             'pipeline.refine', 'train.validation', 'native', 'eval.pooled',\n"
+            "             'utils.flops'):\n"
             "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n"
@@ -469,19 +470,77 @@ def test_cli_trains_and_checkpoints(tmp_path):
     assert STAGES[3]["mode"] == "flow+match"
 
 
+def _float_state(ckpt):
+    """{network.name: tensor} of a checkpoint's float entries."""
+    return {f"{net}.{k}": v for net, sd in ckpt["nets"].items() for k, v in sd.items()
+            if v.is_floating_point()}
+
+
+def _cli_train(data, out, *flags):
+    cli_train.main(["--trainImgDir", str(data), "--outDir", str(out), "--stage", "3",
+                    "--batchSize", "2", "--imgSize", "32", "--margin", "8", "--nEpochs", "1",
+                    "--maxStepsPerEpoch", "1", "--device", "cpu", *flags, "NoVal",
+                    "--epochSaveModel", "1"])
+    return load_checkpoint(str(out / "checkpoint_epoch0.pt"))
+
+
 @pytest.mark.parametrize("flag", [["--nDevices", "2"], ["--distributed"], ["--remat"],
                                   ["--computeDtype", "bfloat16"],
                                   ["--nativeResize", "--remat"]])
 def test_cli_rejects_what_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_train.main(["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path),
-                        "--device", "cpu", *flag, "NoVal"])
+    """--nDevices 2 and --distributed raise, naming ROADMAP item 12b. The
+    flags of item 14 run now: a step with --remat (with --nativeResize too)
+    saves the plain step's networks bit for bit; one with --computeDtype
+    bfloat16 saves fp32 masters, BatchNorm statistics and Adam state."""
+    if flag[0] in ("--nDevices", "--distributed"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12b"):
+            cli_train.main(["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path),
+                            "--device", "cpu", *flag, "NoVal"])
+        return
+    data = tmp_path / "data"
+    data.mkdir()
+    _groups(str(data), np.random.RandomState(3), n=2)
+    ckpt = _cli_train(data, tmp_path / "run", *flag)
+    state = _float_state(ckpt)
+    assert all(v.dtype == torch.float32 for v in state.values())
+    assert all(v.dtype == torch.float32 for st in ckpt["opt"]["state"].values()
+               for v in st.values() if v.is_floating_point())
+    if "--remat" in flag:
+        plain = _float_state(_cli_train(data, tmp_path / "plain",
+                                        *[f for f in flag if f != "--remat"]))
+        for k, v in plain.items():
+            assert torch.equal(state[k], v), k
 
 
 def test_fit_rejects_what_is_not_ported(tmp_path):
-    for kw in (dict(n_devices=2), dict(remat=True), dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit({}, str(tmp_path), str(tmp_path), "cpu", **kw)
+    """fit(n_devices=2) raises, naming ROADMAP item 12b. remat=True and
+    compute_dtype='bfloat16' train now: remat gives the plain fit's losses,
+    weights and BatchNorm statistics bit for bit (the same ops on the CPU),
+    bf16 keeps every master and statistic fp32 and its losses finite."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12b"):
+        fit({}, str(tmp_path), str(tmp_path), "cpu", n_devices=2)
+    data = tmp_path / "data"
+    data.mkdir()
+    _groups(str(data), np.random.RandomState(4), n=4)
+    kw = dict(mode="flow+match", mu_cycle=1.0, lambda_match=0.01, epochs=1, batch_size=B,
+              img_size=IMG, margin=MARGIN, kernel_size=K, seed=0, log_every=1,
+              max_steps_per_epoch=2)
+    runs = {}
+    for name, extra in (("plain", {}), ("remat", dict(remat=True)),
+                        ("bf16", dict(compute_dtype="bfloat16"))):
+        nets = init_alignment_params(torch.Generator().manual_seed(0), "cpu", K)
+        fit(nets, str(data), str(tmp_path / name), "cpu", **kw, **extra)
+        recs = [{k: v for k, v in json.loads(line).items() if k != "time"}
+                for line in open(tmp_path / name / "metrics.jsonl")]
+        runs[name] = (recs, {f"{n}.{k}": v for n, net in nets.items()
+                             for k, v in net.state_dict().items()})
+    assert runs["remat"][0] == runs["plain"][0]
+    for k, v in runs["plain"][1].items():
+        assert torch.equal(runs["remat"][1][k], v), k
+    recs, state = runs["bf16"]
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert all(v.dtype == runs["plain"][1][k].dtype for k, v in state.items())
+    assert recs[-1]["loss"] != runs["plain"][0][-1]["loss"]  # bf16 convolutions ran
 
 
 @pytest.mark.gpu

@@ -179,6 +179,26 @@ def test_validate_matches_jax(tmp_path, rng, zero_flow):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL_FLOW)
 
 
+def test_validate_raises_on_a_short_coarse_pkl(tmp_path, rng):
+    """A coarse.pkl with fewer transforms than the CSV has rows raises, as
+    the reference's `coarse_transforms[i]` does (an IndexError there),
+    before any row is validated; the reference raises on the same lists."""
+    import pandas as pd
+
+    csv_path, val_dir, pkl_path, _ = write_val_dataset(str(tmp_path), rng)
+    trees, nets = _trees(True)
+    rows = read_rows(csv_path)
+    with open(pkl_path, "rb") as f:
+        thetas = pickle.load(f)
+    assert len(thetas) == len(rows) > 1
+    with pytest.raises(ValueError, match=f"{len(rows) - 1} coarse transforms for "
+                                         f"{len(rows)} rows"):
+        validation.validate(rows, val_dir, thetas[:-1], nets, "cpu", min_size=MIN_SIZE)
+    with pytest.raises(IndexError):
+        jvalidation.validate(pd.read_csv(csv_path, dtype=str), val_dir, thetas[:-1], trees,
+                             min_size=MIN_SIZE)
+
+
 def test_fit_best_model_gating(tmp_path, rng, monkeypatch):
     """tests/test_validation.py's gating: the model is saved on an
     improvement only, renamed with the best prec@8 at the end, no periodic
