@@ -3,7 +3,8 @@
 the multi-homography loop, training, the opt-in fast modes through the
 public entry points, the sky mask, the eval harnesses, affine fits,
 iterative refinement, MegaDepth validation, the eval pool and the bf16
-policies with remat.
+policies with remat, and data parallelism (on four cards where there are
+four).
 
     python3 chip_smoke.py
 
@@ -175,6 +176,29 @@ Phases, each of which must pass:
       statistics), fp32 masters and Adam state; every bf16 path launching
       the kernels bf16 reaches (K2, K6's pair, K7, K8, K9; K12 in the anchor
       call; K7 and its backward in training).
+  (m) data parallelism: the stage-3 step at full width (16 global pairs)
+      over two ranks on cuda:0 (gloo carries CUDA tensors; NCCL refuses
+      two ranks on one card; one NCCL rank if gloo cannot) against one
+      process on the whole batch: losses and BatchNorm statistics to
+      1e-4, the ranks' reduced gradients equal, each against the single
+      step's by cosine >= 0.999, norm within 1% and a median max error
+      <= 1e-2 of the largest magnitude (the single step run twice gives
+      the card's floor); every training kernel launched on each rank;
+      K10's global form at the training shape against its plain twin and
+      against the kernel on the whole batch (keys `_global` of K10's
+      rows); `sharded_align_pairs` of (d)'s pairs and `sharded_ransac`
+      (10k hypotheses) over two slots of cuda:0, bit for bit one device's
+      run, `fused_align_batch` on the per-pair seeds and the shards' own
+      fits. With four or more cards also: NCCL, one rank a card, the step
+      at 16 pairs a card and at 16 global pairs against one card's step in
+      the same call (median of 12, pairs/s, peak GB a card, the NCCL
+      kernels' device ms, weak and strong efficiency), the 16-global run
+      held to the one-process step; `cli.train --distributed` under
+      torchrun and `cli.train --nDevices 4` for 2 steps, checkpoints
+      loaded back; sharded serving of 32 pairs over four cards against one
+      card in turns (bit for bit, pairs/s); HPatches, YFCC and KITTI
+      predict over a pool of four cards against one slot (POOL_TOL); and
+      `sharded_ransac` over four cards.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
@@ -186,13 +210,18 @@ Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
 `affine_multihomo`, `refine` and `validation`; phase (l)'s
 `{hpatches,yfcc}_pool_{one,batched,two_slots}`, `kitti_pool_two_slots`,
 `eval_hpatches_bf16`, `{serving,multihomo}_{fp32,bf16}`,
-`serving_bf16_anchor` and `train_{fp32,bf16,remat,bf16_remat}`.
+`serving_bf16_anchor` and `train_{fp32,bf16,remat,bf16_remat}`; phase
+(m)'s `dp_train` (the ranks' launches summed), `sharded_serving` and
+`sharded_ransac`, and on four cards `dp_train_4_cards`,
+`sharded_serving_4_cards`, `{hpatches,yfcc}_{one_slot,four_cards}`,
+`kitti_four_cards` and `sharded_ransac_4_cards`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
 exits non-zero, without that last line, on any failure or without CUDA.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -3756,6 +3785,519 @@ def phase_pool_bf16(card):
     return paths, readings
 
 
+# -- (m) multi-card data parallelism ---------------------------------------
+DP_KERNELS = TRAIN_KERNELS  # every training kernel, on every rank
+SHARD_SLOTS = ["cuda:0", "cuda:0"]  # two slots (ranks) on the one card
+MC_CARDS = 4
+MC_TIMED_STEPS = 12
+MC_SERVE_PAIRS = 32  # bench.py's serving batch
+
+
+def _dp_images(n_pairs, seed):
+    """concat(I1, I2) of `n_pairs` related stage-3 pairs, numpy."""
+    return _related_train_images(np.random.RandomState(seed), n_pairs, TRAIN_IMG).numpy()
+
+
+def _local_rows(n_pairs, rank, world):
+    """The rows of concat(I1, I2) that rank `rank` holds as its
+    concat(I1_r, I2_r)."""
+    b = n_pairs // world
+    rows = np.arange(rank * b, (rank + 1) * b)
+    return np.concatenate([rows, n_pairs + rows])
+
+
+def _grad_state(nets):
+    return ({f"{n}.{k}": p.grad.cpu() for n, net in nets.items()
+             for k, p in net.named_parameters() if p.grad is not None},
+            {f"{n}.{k}": b.cpu().float() for n, net in nets.items()
+             for k, b in net.named_buffers()})
+
+
+def _timed_steps(step, reps):
+    """Median CUDA-event ms of `reps` steps after 2 of warm-up, and the
+    peak memory (GB) from the first of them."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _collective_ms(step):
+    """Device ms of one step and of its collectives (NCCL kernels and gloo's
+    copies are not separable from the rest: the NCCL kernels' share), from
+    a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    return {"device_ms": sum(ms for _, ms in rows),
+            "nccl_ms": sum(ms for k, ms in rows if "nccl" in k.lower()),
+            "nccl_kernels": sum(1 for k, _ in rows if "nccl" in k.lower())}
+
+
+def _dp_rank(rank, world, device, images, reps, one_card):
+    """One rank of the data-parallel stage-3 step (`train_grads` under the
+    default group) on its share of `images`: its launches, losses, reduced
+    gradients and BatchNorm statistics; with `reps`, the median step ms
+    (`train_step`), peak GB and the collectives' device ms; with
+    `one_card`, the step again from fresh replicas (the data-parallel
+    step's own run-to-run floor, `grads2`) and K10's global form against
+    its plain twin."""
+    import torch.distributed as dist
+
+    from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.device import use_full_fp32
+    from ransacflow_tpu_torch.train import train_grads, train_step
+
+    use_full_fp32()
+    probe = torch.ones(4, device=device)
+    dist.all_reduce(probe)  # the backend carries CUDA tensors (gloo: through the host)
+    require(bool((probe == world).all()), f"rank {rank}: all_reduce gave {probe.tolist()}")
+    n_pairs = len(images) // 2
+    b = n_pairs // world
+    batch = _train_batch(torch.from_numpy(images[_local_rows(n_pairs, rank, world)]).to(device),
+                         b, TRAIN_IMG, TRAIN_MARGIN)
+    nets, opt = _new_trainer(device, 3)
+    kw = dict(_stage_kwargs(3), group=dist.group.WORLD)
+    kernels.reset_launch_counts()
+    metrics = train_grads(nets, opt, *batch, **kw)
+    torch.cuda.synchronize()
+    out = {"launches": kernels.launch_counts(),
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    out["grads"], out["bn"] = _grad_state(nets)
+    if one_card:
+        again, opt2 = _new_trainer(device, 3)
+        train_grads(again, opt2, *batch, **kw)
+        out["grads2"] = _grad_state(again)[0]
+        del again, opt2
+        out["ssim"] = _ssim_global_rank(rank, world, device)
+    if reps:
+        step = lambda: train_step(nets, opt, *batch, **kw)  # noqa: E731
+        out["step_ms"], out["step_ms_all"], out["peak_gb"] = _timed_steps(step, reps)
+        out["profile"] = _collective_ms(step)
+    return out
+
+
+def _ssim_global_rank(rank, world, device):
+    """K10's global form on this rank's half of phase (c)'s training-shape
+    inputs, against the plain twin's global form (loss to 1e-5 relative,
+    gradient to 1e-4 of its largest magnitude) and against the kernel on
+    the whole batch in this process (the loss equal to 1e-5, the gradient
+    over `world` to 1e-4: a rank's backward gives world times its share);
+    timed with the all-reduces (keys `_global`)."""
+    import torch.distributed as dist
+
+    from ransacflow_tpu_torch.kernels.ssim import masked_ssim_loss, masked_ssim_loss_ref
+
+    group = dist.group.WORLD
+    gen = torch.Generator(device=device).manual_seed(21)
+    b2 = 2 * TRAIN_PAIRS
+    img1 = torch.rand((b2, TRAIN_IMG, TRAIN_IMG, 3), generator=gen, device=device)
+    img2 = (img1 + 0.1 * torch.rand(img1.shape, generator=gen, device=device)).clamp(0, 1)
+    match = torch.zeros((b2, TRAIN_IMG, TRAIN_IMG, 1), device=device)
+    c = slice(TRAIN_MARGIN, TRAIN_IMG - TRAIN_MARGIN)
+    match[:, c, c] = torch.rand(match[:, c, c].shape, generator=gen, device=device)
+    rows = slice(rank * b2 // world, (rank + 1) * b2 // world)
+    l1, l2, lm = img1[rows].contiguous(), img2[rows].contiguous(), match[rows].contiguous()
+    i_k, i_p = l1.clone().requires_grad_(), l1.clone().requires_grad_()
+    loss_k = masked_ssim_loss(i_k, l2, lm, group)
+    loss_p = masked_ssim_loss_ref(i_p, l2, lm, group)
+    one = torch.ones((), device=device)
+    d_k = torch.autograd.grad(loss_k, i_k, one, retain_graph=True)[0]
+    d_p = torch.autograd.grad(loss_p, i_p, one, retain_graph=True)[0]
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    err = (d_k - d_p).abs().max().item()
+    scale = d_p.abs().max().item()
+    require(rel <= 1e-5, f"masked_ssim_global: relative err {rel} > 1e-5")
+    require(err <= 1e-4 * scale, f"masked_ssim_bwd_global: max abs err {err} > 1e-4 * {scale}")
+    whole = img1.clone().requires_grad_()
+    loss_w = masked_ssim_loss(whole, img2, match)
+    d_w = torch.autograd.grad(loss_w, whole, one)[0][rows]
+    rel_w = abs(loss_k.item() - loss_w.item()) / abs(loss_w.item())
+    err_w = (d_k / world - d_w).abs().max().item()
+    require(rel_w <= 1e-5 and err_w <= 1e-4 * d_w.abs().max().item(),
+            f"masked_ssim_global: against the whole batch: loss {rel_w}, gradient {err_w}")
+    fwd_bytes = nbytes(l1, l2, lm, loss_k)
+    fwd = {"max_abs_err_global": abs(loss_k.item() - loss_p.item()), "rel_err_global": rel,
+           "rel_err_whole_global": rel_w,
+           **paired_ms(lambda: masked_ssim_loss(i_k, l2, lm, group),
+                       lambda: masked_ssim_loss_ref(i_p, l2, lm, group), suffix="_global"),
+           **bound(fwd_bytes, 245 * l1.numel() + 44 * lm.numel(), "_global")}
+    bwd = {"max_abs_err_global": err, "grad_scale_global": scale, "err_whole_global": err_w,
+           **paired_ms(_grads(loss_k, i_k, one), _grads(loss_p, i_p, one), suffix="_global"),
+           **bound(nbytes(l1, l2, lm, l1), 392 * l1.numel() + 44 * lm.numel(), "_global")}
+    return fwd, bwd
+
+
+def _grad_gaps(got, ref):
+    """Phase (f)'s measures of two gradient sets: the median over tensors of
+    each tensor's max error over its largest magnitude, the least cosine
+    (and its tensor), the largest gap of a norm ratio from 1."""
+    of_max = [((got[k] - v).abs().max() / v.abs().max()).item() for k, v in ref.items()]
+    cosine = {k: torch.nn.functional.cosine_similarity(got[k].flatten(), v.flatten(),
+                                                       dim=0).item() for k, v in ref.items()}
+    worst = min(cosine, key=cosine.get)
+    return {"grad_err_of_max_median": float(np.median(of_max)), "min_cosine": cosine[worst],
+            "worst": worst, "max_norm_ratio_gap": max(abs(got[k].norm().item() / v.norm().item()
+                                                          - 1) for k, v in ref.items())}
+
+
+def _synced_formula(nets):
+    """Every train-mode BatchNorm of `nets` normalizes through
+    `_synced_forward` in this one process (no group: its all-reduce is the
+    identity): the synced path's arithmetic without a second rank."""
+    from ransacflow_tpu_torch.models.layers import BatchNorm2d
+
+    def forward(x, m):
+        if m.training:
+            return m._synced_forward(x.to(m.weight.dtype))
+        return BatchNorm2d.forward(m, x)
+
+    for net in nets.values():
+        for m in net.modules():
+            if isinstance(m, BatchNorm2d):
+                m.forward = functools.partial(forward, m=m)
+
+
+def _dp_against_single(name, ranks, images, card):
+    """The ranks' results against the single-process step on the whole
+    batch on cuda:0: every rank's gradients equal, the losses to 1e-4
+    relative, the statistics to 1e-4, and the gradients by phase (f)'s
+    measures: each cosine >= 0.999, each norm within 1% (a world-size factor
+    would be 100%), and the median max error over the largest magnitude at
+    most 1.5 times the largest that the single step shows when its images
+    are nudged by 3e-7 (three draws, in this run: the step's conditioning;
+    the draws spread by about 10%). Any rounding-level change moves this
+    step's gradients that far, and the synced BatchNorm's arithmetic is
+    one: the single step with it (`_synced_formula`) moves as far, while
+    the data-parallel and the single step each agree with themselves to
+    ~1e-6. Those floors are returned beside the gaps."""
+    from ransacflow_tpu_torch.train import train_grads
+
+    n_pairs = len(images) // 2
+    nudged = [images + np.float32(3e-7) * np.random.RandomState(s).randn(*images.shape)
+              .astype(np.float32) for s in range(3)]
+    singles = []
+    for imgs, synced in [(images, False), (images, False), (images, True)] + [
+            (x, False) for x in nudged]:
+        nets, opt = _new_trainer("cuda", 3)
+        if synced:
+            _synced_formula(nets)
+        metrics = train_grads(nets, opt, *_train_batch(torch.from_numpy(imgs).cuda(), n_pairs,
+                                                       TRAIN_IMG, TRAIN_MARGIN),
+                              **_stage_kwargs(3))
+        singles.append(({k: float(v) for k, v in metrics.items()}, *_grad_state(nets)))
+        del nets, opt
+    (loss, grads, bn), (_, grads2, _), (_, grads_synced, _) = singles[:3]
+    for r in ranks[1:]:
+        require(all(torch.equal(r["grads"][k], v) for k, v in ranks[0]["grads"].items()),
+                f"{name}: the ranks' reduced gradients differ")
+    got = ranks[0]
+    require(grads.keys() == got["grads"].keys(), f"{name}: gradient sets")
+    rel = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-7) for k, v in loss.items())
+    bn_err = max((got["bn"][k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+                 for k, v in bn.items())
+    gaps = _grad_gaps(got["grads"], grads)
+    nudged = [_grad_gaps(g, grads) for _, g, _ in singles[3:]]
+    limit = 1.5 * max(g["grad_err_of_max_median"] for g in nudged)
+    require(rel <= 1e-4 and bn_err <= 1e-4 and gaps["grad_err_of_max_median"] <= limit
+            and gaps["min_cosine"] >= 0.999 and gaps["max_norm_ratio_gap"] <= 1e-2,
+            f"{name}: against one process on the whole batch: losses {rel}, statistics "
+            f"{bn_err}, gradients {gaps} (median limit {limit})")
+    floors = {"median_limit": limit, "nudged_vs_single": nudged,
+              "single_vs_single": _grad_gaps(grads2, grads),
+              "synced_formula_vs_single": _grad_gaps(grads_synced, grads)}
+    if "grads2" in got:
+        floors["dp_vs_dp"] = _grad_gaps(got["grads2"], got["grads"])
+    return {"loss_rel_err": rel, "bn_stat_err": bn_err, **gaps, "n_grads": len(grads),
+            **floors, "losses": got["metrics"]}
+
+
+def _sum_launches(counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _sharded_serving(card, devices, n_pairs, reference_devices):
+    """`sharded_align_pairs` of `n_pairs` of phase (d)'s pairs over `devices`
+    against the same over `reference_devices` (the per-pair seeds from one
+    generator seed: bit for bit), timed in turns; and, on one card,
+    against `fused_align_batch` on the per-pair seeds (bit for bit)."""
+    from ransacflow_tpu_torch.parallel import sharded_align_pairs
+    from ransacflow_tpu_torch.parallel.mesh import draw_seeds, seeded_generators
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    shapes = pyramid_shapes()
+    rng = np.random.RandomState(0)
+    sources = torch.from_numpy(_blocky(rng, n_pairs, *shapes[0])).cuda()
+    targets = torch.from_numpy(_blocky(rng, n_pairs, *TARGET_HW)).cuda()[:, None]
+    pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
+    resnet, align = _nets("cuda")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(2)  # noqa: E731
+
+    def serve(devs):
+        return sharded_align_pairs(devs, resnet, align, pyramids, targets, gen(), n_iter=N_ITER)
+
+    out, launches = _launches_of(lambda: serve(devices))
+    ref = serve(reference_devices)
+    for key, v in ref.items():
+        require(torch.equal(out[key], v), f"sharded serving over {devices}: {key} differs from "
+                                          f"{reference_devices}")
+    if len(set(map(str, devices))) == 1:
+        seeds = draw_seeds(gen(), n_pairs)
+        plain = fused_align_batch(resnet, align, pyramids, targets,
+                                  seeded_generators(seeds, "cuda"), n_iter=N_ITER)
+        for key, v in plain.items():
+            require(torch.equal(out[key], v), f"sharded serving: {key} differs from "
+                                              "fused_align_batch on the per-pair seeds")
+    _require_launched(f"sharded serving over {devices}", launches,
+                      [k for k in SERVING_KERNELS if k != "lanczos_pyramid"],
+                      {"compose_tail": n_pairs, **_per_fine_pass(launches)})
+    ms = {}
+    for devs, tag in ((reference_devices, "reference"), (devices, "sharded"),
+                      (devices, "sharded"), (reference_devices, "reference")):
+        ms.setdefault(tag, []).append(_best_ms(lambda: serve(devs), reps=2))
+    pairs_s = {tag: n_pairs / (min(v) / 1e3) for tag, v in ms.items()}
+    print(f"(m) sharded serving of {n_pairs} pairs (480x640, 7 scales, {N_ITER} hypotheses) "
+          f"over {[str(d) for d in devices]}: bit for bit the run over "
+          f"{[str(d) for d in reference_devices]}; pairs/s {pairs_s}; launches {launches} "
+          f"on {card}", flush=True)
+    return launches, {"pairs_s": pairs_s, "n_pairs": n_pairs,
+                      "devices": [str(d) for d in devices]}
+
+
+def _sharded_ransac_check(card, devices):
+    """`sharded_ransac` over `devices` on phase (c)'s serving matches
+    (10k hypotheses) against each shard's own K3 fit on its seed: the
+    winner (the first of the largest counts) bit for bit."""
+    from ransacflow_tpu_torch.ops.ransac import ransac_homography
+    from ransacflow_tpu_torch.parallel import sharded_ransac
+    from ransacflow_tpu_torch.parallel.mesh import draw_seeds, seeded_generators
+
+    m1, m2, valid = _ransac_matches(torch.Generator(device="cuda").manual_seed(13))
+    gen = lambda: torch.Generator(device="cuda").manual_seed(14)  # noqa: E731
+    res, launches = _launches_of(lambda: sharded_ransac(devices, m1, m2, valid, 0.05,
+                                                        n_iter=N_ITER, generator=gen()))
+    per = -(-N_ITER // len(devices))
+    shards = [ransac_homography(m1.to(d), m2.to(d), valid.to(d), 0.05, n_iter=per,
+                                generator=g)
+              for d, g in zip(devices, [seeded_generators([s], d)[0] for s, d in
+                                        zip(draw_seeds(gen(), len(devices)), devices)])]
+    counts = [int(s.num_inliers) for s in shards]
+    best = shards[int(np.argmax(counts))]
+    for a, b in zip(res, best):
+        require(torch.equal(a, b.to(a.device)), "sharded_ransac: the winner differs from the "
+                                                "shards' own fits")
+    require(launches["ransac_score"] == len(devices), f"sharded_ransac: launches {launches}")
+    print(f"(m) sharded_ransac over {[str(d) for d in devices]}: counts {counts}, winner "
+          f"{int(res.num_inliers)}, launches {launches['ransac_score']} K3 on {card}",
+          flush=True)
+    return launches, {"counts": counts}
+
+
+def _dp_one_card(card, results):
+    """The one-card proof: two ranks on cuda:0 over gloo (NCCL refuses two
+    ranks on one device); each rank first holds gloo's all-reduce of a CUDA
+    tensor to the world size."""
+    from ransacflow_tpu_torch.parallel import spawn
+
+    images = _dp_images(TRAIN_PAIRS, 31)
+    ranks = spawn(_dp_rank, SHARD_SLOTS, "gloo", args=(images, 0, True), timeout=300)
+    form = "gloo, 2 ranks on cuda:0"
+    launches = _sum_launches([r["launches"] for r in ranks])
+    _require_launched("dp_train", launches, DP_KERNELS)
+    check = _dp_against_single("dp_train", ranks, images, card)
+    fwd, bwd = ranks[0]["ssim"]
+    results["masked_ssim"].update(fwd)
+    results["masked_ssim_bwd"].update(bwd)
+    print(f"(m) data-parallel stage-3 step ({form}, {TRAIN_PAIRS} global pairs of "
+          f"{TRAIN_IMG}x{TRAIN_IMG}) against one process on the whole batch: {check}; "
+          f"launches {launches}; K10 global form: "
+          f"{ {k: v for k, v in results['masked_ssim'].items() if k.endswith('_global')} } "
+          f"on {card}", flush=True)
+    return form, launches, check
+
+
+def _dp_four_cards(card):
+    """NCCL, one rank a card: the stage-3 step at 16 pairs a card (weak) and
+    16 global pairs (strong) against one process on cuda:0 at 16 pairs, in
+    the same call; the 16-global run also held to that process's step."""
+    from ransacflow_tpu_torch.parallel import make_mesh, spawn
+    from ransacflow_tpu_torch.train import train_step
+
+    devices = make_mesh(MC_CARDS)
+    images16 = _dp_images(TRAIN_PAIRS, 31)
+    nets, opt = _new_trainer("cuda", 3)
+    batch = _train_batch(torch.from_numpy(images16).cuda(), TRAIN_PAIRS, TRAIN_IMG,
+                         TRAIN_MARGIN)
+    one_ms, one_all, one_gb = _timed_steps(
+        lambda: train_step(nets, opt, *batch, **_stage_kwargs(3)), MC_TIMED_STEPS)
+    del nets, opt, batch
+    strong = spawn(_dp_rank, devices, "nccl", args=(images16, MC_TIMED_STEPS, False),
+                   timeout=600)
+    check = _dp_against_single("dp_train_4_cards", strong, images16, card)
+    weak = spawn(_dp_rank, devices, "nccl",
+                 args=(_dp_images(TRAIN_PAIRS * MC_CARDS, 32), MC_TIMED_STEPS, False),
+                 timeout=600)
+
+    def read(rs, n_pairs):
+        return {"step_ms": rs[0]["step_ms"], "pairs_s": n_pairs / (rs[0]["step_ms"] / 1e3),
+                "peak_gb": [r["peak_gb"] for r in rs], "profile": rs[0]["profile"],
+                "step_ms_all": rs[0]["step_ms_all"]}
+
+    out = {"one_card": {"step_ms": one_ms, "pairs_s": TRAIN_PAIRS / (one_ms / 1e3),
+                        "peak_gb": one_gb, "step_ms_all": one_all},
+           "strong_16_global": read(strong, TRAIN_PAIRS),
+           "weak_16_a_card": read(weak, TRAIN_PAIRS * MC_CARDS), "check": check}
+    out["weak_efficiency"] = one_ms / out["weak_16_a_card"]["step_ms"]
+    out["strong_efficiency"] = one_ms / (MC_CARDS * out["strong_16_global"]["step_ms"])
+    launches = _sum_launches([r["launches"] for r in strong])
+    _require_launched("dp_train_4_cards", launches, DP_KERNELS)
+    print(f"(m) NCCL data parallelism on {MC_CARDS} cards: {out} on {card}", flush=True)
+    return launches, out
+
+
+def _cli_four_cards(tmp):
+    """`cli.train --distributed` under torchrun and `cli.train --nDevices 4`
+    (spawned), 2 full-width steps each, each checkpoint loaded back."""
+    from PIL import Image
+
+    from ransacflow_tpu_torch.train import load_checkpoint
+
+    data = f"{tmp}/data"
+    os.makedirs(data)
+    rng = np.random.RandomState(5)
+    for idx in range(2 * TRAIN_PAIRS):  # 2 steps of the global batch
+        base = (_blocky(rng, 1, 256, 320)[0] * 255).astype(np.uint8)
+        for view, shift in ((1, 0), (2, 6)):
+            Image.fromarray(np.roll(base, shift, axis=1)).save(f"{data}/{idx}_{view}.jpg")
+    args = ["--trainImgDir", data, "--stage", "3", "--batchSize", str(TRAIN_PAIRS),
+            "--imgSize", str(TRAIN_IMG), "--margin", str(TRAIN_MARGIN), "--nEpochs", "1",
+            "--maxStepsPerEpoch", "2", "--device", "cuda", "--nDevices", str(MC_CARDS)]
+    runs = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", str(MC_CARDS), "-m",
+                         "ransacflow_tpu_torch.cli.train", "--distributed"],
+            "spawned": [sys.executable, "-m", "ransacflow_tpu_torch.cli.train"]}
+    out = {}
+    for name, cmd in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([*cmd, *args, "--outDir", f"{tmp}/{name}", "NoVal",
+                               "--epochSaveModel", "1"], capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        require(proc.returncode == 0, f"cli.train {name}: exited {proc.returncode}:\n"
+                                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        recs = [json.loads(line) for line in open(f"{tmp}/{name}/metrics.jsonl")]
+        nets, opt = _new_trainer("cuda", 3)
+        ckpt = load_checkpoint(f"{tmp}/{name}/checkpoint_epoch0.pt", nets, opt)
+        require(ckpt["step"] == 0 and recs[-1]["step"] == 0 and np.isfinite(recs[-1]["loss"]),
+                f"cli.train {name}: {recs[-1]}")
+        out[name] = {"seconds": seconds, "epoch_record": recs[-1]}
+    return out
+
+
+def _pool_four_cards(card, root, resnet, align):
+    """HPatches and YFCC predict with `--nDevices 4` (n_devices=4) against
+    the 1-slot pass, and KITTI's pool of 4 cards against its sequential
+    pass: artifacts bit for bit, else within POOL_TOL; pairs/s."""
+    from ransacflow_tpu_torch.eval import hpatches, kitti, yfcc
+
+    hp = f"{root}/hpatches"
+    pkl, scene, _ = _yfcc_dataset(root)
+    launches, readings = {}, {}
+    harnesses = {
+        "hpatches": (lambda out, kw: hpatches.predict_hpatches(
+            hp, hp, out, resnet, align, "cuda", scenes=(2,), **kw), "2"),
+        "yfcc": (lambda out, kw: yfcc.predict_yfcc(pkl, scene, out, resnet, align, "cuda",
+                                                   **kw), ""),
+    }
+    for harness, (predict, sub) in harnesses.items():
+        seconds = {}
+        for route, n in (("one_slot", 1), ("four_cards", MC_CARDS)):
+            out = f"{root}/{harness}_{route}"
+            (_, got), seconds[route] = _timed(lambda: _launches_of(
+                lambda: predict(out, dict(n_devices=n))))
+            launches[f"{harness}_{route}"] = got
+        gap = _artifact_gap(f"{harness} four cards", f"{root}/{harness}_one_slot/{sub}",
+                            f"{root}/{harness}_four_cards/{sub}")
+        readings[harness] = {"max_abs_diff": gap,
+                             "pairs_s": {r: EVAL_PAIRS / t for r, t in seconds.items()}}
+    kt = f"{root}/kitti/image_2"
+    (_, _), seq_s = _timed(lambda: _launches_of(lambda: kitti.predict_kitti(
+        kt, f"{root}/kitti_seq", resnet, align, "cuda", end_index=EVAL_PAIRS)))
+    (_, pool), pool_s = _timed(lambda: _launches_of(lambda: kitti.pooled_kitti_predict(
+        kt, f"{root}/kitti_pool4", resnet, align, [f"cuda:{i}" for i in range(MC_CARDS)],
+        end_index=EVAL_PAIRS)))
+    readings["kitti"] = {"max_abs_diff": _artifact_gap("kitti four cards", f"{root}/kitti_seq",
+                                                       f"{root}/kitti_pool4"),
+                         "pairs_s": {"sequential": EVAL_PAIRS / seq_s,
+                                     "four_cards": EVAL_PAIRS / pool_s}}
+    launches["kitti_four_cards"] = pool
+    print(f"(m) the eval pool on {MC_CARDS} cards against one slot ({EVAL_PAIRS} pairs each): "
+          f"{readings} on {card}", flush=True)
+    return launches, readings
+
+
+def phase_multicard(card, results):
+    """(m) Data parallelism: on one card, the data-parallel step over two
+    ranks on cuda:0 (with K10's global form), sharded serving and sharded
+    RANSAC over two slots of cuda:0; on four or more cards also NCCL over
+    four, the two CLI launches, sharded serving at bench.py's batch, the
+    eval pool and sharded RANSAC over four cards."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    form, dp_launches, dp_check = _dp_one_card(card, results)
+    paths = {"dp_train": dp_launches}
+    paths["sharded_serving"], serving = _sharded_serving(card, SHARD_SLOTS, N_PAIRS, ["cuda:0"])
+    paths["sharded_ransac"], ransac = _sharded_ransac_check(card, SHARD_SLOTS)
+    readings = {"one_card": {"dp_form": form, "dp_check": dp_check, "serving": serving,
+                             "ransac": ransac}}
+    forms = [f"dp_train ({form})", "sharded_serving (2 slots on cuda:0)",
+             "sharded_ransac (2 slots on cuda:0)"]
+    if n_cards >= MC_CARDS:
+        from ransacflow_tpu_torch.models.convert import (
+            alignment_params_from_tree, init_resnet50_layer3, load_params_npz)
+        from ransacflow_tpu_torch.parallel import make_mesh
+
+        cards = make_mesh(MC_CARDS)
+        paths["dp_train_4_cards"], readings["dp_4_cards"] = _dp_four_cards(card)
+        with tempfile.TemporaryDirectory() as tmp:
+            readings["cli_4_cards"] = _cli_four_cards(tmp)
+        print(f"(m) cli.train on {MC_CARDS} cards: {readings['cli_4_cards']} on {card}",
+              flush=True)
+        paths["sharded_serving_4_cards"], readings["serving_4_cards"] = _sharded_serving(
+            card, cards, MC_SERVE_PAIRS, ["cuda:0"])
+        resnet = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+        align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+        with tempfile.TemporaryDirectory() as root:
+            _eval_datasets(root)
+            got, readings["pool_4_cards"] = _pool_four_cards(card, root, resnet, align)
+        paths.update(got)
+        paths["sharded_ransac_4_cards"], readings["ransac_4_cards"] = _sharded_ransac_check(
+            card, cards)
+        forms += [f"NCCL on {MC_CARDS} cards", "cli.train torchrun and spawned",
+                  f"sharded serving over {MC_CARDS} cards", f"eval pool of {MC_CARDS} cards",
+                  f"sharded_ransac over {MC_CARDS} cards"]
+    readings["seconds"] = time.perf_counter() - t0
+    print(f"(m) ran {forms} with {n_cards} cards in {readings['seconds']:.1f} s on {card}",
+          flush=True)
+    return paths, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -3812,11 +4354,12 @@ def main():
         yfcc_paths, yfcc_readings = phase_yfcc(card)
         k_paths, k_readings = phase_affine_refine(card, results)
         l_paths, l_readings = phase_pool_bf16(card)
+        m_paths, m_readings = phase_multicard(card, results)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
     by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
-               **yfcc_paths, **k_paths, **l_paths}
+               **yfcc_paths, **k_paths, **l_paths, **m_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -3828,7 +4371,7 @@ def main():
                       "fast_modes": fast_readings, "sky": sky_readings,
                       "eval": {**eval_readings, **yfcc_readings},
                       "affine_refine_validation": k_readings,
-                      "pool_bf16_remat": l_readings,
+                      "pool_bf16_remat": l_readings, "multicard": m_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

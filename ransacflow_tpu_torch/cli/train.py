@@ -1,4 +1,4 @@
-"""Training CLI (port of `ransacflow_tpu/cli/train.py`, one device).
+"""Training CLI (port of `ransacflow_tpu/cli/train.py`).
 
 Usage:
   python -m ransacflow_tpu_torch.cli.train --trainImgDir data/train \
@@ -14,19 +14,30 @@ by prec@8 (`BestModel@8_{prec}`); NoVal checkpoints every --epochSaveModel
 epochs. --nativeResize resizes the training crops with the native Lanczos
 resampler (built with g++; it raises without one). --computeDtype bfloat16
 trains under the mixed-precision policy (bf16 convolutions from fp32
-masters) and --remat recomputes the feature trunk in the backward. The JAX
-package's flags are all accepted; --distributed and --nDevices > 1 raise
-NotImplementedError (ROADMAP.md queue 1, item 12b).
+masters) and --remat recomputes the feature trunk in the backward.
+
+Data parallelism, one process a device, --batchSize the GLOBAL batch, rank 0
+alone writing metrics.jsonl and the checkpoints (`train.loop.fit`):
+
+  # N ranks spawned on cuda:0 ... cuda:N-1 (NCCL), or on the CPU (gloo)
+  python -m ransacflow_tpu_torch.cli.train --nDevices 4 --stage 3 ... NoVal
+  python -m ransacflow_tpu_torch.cli.train --nDevices 2 --device cpu ... NoVal
+
+  # one process a card launched by torchrun; --nDevices is WORLD_SIZE
+  python -m torch.distributed.run --nproc_per_node 4 \
+      -m ransacflow_tpu_torch.cli.train --distributed --nDevices 4 ... NoVal
 """
 
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from ransacflow_tpu_torch.device import use_full_fp32
 from ransacflow_tpu_torch.models.convert import init_alignment_params
+from ransacflow_tpu_torch.parallel import init_from_env, make_mesh, spawn
 from ransacflow_tpu_torch.train.checkpoint import resume_params
-from ransacflow_tpu_torch.train.loop import STAGES, fit, not_ported
+from ransacflow_tpu_torch.train.loop import STAGES, fit
 
 
 def parse_args(argv=None):
@@ -47,8 +58,10 @@ def parse_args(argv=None):
     parser.add_argument("--margin", type=int, default=88)
     parser.add_argument("--stage", type=int, choices=[1, 2, 3], default=None,
                         help="curriculum preset (stage1/2/3.sh)")
-    parser.add_argument("--nDevices", type=int, default=1)
-    parser.add_argument("--distributed", action="store_true")
+    parser.add_argument("--nDevices", type=int, default=1,
+                        help="data-parallel ranks (the GLOBAL count under --distributed)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the process group of a torchrun launch")
     parser.add_argument("--computeDtype", choices=["float32", "bfloat16"],
                         default="float32")
     parser.add_argument("--nativeResize", action="store_true")
@@ -72,10 +85,28 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, unported in (("--distributed", args.distributed),
-                           ("--nDevices > 1", args.nDevices > 1)):
-        if unported:
-            not_ported(flag, "item 12b")
+    kind = torch.device(args.device).type
+    if args.distributed:
+        _, _, device = init_from_env(kind)
+        try:
+            train(args, device)
+        finally:
+            dist.destroy_process_group()
+    elif args.nDevices > 1:
+        devices = make_mesh(args.nDevices) if kind == "cuda" else [args.device] * args.nDevices
+        spawn(_rank_train, devices, "nccl" if kind == "cuda" else "gloo", args=(args,),
+              timeout=None)
+    else:
+        train(args, args.device)
+
+
+def _rank_train(rank, world, device, args):
+    train(args, device)
+
+
+def train(args, device):
+    """Train on `device` as the parsed `args` say (one rank of a group when
+    --nDevices > 1)."""
     use_full_fp32()  # float32 stays float32 (BatchNorm, the losses, the masters)
 
     cfg = dict(mode="flow", mu_cycle=0.0, lambda_match=0.01, grad_weight=0.0,
@@ -95,7 +126,7 @@ def main(argv=None):
         cfg["lambda_match"] = 0.0
         print("trainMode without matchability: lambda_match forced to 0")
 
-    nets = init_alignment_params(torch.Generator().manual_seed(args.seed), args.device,
+    nets = init_alignment_params(torch.Generator().manual_seed(args.seed), device,
                                  args.kernelSize)
     if args.resumePth:
         resume_params(args.resumePth, nets, args.kernelSize)
@@ -103,13 +134,14 @@ def main(argv=None):
     if args.subcommand == "valMegaDepth":
         val = dict(val_csv=args.valCSV, val_dir=args.valImgDir,
                    val_coarse_pkl=args.inPklCoarse, val_min_size=args.valMinSize)
-    fit(nets, args.trainImgDir, args.outDir, args.device,
+    fit(nets, args.trainImgDir, args.outDir, device,
         mode=cfg["mode"], mu_cycle=cfg["mu_cycle"], lambda_match=cfg["lambda_match"],
         grad_weight=cfg["grad_weight"], epochs=cfg["epochs"],
         batch_size=args.batchSize, img_size=args.imgSize, margin=args.margin,
         lr=args.lr, kernel_size=args.kernelSize,
         epoch_save_model=getattr(args, "epochSaveModel", 10), seed=args.seed,
         max_steps_per_epoch=args.maxStepsPerEpoch, use_native=args.nativeResize,
+        n_devices=args.nDevices,
         compute_dtype=None if args.computeDtype == "float32" else args.computeDtype,
         remat=args.remat, **val)
 

@@ -205,9 +205,8 @@ def pooled_kitti_predict(
     workers. Each pair's draws depend on its index alone
     (`CoarseAligner.reseed`), so the artifacts are the sequential pass's
     for any pool size."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from ransacflow_tpu_torch.eval.pooled import make_device_pool
+    from ransacflow_tpu_torch.parallel.mesh import per_device
 
     pool = make_device_pool(
         resnet, align_params, devices,
@@ -218,14 +217,12 @@ def pooled_kitti_predict(
     kwargs = dict(fine_size=fine_size, mask_region_th=mask_region_th, cc_th=cc_th,
                   seed=seed, bg_mask_fn=bg_mask_fn, max_coarse=max_coarse)
 
-    def worker(w):
+    def worker(w, _device):
         aligner, nets = pool[w]
         for i in range(begin_index + w, end_index, len(pool)):
             _predict_one_kitti_pair(aligner, nets, image_dir, out_dir, i, **kwargs)
 
-    with ThreadPoolExecutor(max_workers=len(pool)) as ex:
-        for done in [ex.submit(worker, w) for w in range(len(pool))]:
-            done.result()  # a worker's exception raises here
+    per_device(devices, worker)
 
 
 @torch.inference_mode()

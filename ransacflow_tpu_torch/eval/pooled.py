@@ -43,8 +43,7 @@ def pool_devices(n_devices, device):
     kind = torch.device(device).type
     have = torch.cuda.device_count() if kind == "cuda" else 1
     if not 1 <= n_devices <= have:
-        raise RuntimeError(f"a pool of {n_devices} {kind} devices: this machine has "
-                           f"{have} (several cards: ROADMAP.md queue 1, item 12b)")
+        raise RuntimeError(f"a pool of {n_devices} {kind} devices: this machine has {have}")
     if kind == "cuda":
         return [torch.device("cuda", i) for i in range(n_devices)]
     return [torch.device(kind)]

@@ -17,9 +17,11 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ransacflow_tpu_torch.kernels.build import Kernel, check, library, ptr, stream
+from ransacflow_tpu_torch.parallel.group import all_reduce_sum, world_size
 
 WINDOW, SIGMA = 11, 1.5
 TILE_H, TILE_W = 32, 32  # kTileH, kTileW in the source: a tile of one image
@@ -67,15 +69,20 @@ def _moments(img1, img2, match):
             _sep_conv(img1 * img2, g, pad))
 
 
-def masked_ssim_loss_ref(img1, img2, match):
+def masked_ssim_loss_ref(img1, img2, match, group=None):
     """Plain PyTorch (the separable grouped `F.conv2d` form), with its own
-    autograd. img1, img2: (B, H, W, 3); match: (B, H, W, 1)."""
+    autograd. img1, img2: (B, H, W, 3); match: (B, H, W, 1). With `group`
+    (a process group), the global ratio over its ranks: the numerator and
+    denominator summed across them by `parallel.group.all_reduce_sum`."""
     mask, mu1, mu2, e11, e22, e12 = _moments(img1, img2, match)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     sigma1_sq, sigma2_sq, sigma12 = e11 - mu1_sq, e22 - mu2_sq, e12 - mu1_mu2
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
-    return ((1.0 - ssim_map) * mask).sum() / mask.sum() / 3.0
+    if world_size(group) == 1:
+        return ((1.0 - ssim_map) * mask).sum() / mask.sum() / 3.0
+    sums = all_reduce_sum(torch.stack([((1.0 - ssim_map) * mask).sum(), mask.sum()]), group)
+    return sums[0] / sums[1] / 3.0
 
 
 def ssim_partials_ref(img1, img2, match):
@@ -161,9 +168,20 @@ def masked_ssim_forward(img1, img2, match, partials):
 
 
 class _MaskedSSIM(torch.autograd.Function):
+    """K10 and its backward kernel. With a process group (the global form,
+    the port of `ransacflow_tpu/ops/ssim.py:92-95`) the forward kernel's
+    local sums are all-reduced and the loss is their ratio (the loss the
+    kernel wrote is left unused); the backward all-reduces the cotangent
+    (the transpose of the sums' psum, `parallel.group`) and hands the
+    backward kernel the global sums, so that it writes this rank's share."""
+
     @staticmethod
-    def forward(ctx, img1, img2, match):
+    def forward(ctx, img1, img2, match, group):
         loss, sums, abc = masked_ssim_forward(img1, img2, match, ctx.needs_input_grad[0])
+        ctx.group = group
+        if world_size(group) > 1:
+            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+            loss = sums[0] / sums[1] / 3.0
         if abc is not None:
             ctx.save_for_backward(img1, img2, abc, sums)
         return loss
@@ -173,23 +191,23 @@ class _MaskedSSIM(torch.autograd.Function):
         img1, img2, abc, sums = ctx.saved_tensors
         img1, img2 = _aligned(img1), _aligned(img2)
         b, h, w, _ = img1.shape
-        g = g.contiguous()
+        g = all_reduce_sum(g, ctx.group).contiguous()
         d_img1 = torch.empty_like(img1)
         KERNEL_BWD(img1.device, ptr(img1), ptr(img2), ptr(abc), plane_len(b, h, w),
                    ptr(sums), ptr(g), ptr(d_img1),
                    _n_blocks("rf_ssim_bwd_blocks", img1.device, b, h, w), b, h, w,
                    stream(img1))
-        return d_img1, None, None
+        return d_img1, None, None, None
 
 
-def masked_ssim_loss(img1, img2, match):
+def masked_ssim_loss(img1, img2, match, group=None):
     """SSIM dissimilarity of (B, H, W, 3) img1 and img2 under the mask of
     (B, H, W, 1) matchability `match`: `masked_ssim_loss_ref` for CPU
     tensors; for CUDA ones the kernel, differentiable in img1 only (img2 is
     data and the thresholded mask has zero gradient); raises when img2
-    requires grad."""
+    requires grad. With `group`, the global ratio over its ranks."""
     if img1.device.type == "cpu":
-        return masked_ssim_loss_ref(img1, img2, match)
+        return masked_ssim_loss_ref(img1, img2, match, group)
     if torch.is_grad_enabled() and img2.requires_grad:
         raise RuntimeError("masked_ssim_loss: the kernel has no gradient for img2")
-    return _MaskedSSIM.apply(img1, img2, match)
+    return _MaskedSSIM.apply(img1, img2, match, group)

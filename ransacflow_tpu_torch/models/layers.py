@@ -30,6 +30,8 @@ import math
 import torch
 import torch.nn as nn
 
+from ransacflow_tpu_torch.parallel.group import all_reduce_sum, world_size
+
 
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d` that computes in `compute_dtype` (None: its weight's
@@ -52,13 +54,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     moments without moving the running statistics or the batch count (a
     rematerialized forward must not count the batch twice). That runs the
     same op, with a zero momentum (the statistics times exactly 1, plus 0),
-    so that it saves the same tensors for the backward as the first run."""
+    so that it saves the same tensors for the backward as the first run.
+
+    With `sync_group` a process group of more than one rank
+    (`synced_batch_norm`), a train-mode batch is normalized with the moments
+    of the global batch (`_synced_forward`); without one it is the
+    `nn.BatchNorm2d` call, bit for bit."""
 
     update_stats = True
+    sync_group = None
 
     def forward(self, x):
         if x.dtype != self.weight.dtype:
             x = x.to(self.weight.dtype)
+        if self.training and world_size(self.sync_group) > 1:
+            return self._synced_forward(x)
         if self.update_stats or not self.training:
             return super().forward(x)
         momentum, count = self.momentum, self.num_batches_tracked
@@ -67,6 +77,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         finally:
             self.momentum, self.num_batches_tracked = momentum, count
+
+    def _synced_forward(self, x):
+        """The port of the reference's `batch_norm(axis_name=...)`
+        (`ransacflow_tpu/models/layers.py:76-110`): the per-channel sums of
+        x and x^2 (fp32) and the element count all-reduced together in one
+        `all_reduce_sum`, whose backward carries the moments' cotangents
+        across the ranks; the biased variance E[x^2] - E[x]^2 normalizes,
+        the running variance takes the unbiased one over the global count.
+        Under `update_stats` False the running statistics stay."""
+        c = x.shape[1]
+        stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                           x.new_full((1,), x.numel() // c)])
+        stats = all_reduce_sum(stats, self.sync_group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = stats[c:2 * c] / n - mean * mean
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var * (n / (n - 1).clamp_min(1)))
+                self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.view(1, c, 1, 1)) * scale.view(1, c, 1, 1)
+                + self.bias.view(1, c, 1, 1))
 
 
 def conv(cin, cout, kernel_size, stride=1, padding=0, dilation=1):
@@ -118,6 +153,21 @@ def cast_compute_params(nets, dtype):
     finally:
         for m, d in zip(convs, saved):
             m.compute_dtype = d
+
+
+@contextlib.contextmanager
+def synced_batch_norm(nets, group):
+    """Inside the block the BatchNorms of `nets` take the global batch's
+    moments over the ranks of `group` (None: nothing changes)."""
+    bns = [m for net in nets for m in net.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.sync_group for m in bns]
+    for m in bns:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, saved):
+            m.sync_group = g
 
 
 @contextlib.contextmanager

@@ -108,16 +108,21 @@ def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
 def fused_align_batch(resnet, align, pyramids, targets, generator=None,
                       tolerance=0.05, n_iter=10000, kernel_size=7,
                       cycle_match=True, adaptive_chunk=0, anchor_stride=0,
-                      relax_cells=0):
+                      relax_cells=0, injected_samples=None):
     """`fused_align` over K pairs, one after another.
 
     pyramids: tuple of (K, 1, Hi, Wi, 3) stacked scales; targets:
-    (K, 1, Ht, Wt, 3). The pairs draw from `generator` in turn. Returns the
-    dict of `fused_align` with a leading K axis.
+    (K, 1, Ht, Wt, 3). The pairs draw from `generator` in turn, or pair k
+    from generator[k] when it is a list of K generators, or takes
+    injected_samples[k] ((K, rows, 4): `fused_align`'s per pair). Returns
+    the dict of `fused_align` with a leading K axis.
     """
+    k_pairs = targets.shape[0]
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * k_pairs
+    draws = [None] * k_pairs if injected_samples is None else injected_samples
     outs = [fused_align(resnet, align, tuple(p[k] for p in pyramids), targets[k],
-                        generator, tolerance, n_iter, kernel_size, cycle_match,
-                        adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride,
-                        relax_cells=relax_cells)
-            for k in range(targets.shape[0])]
+                        gens[k], tolerance, n_iter, kernel_size, cycle_match,
+                        injected_samples=draws[k], adaptive_chunk=adaptive_chunk,
+                        anchor_stride=anchor_stride, relax_cells=relax_cells)
+            for k in range(k_pairs)]
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}

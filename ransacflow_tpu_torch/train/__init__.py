@@ -1,5 +1,5 @@
-"""Training of the alignment networks on one device, with MegaDepth
-validation (port of `ransacflow_tpu/train`, without data parallelism)."""
+"""Training of the alignment networks on one device or data-parallel over
+several, with MegaDepth validation (port of `ransacflow_tpu/train`)."""
 
 from ransacflow_tpu_torch.train.checkpoint import (  # noqa: F401
     load_checkpoint,
@@ -12,11 +12,12 @@ from ransacflow_tpu_torch.train.losses import (  # noqa: F401
     compute_losses,
     margin_mask,
 )
-from ransacflow_tpu_torch.train.loop import STAGES, fit  # noqa: F401
+from ransacflow_tpu_torch.train.loop import STAGES, fit, process_shard_layout  # noqa: F401
 from ransacflow_tpu_torch.train.trainer import (  # noqa: F401
     local_index_roll,
     make_optimizer,
     split_trainable,
+    train_grads,
     train_step,
 )
 from ransacflow_tpu_torch.train.validation import PIXEL_GRID, validate  # noqa: F401

@@ -1,5 +1,5 @@
-"""Training data on the host (a copy of `ransacflow_tpu/train/data.py`, single
-process): PIL's resize, or the native Lanczos resampler with `use_native`.
+"""Training data on the host (a copy of `ransacflow_tpu/train/data.py`): PIL's
+resize, or the native Lanczos resampler with `use_native`.
 
 Pre-aligned image groups named ``{index}_{1..cycle}.jpg``; each sample draws
 2 distinct views, resizes both to one of {crop, 1.5*crop, 2*crop} min-side
@@ -71,12 +71,22 @@ def train_transform(i1, i2, crop, rng, use_native=False):
 
 
 class PairFolder:
-    """Image groups ``{index}_{1..cycle}.jpg``; samples 2 distinct views."""
+    """Image groups ``{index}_{1..cycle}.jpg``; samples 2 distinct views.
 
-    def __init__(self, img_dir, img_size=224, seed=0, use_native=False):
+    shard_index, num_shards: this rank's share of the groups under data
+    parallelism, rank-strided over the index list padded by wrapping to a
+    multiple of num_shards, so that every shard has the same length (the
+    reference's DistributedSampler): every rank then runs as many steps an
+    epoch, and no rank waits in a collective that another never joins."""
+
+    def __init__(self, img_dir, img_size=224, seed=0, shard_index=0, num_shards=1,
+                 use_native=False):
         self.img_dir = img_dir
         self.cycle = 3 if os.path.exists(os.path.join(img_dir, "1_3.jpg")) else 2
-        self.indices = list(range(len(os.listdir(img_dir)) // self.cycle))
+        n_total = len(os.listdir(img_dir)) // self.cycle
+        padded = list(range(n_total))
+        padded += padded[:-(-n_total // num_shards) * num_shards - n_total]
+        self.indices = padded[shard_index::num_shards]
         self.img_size = img_size
         self.rng = np.random.RandomState(seed)
         self.use_native = use_native

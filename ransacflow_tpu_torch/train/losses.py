@@ -42,7 +42,9 @@ from ransacflow_tpu_torch.models.layers import (
     cast_compute_params,
     frozen_bn_stats,
     l2_normalize,
+    synced_batch_norm,
 )
+from ransacflow_tpu_torch.parallel.group import all_reduce_sum, world_size
 
 TRAIN_MODULES = {
     "flow": ("netFeatCoarse", "netFlowCoarse"),
@@ -58,22 +60,29 @@ def margin_mask(batch2, img_size, margin, device, dtype=torch.float32):
     return m
 
 
-def _ratio(num, den):
-    return num.sum() / (den.sum() + 0.001)
+def _ratio(num, den, group=None):
+    """sum(num) / (sum(den) + 0.001); with `group`, both sums over its ranks
+    (one all-reduce), the global ratio of the reference's `axis_name`."""
+    if world_size(group) == 1:
+        return num.sum() / (den.sum() + 0.001)
+    sums = all_reduce_sum(torch.stack([num.sum(), den.sum()]), group)
+    return sums[0] / (sums[1] + 0.001)
 
 
-def _rematerialized(compute_dtype):
+def _rematerialized(compute_dtype, group=None):
     """The feature trunk under `checkpoint`: its activations are recomputed
     in the backward, not kept. The recompute runs under the same compute
     dtype (the backward runs outside `compute_losses`' policy block) and
     normalizes with the batch's moments again, but leaves the running
     statistics alone, so that they move once, as in the plain step
-    (`jax.checkpoint` is pure)."""
+    (`jax.checkpoint` is pure). Under `group` the recompute takes the
+    global moments again, with the same all-reduces on every rank."""
     def trunk_of(net, images):
         runs = []
 
         def trunk(x):
             with cast_compute_params([net], compute_dtype), \
+                    synced_batch_norm([net], group), \
                     frozen_bn_stats(net, frozen=bool(runs)):
                 runs.append(1)
                 return feature_extractor(net, x)
@@ -85,7 +94,7 @@ def _rematerialized(compute_dtype):
 
 def compute_losses(nets, images, index_roll, grid, mask_margin, mode="flow",
                    mu_cycle=1.0, lambda_match=0.01, grad_weight=0.0, kernel_size=7,
-                   compute_dtype=None, remat=False):
+                   compute_dtype=None, remat=False, group=None):
     """Returns (total_loss, dict of the four loss terms).
 
     nets: dict of the alignment networks ('netFeatCoarse', 'netFlowCoarse',
@@ -97,15 +106,20 @@ def compute_losses(nets, images, index_roll, grid, mask_margin, mode="flow",
     compute_dtype: None (fp32) or the convolutions' dtype (torch.bfloat16 or
       'bfloat16') under the mixed-precision policy; remat: recompute the
       feature trunk in the backward.
+    group: a process group for data parallelism (`parallel.group`): this
+      rank's images are its share of the global batch, every ratio and
+      the trained networks' BatchNorm moments are global over the ranks
+      (the reference's `axis_name`), and the losses are the global batch's.
     """
-    trunk = _rematerialized(compute_dtype) if remat else feature_extractor
-    with cast_compute_params(nets.values(), compute_dtype):
+    trunk = _rematerialized(compute_dtype, group) if remat else feature_extractor
+    with cast_compute_params(nets.values(), compute_dtype), \
+            synced_batch_norm(nets.values(), group):
         return _losses(nets, trunk, images, index_roll, grid, mask_margin, mode,
-                       mu_cycle, lambda_match, grad_weight, kernel_size)
+                       mu_cycle, lambda_match, grad_weight, kernel_size, group)
 
 
 def _losses(nets, trunk, images, index_roll, grid, mask_margin, mode, mu_cycle,
-            lambda_match, grad_weight, kernel_size):
+            lambda_match, grad_weight, kernel_size, group):
     trained = TRAIN_MODULES[mode]
     with_match = mode in ("flow+match", "grad")
 
@@ -133,17 +147,17 @@ def _losses(nets, trunk, images, index_roll, grid, mask_margin, mode, mu_cycle,
     # cycle consistency: warping forward then backward must return to grid
     flow_c = grid_sample(final[index_roll], final)
     cycle_map = (flow_c - grid).abs().mean(dim=-1, keepdim=True)
-    loss_cycle = _ratio(cycle_map * cycle_weight, cycle_weight)
+    loss_cycle = _ratio(cycle_map * cycle_weight, cycle_weight, group)
 
     # masked SSIM reconstruction
     warped = grid_sample(images, final)
-    loss_lr = masked_ssim_loss(warped, images[index_roll], recon_mask)
+    loss_lr = masked_ssim_loss(warped, images[index_roll], recon_mask, group)
 
     total = loss_lr + mu_cycle * loss_cycle
     if with_match:
-        loss_match = _ratio((1.0 - match_cycle).abs() * mask_margin, mask_margin)
+        loss_match = _ratio((1.0 - match_cycle).abs() * mask_margin, mask_margin, group)
         w = (1.0 - match_cycle[:, :-1, :-1, :]) * mask_margin[:, :-1, :-1, :]
-        loss_grad = _ratio(flow_grad * w, w)
+        loss_grad = _ratio(flow_grad * w, w, group)
         total = total + lambda_match * loss_match + grad_weight * loss_grad
     else:
         # 'flow' mode has neither matchability nor gradient terms

@@ -121,7 +121,7 @@ def test_predict_hpatches_fused_and_pools(tmp_path, rng, nets, monkeypatch):
     """n_devices=1 runs each pair through the pool's device-resident loop
     and recovers the translation; batched pairs and a pool of two slots on
     the CPU write the same artifacts bit for bit; a pool of 2 CPU devices
-    raises, naming the count and ROADMAP item 12b."""
+    raises, naming the count."""
     _, _, resnet, align = nets
     csv_dir, image_dir, kw = _hpatches_case(tmp_path, rng)
     calls = []
@@ -139,7 +139,7 @@ def test_predict_hpatches_fused_and_pools(tmp_path, rng, nets, monkeypatch):
         hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / name), resnet, align,
                                   "cpu", **dict(kw, **pool))
         _same_artifacts(str(tmp_path / "fused" / "2"), str(tmp_path / name / "2"), [0])
-    with pytest.raises(RuntimeError, match="2 cpu devices: this machine has 1.*item 12b"):
+    with pytest.raises(RuntimeError, match="2 cpu devices: this machine has 1"):
         hpatches.predict_hpatches(csv_dir, image_dir, str(tmp_path / "x"), resnet, align,
                                   "cpu", **dict(kw, n_devices=2))
 
@@ -284,7 +284,7 @@ def _cli_case(cli, tmp_path, rng):
 ])
 def test_eval_clis_reject_what_is_not_ported(tmp_path, rng, monkeypatch, cli, flags, item):
     """--nDevices 2 on a machine with one device (the CPU) raises, naming the
-    count and ROADMAP item 12b. The flags of items 12a and 14 run now:
+    count. The flags of items 12a and 14 run now:
     --batchPairs 2 --fused writes --fused's artifacts bit for bit (eval_kitti
     has no --batchPairs, as the JAX CLI has none), and --computeDtype
     bfloat16 hands the harness networks cast to bf16, parameters and
@@ -292,7 +292,7 @@ def test_eval_clis_reject_what_is_not_ported(tmp_path, rng, monkeypatch, cli, fl
     main, fn_name, trunk_arg, args, subdirs = _cli_case(cli, tmp_path, rng)
     argv = ["predict", *args, *SMALL]
     if flags[0] == "--nDevices":
-        with pytest.raises(RuntimeError, match=f"2 cpu devices: this machine has 1.*{item}b"):
+        with pytest.raises(RuntimeError, match="2 cpu devices: this machine has 1"):
             main.main([*argv, "--outDir", str(tmp_path / "x"), *flags])
         return
     if flags[0] == "--batchPairs":

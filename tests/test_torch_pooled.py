@@ -219,7 +219,7 @@ def test_pool_devices():
         pooled.pool_devices(0, "cpu")
     have = torch.cuda.device_count()
     with pytest.raises(RuntimeError, match=f"a pool of {have + 1} cuda devices: "
-                                           f"this machine has {have}.*item 12b"):
+                                           f"this machine has {have}"):
         pooled.pool_devices(have + 1, "cuda")
 
 

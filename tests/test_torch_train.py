@@ -488,14 +488,29 @@ def _cli_train(data, out, *flags):
                                   ["--computeDtype", "bfloat16"],
                                   ["--nativeResize", "--remat"]])
 def test_cli_rejects_what_is_not_ported(tmp_path, flag):
-    """--nDevices 2 and --distributed raise, naming ROADMAP item 12b. The
-    flags of item 14 run now: a step with --remat (with --nativeResize too)
-    saves the plain step's networks bit for bit; one with --computeDtype
-    bfloat16 saves fp32 masters, BatchNorm statistics and Adam state."""
-    if flag[0] in ("--nDevices", "--distributed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12b"):
-            cli_train.main(["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path),
-                            "--device", "cpu", *flag, "NoVal"])
+    """--nDevices and --distributed train now (tests/test_torch_parallel.py
+    runs both); what they reject is a machine that lacks what they ask for:
+    --nDevices on cards beyond the machine's count raises, naming it, and
+    --distributed outside a torchrun launch raises, naming the variables it
+    lacks. The flags of item 14 run: a step with --remat (with
+    --nativeResize too) saves the plain step's networks bit for bit; one
+    with --computeDtype bfloat16 saves fp32 masters, BatchNorm statistics
+    and Adam state."""
+    base = ["--trainImgDir", str(tmp_path), "--outDir", str(tmp_path)]
+    if flag[0] == "--nDevices":
+        have = torch.cuda.device_count()
+        n = max(have + 1, 2)
+        with pytest.raises(RuntimeError, match=f"a mesh of {n} cuda devices: "
+                                               f"this machine has {have}"):
+            cli_train.main([*base, "--device", "cuda", "--nDevices", str(n), "NoVal"])
+        return
+    if flag[0] == "--distributed":
+        env = {v: os.environ.pop(v) for v in ("RANK", "WORLD_SIZE") if v in os.environ}
+        try:
+            with pytest.raises(RuntimeError, match="no torchrun environment: RANK, WORLD_SIZE"):
+                cli_train.main([*base, "--device", "cpu", *flag, "NoVal"])
+        finally:
+            os.environ.update(env)
         return
     data = tmp_path / "data"
     data.mkdir()
@@ -513,11 +528,12 @@ def test_cli_rejects_what_is_not_ported(tmp_path, flag):
 
 
 def test_fit_rejects_what_is_not_ported(tmp_path):
-    """fit(n_devices=2) raises, naming ROADMAP item 12b. remat=True and
-    compute_dtype='bfloat16' train now: remat gives the plain fit's losses,
+    """fit(n_devices=2) outside a process group of 2 ranks raises, naming
+    what it needs (tests/test_torch_parallel.py runs it in one). remat=True
+    and compute_dtype='bfloat16' train: remat gives the plain fit's losses,
     weights and BatchNorm statistics bit for bit (the same ops on the CPU),
     bf16 keeps every master and statistic fp32 and its losses finite."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12b"):
+    with pytest.raises(ValueError, match="n_devices=2 trains one process a device"):
         fit({}, str(tmp_path), str(tmp_path), "cpu", n_devices=2)
     data = tmp_path / "data"
     data.mkdir()
