@@ -3,8 +3,8 @@
 the multi-homography loop, training, the opt-in fast modes through the
 public entry points, the sky mask, the eval harnesses, affine fits,
 iterative refinement, MegaDepth validation, the eval pool and the bf16
-policies with remat, and data parallelism (on four cards where there are
-four).
+policies with remat, data parallelism (on four cards where there are
+four), and the serving loop's batch modes.
 
     python3 chip_smoke.py
 
@@ -44,7 +44,14 @@ Phases, each of which must pass:
       versions on the same seed, at 10k and 50k hypotheses (K3) and one
       block and 13 (K4), timed as the ops a path calls (the seed draw and
       one launch) and as the kernel alone (`kernel_device_ms`); K4 runs
-      under sync-debug 'error';
+      under sync-debug 'error'; then the batch forms (`BATCH_CHECKS`) at
+      k = 2 and 4 pairs, each against its plain twin and bit for bit
+      against its single launch on each pair, with `singles_ms` the k
+      single launches: K2 exact, relaxed and masked at k serving scores
+      (`_batch<k>` keys), K12 at k 7-scale stride-3 banks
+      (`_bank_batch<k>`), K3 at 10k hypotheses (`_batch<k>`), K4 to the
+      cap and with stops that differ by pair, under sync-debug 'error'
+      (`_to_cap_batch4`, `_stops_batch<k>`), and K5h at B = 4 (`_b4`);
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
@@ -199,6 +206,25 @@ Phases, each of which must pass:
       card in turns (bit for bit, pairs/s); HPatches, YFCC and KITTI
       predict over a pool of four cards against one slot (POOL_TOL); and
       `sharded_ransac` over four cards.
+  (n) batch modes: `fused_align_batch` on (d)'s 4 pairs in `scan`,
+      `vmap`, `hybrid`, `chunk2`, `chunkf2` and `chunkv2`, in fp32 (TF32
+      off) and bf16 (the eval policy), then `chunk2` at anchor stride 3
+      with relax_cells 1 (bench.py's fast-mode series) and `vmap` with
+      adaptive RANSAC (blocks of 4096), each beside `scan` and a mode of
+      the same coarse step that fits the other way (`chunkv2`, `hybrid`)
+      in its own configuration: the coarse matches against scan's (a differing cell
+      must be a near tie of scan's score, its margin printed, at most 1%
+      of the cells in fp32), H21 within 1e-5 and inliers equal (or apart
+      by matches on the tolerance boundary) on the pairs whose matches
+      are equal, the flow within 1e-3 there in fp32; each mode also held
+      so to the first mode with its coarse step (hybrid to vmap, chunkf2
+      and chunkv2 to chunk2, in each configuration), whose matches it must
+      equal: where bf16's roundings leave no pair with scan's matches, this
+      holds the batched fits and fine stage to the per-pair ones; the launches of K2,
+      K3, K4 and K12 a call (K2 4 / 1 / 1 / 2 / 2 / 2 and K3 4 / 1 / 4 /
+      4 / 4 / 2 for the six modes); pairs/s (CUDA events, best of 3 after
+      the checked call), peak memory and the card's idle share of one
+      traced call.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
@@ -214,7 +240,8 @@ Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
 (m)'s `dp_train` (the ranks' launches summed), `sharded_serving` and
 `sharded_ransac`, and on four cards `dp_train_4_cards`,
 `sharded_serving_4_cards`, `{hpatches,yfcc}_{one_slot,four_cards}`,
-`kitti_four_cards` and `sharded_ransac_4_cards`.
+`kitti_four_cards` and `sharded_ransac_4_cards`; phase (n)'s
+`batch_<mode>[_anchor|_adaptive]_<fp32|bf16>`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -317,14 +344,18 @@ def library(fn, suffix=""):
     return {"library_ms" + suffix: cuda_ms(fn), "library_device_ms" + suffix: device_ms(fn)}
 
 
-def paired_ms(kernel_fn, plain_fn, reps=20, suffix=""):
+def paired_ms(kernel_fn, plain_fn, reps=20, suffix="", plain_reps=None):
     """Kernel and plain milliseconds per call: `ms` from CUDA events around
     back-to-back calls (host launch time included), measured in turns
-    kernel, plain, plain, kernel; `device_ms` the kernels' own device time."""
-    k1, p1, p2, k2 = (cuda_ms(f, reps) for f in (kernel_fn, plain_fn, plain_fn, kernel_fn))
+    kernel, plain, plain, kernel; `device_ms` the kernels' own device time.
+    `plain_reps`: fewer calls of a slow plain version (after one warm-up)."""
+    p_reps, p_warm = (reps, 3) if plain_reps is None else (plain_reps, 1)
+    k1 = cuda_ms(kernel_fn, reps)
+    p1, p2 = (cuda_ms(plain_fn, p_reps, p_warm) for _ in range(2))
+    k2 = cuda_ms(kernel_fn, reps)
     return {"ms" + suffix: (k1 + k2) / 2, "plain_ms" + suffix: (p1 + p2) / 2,
             "device_ms" + suffix: device_ms(kernel_fn, reps),
-            "plain_device_ms" + suffix: device_ms(plain_fn, reps)}
+            "plain_device_ms" + suffix: device_ms(plain_fn, p_reps)}
 
 
 def phase_card():
@@ -1198,6 +1229,259 @@ def check_anchor_resample(gen):
     return out
 
 
+# -- the batch forms (K2, K3, K4, K12, and K5h at B = 4) ----------------------
+BATCH_KS = (2, 4)  # pairs of the batch forms' checks
+
+
+def _same_bits(a, b):
+    """Equal tensors, floats compared by their bits (a NaN equals a NaN)."""
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _batch_singles(name, batch_outs, single_outs):
+    """A batch form's outputs (leading pair axis) against its single form's,
+    pair by pair, bit for bit."""
+    for p, one in enumerate(single_outs):
+        for i, (b, s) in enumerate(zip(batch_outs, one)):
+            require(_same_bits(b[p], s), f"{name}: output {i} of pair {p} differs from the "
+                                         "single launch's")
+
+
+def check_matching_batch(gen):
+    """K2's batch form at k serving scores (13065 x 1200 each, fresh
+    features a pair), exact (`_batch<k>`), relax_cells 1 on the 30 x 40 grid
+    (`_relaxed_batch<k>`) and with a (k, 1200) mask (`_masked_batch<k>`):
+    every output bit for bit its plain twin's and the single launch's on
+    each pair; `singles_ms` the k single launches."""
+    from ransacflow_tpu_torch.kernels.matching import (
+        mutual_argmax, mutual_argmax_batch, mutual_argmax_batch_ref)
+
+    out = {}
+    for k in BATCH_KS:
+        feat_a = _normalized((k, N_CHANNELS, N_BANK), 1, gen)
+        feat_b = _normalized((k, N_CHANNELS, N_TARGET), 1, gen)
+        score = torch.bmm(feat_a.transpose(1, 2), feat_b)
+        valid_b = torch.rand((k, N_TARGET), generator=gen, device="cuda") > 0.1
+        for case, args in (("", (score, 0, None, None)), ("_relaxed", (score, 1, 40, None)),
+                           ("_masked", (score, 0, None, valid_b))):
+            suffix = f"{case}_batch{k}"
+            got = mutual_argmax_batch(*args)
+            want = mutual_argmax_batch_ref(*args)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("best_src", "best_tgt", "valid", "pair_score"), got, want):
+                require(_same_bits(g, w), f"matching{suffix}: {name} differs from the twin")
+            _batch_singles(f"matching{suffix}", got, [
+                mutual_argmax(score[p], *args[1:3], None if args[3] is None else args[3][p])
+                for p in range(k)])
+            out["max_abs_err" + suffix] = (got[3] - want[3]).abs().max().item()
+            out["n_valid" + suffix] = int(got[2].sum())
+            out.update(paired_ms(lambda: mutual_argmax_batch(*args),
+                                 lambda: mutual_argmax_batch_ref(*args), suffix=suffix,
+                                 plain_reps=5))
+            out["singles_ms" + suffix] = cuda_ms(lambda: [
+                mutual_argmax(score[p], *args[1:3], None if args[3] is None else args[3][p])
+                for p in range(k)])
+            out.update(bound(nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got),
+                             2 * score.numel(), suffix))
+    return out
+
+
+def check_anchor_resample_batch(gen):
+    """K12's batch form: k serving pairs' 7-scale banks at anchor stride 3 in
+    one launch (`_bank_batch<k>`), within 1e-5 of the plain twin and each
+    bank bit for bit its single launch's."""
+    from ransacflow_tpu_torch.kernels.anchor_resample import (
+        anchor_resample_bank, anchor_resample_bank_batch, anchor_resample_bank_batch_ref)
+    from ransacflow_tpu_torch.pipeline.bank import nearest_anchors
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    shapes = pyramid_shapes()
+    nearest = nearest_anchors(shapes, 3)
+    grids = [(h // 16, w // 16) for h, w in shapes]
+    out = {}
+    for k in BATCH_KS:
+        suffix = f"_bank_batch{k}"
+        maps = {i: 3 * torch.randn((k, h // 16, w // 16, N_CHANNELS), generator=gen,
+                                   device="cuda")
+                for i, (h, w) in enumerate(shapes) if i in nearest}
+        bank = anchor_resample_bank_batch(maps, shapes, nearest)
+        err = (bank - anchor_resample_bank_batch_ref(maps, shapes, nearest)).abs().max().item()
+        torch.cuda.synchronize()
+        require(err <= 1e-5, f"anchor_resample{suffix}: max abs err {err} > 1e-5")
+
+        def singles():
+            return [anchor_resample_bank({i: m[p:p + 1] for i, m in maps.items()}, shapes,
+                                         nearest) for p in range(k)]
+
+        _batch_singles(f"anchor_resample{suffix}", (bank,), [(b,) for b in singles()])
+        pairs = [(tuple(maps[i].shape[1:3]), grid) for i, grid in zip(nearest, grids)]
+        out.update({"max_abs_err" + suffix: err,
+                    **paired_ms(lambda: anchor_resample_bank_batch(maps, shapes, nearest),
+                                lambda: anchor_resample_bank_batch_ref(maps, shapes, nearest),
+                                suffix=suffix, plain_reps=3),
+                    "singles_ms" + suffix: cuda_ms(singles),
+                    **bound(nbytes(*maps.values(), bank), k * _resample_ops(pairs), suffix)})
+    return out
+
+
+def _ransac_batch_problems(gen, fracs):
+    """k serving match sets (`_ransac_matches`, 1200 cells) with the given
+    inlier fractions, stacked, and k seeds."""
+    from ransacflow_tpu_torch.ops.ransac import draw_seed
+
+    sets = [_ransac_matches(gen, f) for f in fracs]
+    m1, m2, valid = (torch.stack(x).contiguous() for x in zip(*sets))
+    return m1, m2, valid, torch.cat([draw_seed(gen, "cuda") for _ in fracs])
+
+
+def _ransac_batch_bound(m1, m2, valid, seeds, n_hyps, suffix):
+    b = o = 0
+    for p, n_hyp in enumerate(n_hyps):
+        r = _ransac_bound(m1[p], m2[p], valid[p], seeds[p:p + 1], n_hyp)
+        b, o = b + r["bound_bytes"], o + r["bound_ops"]
+    return bound(b, o, suffix)
+
+
+def _ransac_batch_against(name, fit, rec, ref, rec_ref, singles, m1, m2, valid, rows=None):
+    """Each pair of a RANSAC batch form's fit against its plain twin's
+    (`_ransac_against_plain`, on the rows the pair evaluated) and bit for
+    bit against the single launch's fit and record."""
+    from ransacflow_tpu_torch.kernels.ransac import Record, pair_of
+
+    err, agree = 0.0, 1.0
+    for p, (one, one_rec) in enumerate(singles):
+        n = rec.counts.shape[1] if rows is None else rows[p]
+        got = _ransac_against_plain(
+            f"{name} pair {p}", pair_of(fit, p), Record(rec.counts[p, :n], rec.sets[p, :n]),
+            pair_of(ref, p), Record(rec_ref.counts[p, :n], rec_ref.sets[p, :n]),
+            m1[p], m2[p], valid[p])
+        err, agree = max(err, got["max_abs_err"]), min(agree, got["counts_agree"])
+        for i, (b, s) in enumerate(zip(pair_of(fit, p), one)):
+            require(_same_bits(b, s), f"{name}: result field {i} of pair {p} differs from "
+                                      "the single launch's")
+        require(torch.equal(rec.counts[p, :n], one_rec.counts[:n])
+                and torch.equal(rec.sets[p, :n], one_rec.sets[:n]),
+                f"{name}: pair {p}'s record differs from the single launch's")
+    return err, agree
+
+
+def check_ransac_batch(gen):
+    """K3's batch form: k serving fits (1200 matches, 10k hypotheses, 60%
+    inliers, a seed each) in one launch (`_batch<k>`), each pair against
+    the plain twin as K3 is, and bit for bit its single launch's."""
+    from ransacflow_tpu_torch.kernels.ransac import (
+        ransac_fit, ransac_fit_batch, ransac_fit_batch_ref)
+
+    out = {}
+    for k in BATCH_KS:
+        suffix = f"_batch{k}"
+        m1, m2, valid, seeds = _ransac_batch_problems(gen, [0.6] * k)
+        args = (m1, m2, valid, 0.05, N_ITER)
+        fit, rec = ransac_fit_batch(*args, seed=seeds, record=True)
+        ref, rec_ref = ransac_fit_batch_ref(*args, seed=seeds)
+        singles = [ransac_fit(m1[p], m2[p], valid[p], 0.05, N_ITER, seed=seeds[p:p + 1],
+                              record=True) for p in range(k)]
+        torch.cuda.synchronize()
+        err, agree = _ransac_batch_against(f"ransac{suffix}", fit, rec, ref, rec_ref, singles,
+                                           m1, m2, valid)
+        out.update({"max_abs_err" + suffix: err, "counts_agree" + suffix: agree,
+                    **paired_ms(lambda: ransac_fit_batch(*args, seed=seeds),
+                                lambda: ransac_fit_batch_ref(*args, seed=seeds), suffix=suffix,
+                                plain_reps=2),
+                    "singles_ms" + suffix: cuda_ms(lambda: [
+                        ransac_fit(m1[p], m2[p], valid[p], 0.05, N_ITER, seed=seeds[p:p + 1])
+                        for p in range(k)]),
+                    **_ransac_batch_bound(m1, m2, valid, seeds, [N_ITER] * k, suffix)})
+    return out
+
+
+def check_ransac_adaptive_batch(gen):
+    """K4's batch form in one cooperative launch, under sync-debug 'error':
+    k fits of 1200 matches in blocks of 4096 to the 50k cap, all
+    structureless (every pair to the cap, `_to_cap_batch4`) and with inlier
+    fractions that stop the pairs after different blocks (`_stops_batch2`,
+    `_stops_batch4`); each pair evaluates the blocks its plain twin does,
+    agrees with it as K4 does and is bit for bit its single launch."""
+    from ransacflow_tpu_torch.kernels.ransac_adaptive import (
+        ransac_adaptive, ransac_adaptive_batch, ransac_adaptive_batch_ref)
+
+    out = {}
+    # w = 0.6 stops after one block, 0.15 and 0.12 after about 4 and 9 (n_req =
+    # log(0.001) / log(1 - w^4)), 0 runs to the cap
+    cases = ((2, "_stops", [0.6, 0.0]), (4, "_to_cap", [0.0] * 4),
+             (4, "_stops", [0.6, 0.0, 0.15, 0.12]))
+    for k, case, fracs in cases:
+        suffix = f"{case}_batch{k}"
+        m1, m2, valid, seeds = _ransac_batch_problems(gen, fracs)
+        args = (m1, m2, valid, 0.05, MH_N_ITER, MH_CHUNK, 0.999)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fit, n_eval, rec = ransac_adaptive_batch(*args, seed=seeds, record=True)
+            singles = [ransac_adaptive(m1[p], m2[p], valid[p], *args[3:],
+                                       seed=seeds[p:p + 1], record=True)
+                       for p in range(k)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref, n_eval_r, rec_ref = ransac_adaptive_batch_ref(*args, seed=seeds)
+        require(torch.equal(n_eval.cpu(), n_eval_r.cpu())
+                and all(int(s[1]) == int(n) for s, n in zip(singles, n_eval)),
+                f"ransac_adaptive{suffix}: evaluated {n_eval.tolist()}, plain "
+                f"{n_eval_r.tolist()}, singles {[int(s[1]) for s in singles]}")
+        if case == "_to_cap":
+            require(set(n_eval.tolist()) == {-(-MH_N_ITER // MH_CHUNK) * MH_CHUNK},
+                    f"ransac_adaptive{suffix}: not every pair ran to the cap: "
+                    f"{n_eval.tolist()}")
+        else:
+            require(len(set(n_eval.tolist())) > 1,
+                    f"ransac_adaptive{suffix}: the pairs stopped together: "
+                    f"{n_eval.tolist()}")
+        rows = [int(n) for n in n_eval]
+        err, agree = _ransac_batch_against(
+            f"ransac_adaptive{suffix}", fit, rec, ref, rec_ref,
+            [(s[0], s[2]) for s in singles], m1, m2, valid, rows)
+        out.update({"max_abs_err" + suffix: err, "counts_agree" + suffix: agree,
+                    "evaluated" + suffix: rows,
+                    **paired_ms(lambda: ransac_adaptive_batch(*args, seed=seeds),
+                                lambda: ransac_adaptive_batch_ref(*args, seed=seeds),
+                                reps=5, suffix=suffix, plain_reps=1),
+                    "singles_ms" + suffix: cuda_ms(lambda: [
+                        ransac_adaptive(m1[p], m2[p], valid[p], *args[3:],
+                                        seed=seeds[p:p + 1]) for p in range(k)], reps=5),
+                    **_ransac_batch_bound(m1, m2, valid, seeds, rows, suffix)})
+    return out
+
+
+def check_warp_homography_batch(gen):
+    """K5's homography form at B = 4 (`_b4`): four 480x640 sources, each
+    warped by its own homography (the identity among them) as the batched
+    fine stage calls it, against its plain version."""
+    from ransacflow_tpu_torch.kernels.warp_sample import warp_homography, warp_homography_ref
+
+    src = torch.rand((4, *TARGET_HW, 3), generator=gen, device="cuda")
+    H = (torch.eye(3, device="cuda")
+         + 0.03 * torch.randn((4, 3, 3), generator=gen, device="cuda")).contiguous()
+    H[0] = torch.eye(3, device="cuda")
+    img, grid = warp_homography(src, H, TARGET_HW)
+    img_r, grid_r = warp_homography_ref(src, H, TARGET_HW)
+    torch.cuda.synchronize()
+    err, grid_err = (img - img_r).abs().max().item(), (grid - grid_r).abs().max().item()
+    require(err <= 1e-5 and grid_err <= 1e-6,
+            f"warp_homography_b4: image err {err} > 1e-5 or grid err {grid_err} > 1e-6")
+    return {"max_abs_err_b4": err, "grid_max_abs_err_b4": grid_err,
+            **paired_ms(lambda: warp_homography(src, H, TARGET_HW),
+                        lambda: warp_homography_ref(src, H, TARGET_HW), suffix="_b4"),
+            **bound(nbytes(src, H, img, grid), img.numel() // 3 * (22 + 8 * 3), "_b4")}
+
+
+BATCH_CHECKS = (("mutual_argmax", check_matching_batch), ("ransac_score", check_ransac_batch),
+                ("ransac_adaptive", check_ransac_adaptive_batch),
+                ("anchor_resample", check_anchor_resample_batch),
+                ("warp_homography", check_warp_homography_batch))
+
+
 def check_ppm_pool(gen):
     """K13 at the sky mask's conv5 shapes: (1, 47, 63, 2048) for a 480x640
     image at the capped scales, (1, 38, 50, 2048) at the short side 300."""
@@ -1250,15 +1534,25 @@ def phase_kernels():
               (("anchor_resample",), check_anchor_resample),
               (("ppm_pool",), check_ppm_pool))
     results = {}
+
+    def shares(r):
+        for key in [k for k in r if k.startswith("bound_ms")]:
+            suffix = key[len("bound_ms"):]  # share: bound over device time
+            dev = r.get("device_ms" + suffix)
+            r["share" + suffix] = r[key] / dev if dev else None
+
     for names, check in checks:
         got = check(gen)
         for name, r in zip(names, got if len(names) > 1 else (got,)):
-            for key in [k for k in r if k.startswith("bound_ms")]:
-                suffix = key[len("bound_ms"):]  # share: bound over device time
-                dev = r.get("device_ms" + suffix)
-                r["share" + suffix] = r[key] / dev if dev else None
+            shares(r)
             results[name] = r
             print(f"(c) {name}: " + ", ".join(f"{k}={v}" for k, v in r.items()), flush=True)
+    for name, check in BATCH_CHECKS:  # the batch forms, under their own suffixes
+        got = check(gen)
+        shares(got)
+        results[name].update(got)
+        print(f"(c) {name}, batch form: " + ", ".join(f"{k}={v}" for k, v in got.items()),
+              flush=True)
     return results
 
 
@@ -1292,7 +1586,8 @@ def check_small_pair_against_cpu(shapes=SMALL_SHAPES, target_scale=None, **mode)
     is a blocky image of its own, or the source's scale `target_scale`.
     `mode`: fused_align's anchor_stride / relax_cells. The coarse matches
     (m1, m2, valid) must be identical."""
-    from ransacflow_tpu_torch.pipeline.fused import _coarse_match, device_pyramid, fused_align
+    from ransacflow_tpu_torch.pipeline.fused import (
+        _coarse_match_batch, device_pyramid, fused_align)
 
     rng = np.random.RandomState(3)
     src = torch.from_numpy(_blocky(rng, 1, *shapes[0]))
@@ -1306,7 +1601,8 @@ def check_small_pair_against_cpu(shapes=SMALL_SHAPES, target_scale=None, **mode)
         outs[device] = fused_align(resnet, align, pyr, target, n_iter=256,
                                    injected_samples=samples.to(device), **mode)
         with torch.inference_mode():
-            matches[device] = [m.cpu() for m in _coarse_match(resnet, pyr, target, **mode)]
+            matches[device] = [m[0].cpu() for m in _coarse_match_batch(resnet, pyr, target,
+                                                                       **mode)]
     (m1c, m2c, vc), (m1g, m2g, vg) = matches["cpu"], matches["cuda"]
     require(torch.equal(vc, vg) and torch.equal(m1c[vc], m1g[vg]) and torch.equal(m2c, m2g),
             f"small pair {mode}: coarse matches differ from CPU "
@@ -4298,6 +4594,221 @@ def phase_multicard(card, results):
     return paths, readings
 
 
+# -- (n) the batch modes of the serving loop -----------------------------------
+BATCH_MODES = ("scan", "vmap", "hybrid", "chunk2", "chunkf2", "chunkv2")
+# K2 and K3 launches of one call at N_PAIRS = 4 pairs, per mode
+BATCH_MODE_LAUNCHES = {"scan": (4, 4), "vmap": (1, 1), "hybrid": (1, 4), "chunk2": (2, 4),
+                       "chunkf2": (2, 4), "chunkv2": (2, 2)}
+# bench.py's fast-mode series (chunk2 at anchor stride 3, relax 1) and vmap
+# with adaptive RANSAC, each beside a mode of the same coarse step that fits
+# the other way (chunkv2: batched fits; hybrid: fits pair by pair), all held
+# to scan in their configuration: (options, {mode: the launches of one call})
+BATCH_EXTRAS = {
+    "anchor": (ANCHOR, {
+        "scan": {"mutual_argmax": 4, "ransac_score": 4, "ransac_adaptive": 0,
+                 "anchor_resample": 4},
+        "chunk2": {"mutual_argmax": 2, "ransac_score": 4, "ransac_adaptive": 0,
+                   "anchor_resample": 2},
+        "chunkv2": {"mutual_argmax": 2, "ransac_score": 2, "ransac_adaptive": 0,
+                    "anchor_resample": 2}}),
+    "adaptive": ({"adaptive_chunk": MH_CHUNK}, {
+        "scan": {"mutual_argmax": 4, "ransac_score": 0, "ransac_adaptive": 4,
+                 "anchor_resample": 0},
+        "vmap": {"mutual_argmax": 1, "ransac_score": 0, "ransac_adaptive": 1,
+                 "anchor_resample": 0},
+        "hybrid": {"mutual_argmax": 1, "ransac_score": 0, "ransac_adaptive": 4,
+                   "anchor_resample": 0}})}
+# a differing coarse match must be a near tie in scan's own score: the gap
+# between the two best scores of its column, or of its source's row (fp32:
+# trunk maps that differ in their last bits; bf16: maps whose every layer
+# rounds to bf16 what another cuDNN algorithm for the batch summed)
+TIE_GAP = {"fp32": 1e-4, "bf16": 1e-2}
+
+
+def _mode_matches(resnet, pyramids, targets, mode, anchor_stride=0, relax_cells=0, **_):
+    """(m1, m2 (K, nB, 3), valid (K, nB)) of a batch mode's coarse step:
+    `_coarse_match_batch` over the mode's chunks (of one pair for scan)."""
+    from ransacflow_tpu_torch.pipeline.fused import _coarse_match_batch, parse_batch_mode
+
+    kw = dict(anchor_stride=anchor_stride, relax_cells=relax_cells)
+    c = parse_batch_mode(mode, targets.shape[0])[0]
+    with torch.inference_mode():
+        got = [_coarse_match_batch(resnet, tuple(p[c0:c0 + c, 0] for p in pyramids),
+                                   targets[c0:c0 + c, 0], **kw)
+               for c0 in range(0, targets.shape[0], c)]
+    return tuple(torch.cat([g[i] for g in got]) for i in range(3))
+
+
+def _tie_gaps(resnet, pyramid, target, cells, anchor_stride=0, relax_cells=0, **_):
+    """For target cells `cells` of one pair, scan's score margins: the
+    smaller of the gap between the two best scores of the cell's column and
+    that of its best source's row."""
+    from ransacflow_tpu_torch.ops.matching import score_gemm
+    from ransacflow_tpu_torch.pipeline.bank import anchor_bank, coarse_features
+
+    with torch.inference_mode():
+        bank = (anchor_bank(resnet, pyramid, anchor_stride) if anchor_stride else
+                torch.cat([coarse_features(resnet, im).flatten(0, 2) for im in pyramid]))
+        featt = coarse_features(resnet, target).flatten(0, 2)
+        score = score_gemm(bank.T, featt.T).float()
+    col = score[:, cells].topk(2, dim=0).values
+    row = score[score[:, cells].argmax(dim=0)].topk(2, dim=1).values
+    return torch.minimum(col[0] - col[1], row[:, 0] - row[:, 1]).tolist()
+
+
+def _agreement(key, name, resnet, pyramids, targets, out, ref, matches, ref_matches, kw):
+    """A mode's run against scan's (Tentpole section 6): the coarse matches
+    first, each differing cell a near tie of scan's score (its margin
+    printed and the cells counted); then, on the pairs whose matches are
+    equal, H21 within 1e-5, num_inliers equal but for matches on the
+    tolerance boundary (`boundary_flips`' window, 1e-5), and in fp32 the flow
+    within 1e-3."""
+    from ransacflow_tpu_torch.ops.homography import reprojection_error
+
+    from ransacflow_tpu_torch.pipeline.bank import coarse_features
+
+    (m1, _, valid), (m1_s, m2_s, valid_s) = matches, ref_matches
+    n_b = valid.shape[1]
+    rep = {"cells_differ": 0, "tie_gaps": [], "pairs_equal": 0, "h21_max_err": 0.0,
+           "inlier_flips": 0, "flow_max_err": 0.0}
+    for k in range(targets.shape[0]):
+        differ = (valid[k] != valid_s[k]) | (valid[k] & (m1[k] != m1_s[k]).any(dim=-1))
+        cells = differ.nonzero()[:, 0]
+        if cells.numel() and "target_feature_max_err" not in rep:
+            with torch.inference_mode():  # the trunk alone, one target and the batch
+                one = coarse_features(resnet, targets[k]).float()
+                batch = coarse_features(resnet, targets[:, 0])[k:k + 1].float()
+            rep["target_feature_max_err"] = (one - batch).abs().max().item()
+        if cells.numel():
+            gaps = _tie_gaps(resnet, tuple(p[k] for p in pyramids), targets[k], cells, **kw)
+            rep["cells_differ"] += cells.numel()
+            rep["tie_gaps"] += gaps
+            require(max(gaps) <= TIE_GAP[key],
+                    f"{name}: pair {k}: {cells.numel()} coarse matches differ from scan's, "
+                    f"margins {gaps} > {TIE_GAP[key]}")
+            continue
+        rep["pairs_equal"] += 1
+        err = (out["H21"][k] - ref["H21"][k]).abs().max().item()
+        rep["h21_max_err"] = max(rep["h21_max_err"], err)
+        require(err <= 1e-5 and bool(out["found"][k] == ref["found"][k]),
+                f"{name}: pair {k}: H21 {err} from scan's on equal matches")
+        d_inl = abs(int(out["num_inliers"][k]) - int(ref["num_inliers"][k]))
+        if d_inl:
+            res = reprojection_error(m1_s[k], m2_s[k], ref["H21"][k][None])[0]
+            near = int((((res - 0.05).abs() <= 1e-5) & valid_s[k]).sum())
+            require(d_inl <= near, f"{name}: pair {k}: inliers {int(out['num_inliers'][k])} "
+                                   f"vs scan's {int(ref['num_inliers'][k])}, {near} matches "
+                                   "on the tolerance boundary")
+            rep["inlier_flips"] += d_inl
+        ferr = (out["flow"][k].float() - ref["flow"][k].float()).abs().max().item()
+        rep["flow_max_err"] = max(rep["flow_max_err"], ferr)
+        if key == "fp32":
+            require(ferr <= 1e-3, f"{name}: pair {k}: flow {ferr} from scan's")
+    # fp32: a few near ties at most; bf16: as many as the roundings flip
+    require(key != "fp32" or rep["cells_differ"] <= 0.01 * targets.shape[0] * n_b,
+            f"{name}: {rep['cells_differ']} coarse matches differ from scan's")
+    if rep["tie_gaps"]:
+        rep["tie_gaps"] = [min(rep["tie_gaps"]), max(rep["tie_gaps"])]
+    return rep
+
+
+def phase_batch_modes(card):
+    """(n) `fused_align_batch` in each batch mode on phase (d)'s 4 full-width
+    pairs (480x640 targets, 7 scales from 960x1280, 10k hypotheses, cycle
+    match, seeded weights), fp32 (TF32 off) and bf16 (the eval policy);
+    then chunk2 at anchor stride 3 with relax_cells 1 (bench.py's fast-mode
+    series) and vmap with adaptive RANSAC (blocks of 4096), each beside
+    scan in its configuration and beside a mode of the same coarse step
+    that fits the other way (chunkv2; hybrid). Per run: agreement with scan
+    (`_agreement`) and with the first mode of the same coarse step, the
+    launches of K2, K3, K4 and K12 in one call, pairs/s
+    (CUDA events, best of 3 after the checked call), peak memory and the
+    card's idle share of one traced call."""
+    from ransacflow_tpu_torch.cli.common import cast_for_dtype
+    from ransacflow_tpu_torch.pipeline.fused import (
+        device_pyramid, fused_align_batch, parse_batch_mode)
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    t0 = time.perf_counter()
+    shapes = pyramid_shapes()
+    rng = np.random.RandomState(0)
+    sources = torch.from_numpy(_blocky(rng, N_PAIRS, *shapes[0])).cuda()
+    targets = torch.from_numpy(_blocky(rng, N_PAIRS, *TARGET_HW)).cuda()[:, None]
+    resnet, align = _nets("cuda")
+    nets = {"fp32": (resnet, align),
+            "bf16": (cast_for_dtype(resnet, "bfloat16"), cast_for_dtype(align, "bfloat16"))}
+    pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
+    # (name, mode, options, launches, timed): the extras' scan runs are
+    # references only
+    runs = [(f"{mode}", mode, {}, dict(zip(("mutual_argmax", "ransac_score"), n),
+                                       ransac_adaptive=0, anchor_resample=0), True)
+            for mode, n in BATCH_MODE_LAUNCHES.items()]
+    for extra, (kw, modes) in BATCH_EXTRAS.items():
+        runs += [(f"{mode}_{extra}", mode, kw, want, mode != "scan")
+                 for mode, want in modes.items()]
+    paths, readings = {}, {}
+    for key in nets:
+        r, a = nets[key]
+
+        def serve(mode, kw):
+            pyr = tuple(p[:, None] for p in device_pyramid(sources, shapes))
+            return fused_align_batch(r, a, pyr, targets,
+                                     torch.Generator(device="cuda").manual_seed(2),
+                                     n_iter=N_ITER, batch_mode=mode, **kw)
+
+        refs, siblings = {}, {}
+        for name, mode, kw, want, timed in runs:
+            path = f"batch_{name}_{key}"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, launches = _launches_of(lambda: serve(mode, kw))
+            peak = torch.cuda.max_memory_allocated()
+            _require_launched(path, launches, SERVING_KERNELS if "adaptive" not in name else
+                              [k for k in SERVING_KERNELS if k != "ransac_score"], want)
+            for field in ("H21", "flow", "match", "flow_down8", "match_down8"):
+                require(bool(torch.isfinite(out[field]).all()), f"{path}: {field} not finite")
+            matches = _mode_matches(r, pyramids, targets, mode, **kw)
+            reading = {"found": out["found"].tolist(), "inliers": out["num_inliers"].tolist()}
+            if mode == "scan":
+                refs[name.replace("scan", "", 1)] = (out, matches)
+            else:
+                ref, ref_matches = refs[name[len(mode):]]
+                reading["agreement"] = _agreement(key, path, r, pyramids, targets, out, ref,
+                                                  matches, ref_matches, kw)
+                # a mode whose coarse step is another's (vmap and hybrid; chunk2,
+                # chunkf2 and chunkv2) has its matches: held to that mode's run,
+                # which checks RANSAC and the fine stage where bf16's roundings
+                # leave no pair equal to scan's
+                group = (name[len(mode):], parse_batch_mode(mode, N_PAIRS)[0])
+                if group in siblings:
+                    sib, sib_out, sib_matches = siblings[group]
+                    reading["agreement_with_" + sib] = _agreement(
+                        key, path, r, pyramids, targets, out, sib_out, matches, sib_matches, kw)
+                    require(reading["agreement_with_" + sib]["pairs_equal"] == N_PAIRS,
+                            f"{path}: coarse matches differ from {sib}'s")
+                else:
+                    siblings[group] = (mode, out, matches)
+            reading["launches"] = {k: launches[k] for k in ("mutual_argmax", "ransac_score",
+                                                            "ransac_adaptive", "anchor_resample")}
+            reading.update(peak_gb=peak / 1e9, peak_over_resident_gb=(peak - base) / 1e9)
+            paths[path], readings[path] = launches, reading
+            if not timed:
+                print(f"(n) {path}: {reading} on {card}", flush=True)
+                continue
+            best = _best_ms(lambda: serve(mode, kw))
+            prof = _profile_step(lambda: serve(mode, kw), reps=1)
+            reading.update({
+                "pairs_s": N_PAIRS / (best / 1e3), "best_ms": best,
+                "device_ms": prof["device_ms"],
+                "idle_share": max(0.0, 1.0 - prof["device_ms"] / best)})
+            print(f"(n) {path}: {reading} on {card}", flush=True)
+    readings["seconds"] = time.perf_counter() - t0
+    print(f"(n) batch modes ({N_PAIRS} pairs at 480x640, 7 scales, {N_ITER} hypotheses, fp32 "
+          f"and bf16) in {readings['seconds']:.1f} s on {card}", flush=True)
+    return paths, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -4355,11 +4866,12 @@ def main():
         k_paths, k_readings = phase_affine_refine(card, results)
         l_paths, l_readings = phase_pool_bf16(card)
         m_paths, m_readings = phase_multicard(card, results)
+        n_paths, n_readings = phase_batch_modes(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
     by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
-               **yfcc_paths, **k_paths, **l_paths, **m_paths}
+               **yfcc_paths, **k_paths, **l_paths, **m_paths, **n_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -4372,6 +4884,7 @@ def main():
                       "eval": {**eval_readings, **yfcc_readings},
                       "affine_refine_validation": k_readings,
                       "pool_bf16_remat": l_readings, "multicard": m_readings,
+                      "batch_modes": n_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

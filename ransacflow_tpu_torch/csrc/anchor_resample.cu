@@ -38,6 +38,12 @@
 // the wrapper's order, which spreads the resampled tiles (bound by L2
 // re-reads and their staging) evenly among the identity blocks (bound by
 // HBM), so that the two kinds overlap: scale by scale read slower.
+//
+// The batch form: k pairs' banks in one launch, each anchor map (k, h, w,
+// C) and the bank (k, rows, C). The pair is blockIdx.y, and a block reads
+// its pair's maps and writes its pair's rows with the single form's code,
+// so each bank is the single launch's bit for bit. The single form is the
+// batch form with k = 1.
 #include "common.cuh"
 
 #include <math.h>
@@ -74,12 +80,14 @@ template <int kF4>
 __global__ void __launch_bounds__(kThreads) anchor_bank_kernel(
     const __grid_constant__ Scales sc, const int* __restrict__ starts,
     const int* __restrict__ counts, const float* __restrict__ weights,
-    const int* __restrict__ spans, const int* __restrict__ order, int c,
+    const int* __restrict__ spans, const int* __restrict__ order, int c, int rows,
     float* __restrict__ bank) {
   extern __shared__ float4 stage[];  // [span][c / 4]: the tile's row-tap sums
   const int job = order[blockIdx.x];  // (scale << 24) | block of the scale
   const long long* m = sc.f[job >> 24];
-  const float* in = reinterpret_cast<const float*>(m[kIn]);
+  const size_t pair = blockIdx.y;
+  const float* in = reinterpret_cast<const float*>(m[kIn]) + pair * m[kH] * m[kW] * c;
+  bank += pair * rows * c;
   const int w = static_cast<int>(m[kW]), fh = static_cast<int>(m[kFh]);
   const int fw = static_cast<int>(m[kFw]);
   const int b = job & 0xFFFFFF;
@@ -170,32 +178,34 @@ __global__ void __launch_bounds__(kThreads) anchor_bank_kernel(
 template <int kF4>
 cudaError_t launch(const Scales& sc, const int* starts, const int* counts,
                    const float* weights, const int* spans, const int* order, int n_blocks,
-                   int c, float* bank, int smem, cudaStream_t stream) {
+                   int n_pairs, int c, int rows, float* bank, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {  // the opt-in, set on the current device
     const cudaError_t err = cudaFuncSetAttribute(
         anchor_bank_kernel<kF4>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  anchor_bank_kernel<kF4><<<n_blocks, kThreads, smem, stream>>>(sc, starts, counts, weights,
-                                                                spans, order, c, bank);
+  anchor_bank_kernel<kF4><<<dim3(n_blocks, n_pairs), kThreads, smem, stream>>>(
+      sc, starts, counts, weights, spans, order, c, rows, bank);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // meta: n_scales rows of kMeta int64 in host memory (the wrapper's plan,
-// kernels/anchor_resample.bank_plan, with each scale's input pointer: a
-// (h, w, c) fp32 channels-last map, 16-byte aligned); starts/counts/weights
-// the packed taps, spans the tiles' (first input column, columns), order
-// the block schedule ((scale << 24) | block of the scale, per block); bank:
-// the (rows, c) output; smem_bytes: the largest span times c floats. Needs
-// 1 <= n_scales <= 16, c % 4 == 0 and c <= 2048.
+// kernels/anchor_resample.bank_plan, with each scale's input pointer: an
+// (n_pairs, h, w, c) fp32 channels-last map, 16-byte aligned);
+// starts/counts/weights the packed taps, spans the tiles' (first input
+// column, columns), order the block schedule ((scale << 24) | block of the
+// scale, per block of a pair); bank: the (n_pairs, rows, c) output;
+// smem_bytes: the largest span times c floats. Needs 1 <= n_scales <= 16,
+// 1 <= n_pairs <= 65535, c % 4 == 0 and c <= 2048.
 RF_API int rf_anchor_resample_bank(const long long* meta, int n_scales, const int* starts,
                                    const int* counts, const float* weights,
-                                   const int* spans, const int* order, int n_blocks, int c,
-                                   float* bank, int smem_bytes, cudaStream_t stream) {
+                                   const int* spans, const int* order, int n_blocks,
+                                   int n_pairs, int c, int rows, float* bank, int smem_bytes,
+                                   cudaStream_t stream) {
   if (n_scales < 1 || n_scales > kMaxScales || c % 4 != 0 || c > 2048 ||
-      smem_bytes > kMaxSmem) {
+      smem_bytes > kMaxSmem || n_pairs < 1 || n_pairs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Scales sc;
@@ -204,9 +214,9 @@ RF_API int rf_anchor_resample_bank(const long long* meta, int n_scales, const in
     for (int j = 0; j < kMeta; ++j) sc.f[i][j] = meta[i * kMeta + j];
   }
   const cudaError_t err =
-      c <= 1024 ? launch<8>(sc, starts, counts, weights, spans, order, n_blocks, c, bank,
-                            smem_bytes, stream)
-                : launch<16>(sc, starts, counts, weights, spans, order, n_blocks, c, bank,
-                             smem_bytes, stream);
+      c <= 1024 ? launch<8>(sc, starts, counts, weights, spans, order, n_blocks, n_pairs, c,
+                            rows, bank, smem_bytes, stream)
+                : launch<16>(sc, starts, counts, weights, spans, order, n_blocks, n_pairs, c,
+                             rows, bank, smem_bytes, stream);
   return static_cast<int>(err);
 }

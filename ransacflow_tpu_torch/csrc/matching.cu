@@ -45,6 +45,13 @@
 // the reciprocity test and writes the outputs (and, with several slices,
 // merges the rows' slice keys). Both launches share the caller's stream,
 // which orders them; nothing is read back.
+//
+// The batch form: k scores (k, nA, nB) with k masks, one launch of each
+// kernel for all of them. The pair is the grid's last axis (blockIdx.z of
+// the chunk blocks, blockIdx.y of the merge blocks), and every pointer is
+// offset to its pair's rows; a pair's blocks do what a single launch's
+// blocks do, so each pair's outputs are the single form's bit for bit. The
+// single form is the batch form with k = 1.
 #include "common.cuh"
 
 #include <math.h>
@@ -180,7 +187,7 @@ __device__ __forceinline__ float scan_row(const float* row, const float* smask, 
 }
 
 // One block: the rows [r0, r0 + rows_per_block) of the slice
-// [c0, c0 + slice_w) (blockIdx = (chunk, slice)). kVec = 4 needs nB % 4 == 0
+// [c0, c0 + slice_w) of one pair's score (blockIdx = (chunk, slice, pair)). kVec = 4 needs nB % 4 == 0
 // and a 16-byte aligned score (then every row and slice starts aligned).
 // Writes col_key[chunk * nB + j] for the slice's columns and, per row, the
 // row's best over the slice: its index into best_tgt (one slice) or its key
@@ -193,6 +200,12 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_kernel(
   constexpr int kUnits = kMaxSlice / (32 * kVec);  // loads of a lane per row
   extern __shared__ unsigned long long smem[];     // [kWarps][slice_w] keys, then the mask
   float* smask = reinterpret_cast<float*>(smem + kWarps * slice_w);
+  const size_t pair = blockIdx.z;
+  score += pair * nA * nB;
+  if (kMasked) valid_b += pair * nB;
+  col_key += pair * gridDim.x * nB;
+  row_key += pair * nA * gridDim.y;
+  best_tgt += pair * nA;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int slice = blockIdx.y, n_slices = gridDim.y;
   const int c0 = slice * slice_w;
@@ -288,7 +301,8 @@ __device__ __forceinline__ int row_best(const unsigned long long* __restrict__ r
 
 // Blocks [0, ceil(nB / kMergeCols)): a column's key over the chunks, then
 // the reciprocity test and the outputs. With several slices, the blocks
-// after them merge each row's slice keys into best_tgt.
+// after them merge each row's slice keys into best_tgt. blockIdx.y: the
+// pair.
 __global__ void __launch_bounds__(kMergeCols * kMergeLanes) merge_kernel(
     const float* __restrict__ score, const unsigned char* __restrict__ valid_b, int nA,
     int nB, int n_chunks, int n_slices, const unsigned long long* __restrict__ col_key,
@@ -296,6 +310,15 @@ __global__ void __launch_bounds__(kMergeCols * kMergeLanes) merge_kernel(
     int* __restrict__ best_src, int* __restrict__ best_tgt,
     unsigned char* __restrict__ valid, float* __restrict__ pair_score) {
   __shared__ unsigned long long part[kMergeLanes][kMergeCols + 1];
+  const size_t pair = blockIdx.y;
+  score += pair * nA * nB;
+  if (valid_b != nullptr) valid_b += pair * nB;
+  col_key += pair * n_chunks * nB;
+  row_key += pair * nA * n_slices;
+  best_src += pair * nB;
+  best_tgt += pair * nA;
+  valid += pair * nB;
+  pair_score += pair * nB;
   const int n_col_blocks = (nB + kMergeCols - 1) / kMergeCols;
   if (static_cast<int>(blockIdx.x) >= n_col_blocks) {
     const int r = (blockIdx.x - n_col_blocks) * blockDim.x + threadIdx.x;
@@ -336,7 +359,8 @@ __global__ void __launch_bounds__(kMergeCols * kMergeLanes) merge_kernel(
 
 template <int kVec, bool kMasked>
 cudaError_t launch_chunks(const float* score, const unsigned char* valid_b, int nA, int nB,
-                          int n_chunks, int rows_per_block, int n_slices, int slice_w,
+                          int n_pairs, int n_chunks, int rows_per_block, int n_slices,
+                          int slice_w,
                           unsigned long long* col_key, unsigned long long* row_key,
                           int* best_tgt, cudaStream_t stream) {
   const int smem = kWarps * slice_w * 8 + (kMasked ? slice_w * 4 : 0);
@@ -345,41 +369,44 @@ cudaError_t launch_chunks(const float* score, const unsigned char* valid_b, int 
         chunk_kernel<kVec, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  chunk_kernel<kVec, kMasked><<<dim3(n_chunks, n_slices), kThreads, smem, stream>>>(
+  chunk_kernel<kVec, kMasked><<<dim3(n_chunks, n_slices, n_pairs), kThreads, smem, stream>>>(
       score, valid_b, nA, nB, rows_per_block, slice_w, col_key, row_key, best_tgt);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// score (nA, nB) fp32 row-major; valid_b (nB,) 0/1 bytes or null (no mask).
-// The wrapper's schedule (kernels/matching.schedule): n_chunks blocks of
-// rows_per_block rows by n_slices slices of slice_w columns (slice_w <=
-// 1280, a multiple of 4 when vec). vec: nB % 4 == 0 and score 16-byte
-// aligned. keys: caller-allocated scratch of n_chunks * nB column keys,
-// then nA * n_slices row keys when n_slices > 1. grid_w >= 1 when
-// relax_cells > 0.
+// score (n_pairs, nA, nB) fp32 row-major; valid_b (n_pairs, nB) 0/1 bytes or
+// null (no mask). The wrapper's schedule (kernels/matching.schedule), per
+// pair: n_chunks blocks of rows_per_block rows by n_slices slices of
+// slice_w columns (slice_w <= 1280, a multiple of 4 when vec). vec: nB % 4
+// == 0 and score 16-byte aligned. keys: caller-allocated scratch of
+// n_pairs * n_chunks * nB column keys, then n_pairs * nA * n_slices row
+// keys when n_slices > 1. Outputs per pair: best_src, valid, pair_score
+// (n_pairs, nB), best_tgt (n_pairs, nA). grid_w >= 1 when relax_cells > 0.
 RF_API int rf_mutual_argmax(const float* score, const unsigned char* valid_b, int nA,
-                            int nB, int n_chunks, int rows_per_block, int n_slices,
+                            int nB, int n_pairs, int n_chunks, int rows_per_block,
+                            int n_slices,
                             int slice_w, int vec, int relax_cells, int grid_w,
                             unsigned long long* keys, int* best_src, int* best_tgt,
                             unsigned char* valid, float* pair_score,
                             cudaStream_t stream) {
-  if (slice_w > kMaxSlice || slice_w < 1 || (vec && slice_w % 4 != 0)) {
+  if (slice_w > kMaxSlice || slice_w < 1 || (vec && slice_w % 4 != 0) || n_pairs < 1 ||
+      n_pairs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   unsigned long long* col_key = keys;
-  unsigned long long* row_key = keys + static_cast<size_t>(n_chunks) * nB;
+  unsigned long long* row_key = keys + static_cast<size_t>(n_pairs) * n_chunks * nB;
   const bool masked = valid_b != nullptr;
   const auto launch = vec ? (masked ? launch_chunks<4, true> : launch_chunks<4, false>)
                           : (masked ? launch_chunks<1, true> : launch_chunks<1, false>);
-  const cudaError_t err = launch(score, valid_b, nA, nB, n_chunks, rows_per_block, n_slices,
-                                 slice_w, col_key, row_key, best_tgt, stream);
+  const cudaError_t err = launch(score, valid_b, nA, nB, n_pairs, n_chunks, rows_per_block,
+                                 n_slices, slice_w, col_key, row_key, best_tgt, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_col_blocks = (nB + kMergeCols - 1) / kMergeCols;
   constexpr int kMergeThreads = kMergeCols * kMergeLanes;
   const int n_row_blocks = n_slices > 1 ? (nA + kMergeThreads - 1) / kMergeThreads : 0;
-  merge_kernel<<<n_col_blocks + n_row_blocks, kMergeThreads, 0, stream>>>(
+  merge_kernel<<<dim3(n_col_blocks + n_row_blocks, n_pairs), kMergeThreads, 0, stream>>>(
       score, valid_b, nA, nB, n_chunks, n_slices, col_key, row_key, relax_cells, grid_w,
       best_src, best_tgt, valid, pair_score);
   return static_cast<int>(cudaGetLastError());

@@ -20,6 +20,11 @@
 // matches order_kernel writes the valid-first order to global memory first,
 // and every block reads it from there instead of building its own.
 //
+// The batch form: k fits, one a pair, in one launch; blockIdx.y is the
+// pair, and its blocks use its own state words and slots, so each pair's
+// count, winner and mask are its single fit's under its own seed. The
+// single form is the batch form with k = 1.
+//
 // It keeps a launch of its own beside the adaptive kernel's cooperative loop
 // (ransac_adaptive.cu), which computes the same fit as one loop block of
 // n_iter hypotheses: run so, that loop read 38% slower at 10k hypotheses
@@ -59,6 +64,9 @@ __global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
   __shared__ float s_H[9];
   __shared__ bool s_last;
 
+  at_pair(P, out, blockIdx.y, n_iter, kNP);
+  state += blockIdx.y;
+  slots += static_cast<size_t>(blockIdx.y) * gridDim.x * kSlotWords;
   const int* order;
   const int n_valid = block_order<kGlobalOrder>(P, smem, &order, warp_sum);
   const Tile tile = tile_at(smem, kGlobalOrder ? 0 : P.N, tile_len);
@@ -93,8 +101,8 @@ __global__ void __launch_bounds__(kThreads) ransac_fit_kernel(
 }
 
 template <int kNP, bool kGlobalOrder>
-cudaError_t launch(const Problem& P, int n_iter, const Outputs& out, void* state,
-                   float* slots, cudaStream_t stream) {
+cudaError_t launch(const Problem& P, int n_iter, int n_pairs, const Outputs& out,
+                   void* state, float* slots, cudaStream_t stream) {
   const int tile_len = max(1, min(P.N, kTileMax));
   const size_t smem = shared_bytes(kGlobalOrder ? 0 : P.N, tile_len);
   if (smem > 48 * 1024) {
@@ -103,40 +111,44 @@ cudaError_t launch(const Problem& P, int n_iter, const Outputs& out, void* state
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  if (kGlobalOrder) order_kernel<<<1, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
-  ransac_fit_kernel<kNP, kGlobalOrder><<<(n_iter + kHyp - 1) / kHyp, kThreads, smem, stream>>>(
-      P, n_iter, tile_len, out, static_cast<State*>(state), slots);
+  if (kGlobalOrder) {
+    order_kernel<<<n_pairs, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
+  }
+  ransac_fit_kernel<kNP, kGlobalOrder>
+      <<<dim3((n_iter + kHyp - 1) / kHyp, n_pairs), kThreads, smem, stream>>>(
+          P, n_iter, tile_len, out, static_cast<State*>(state), slots);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
-// null with samples: (n_iter, n_points) int32 match indices in [0, N);
-// n_points: 4 (homography) or 3 (affine); counts: (n_iter,) int32 and sets:
-// (n_iter, n_points) int32, each optional (null); H: (9,) fp32; ints: (8,)
-// int32 (count, set); mask: (N + 1,) bytes (the mask, then found); order:
-// (N + 1,) int32 scratch when N > kSharedOrderMax, else null; state: two
-// zeroed 64-bit words, left zeroed, one per stream; slots: (ceil(n_iter /
-// 32), 16) fp32 scratch.
+// k = n_pairs fits. m1, m2: (k, N, 3) fp32; valid: (k, N) bytes; seed: (k,)
+// uint64 on the device, or null with samples: (k, n_iter, n_points) int32
+// match indices in [0, N); n_points: 4 (homography) or 3 (affine); counts:
+// (k, n_iter) int32 and sets: (k, n_iter, n_points) int32, each optional
+// (null); H: (k, 9) fp32; ints: (k, 8) int32 (count, set); mask: (k, N + 1)
+// bytes (the mask, then found); order: (k, N + 1) int32 scratch when N >
+// kSharedOrderMax, else null; state: 2 k zeroed 64-bit words, left zeroed,
+// one set per stream; slots: (k, ceil(n_iter / 32), 16) fp32 scratch.
 RF_API int rf_ransac_fit(const float* m1, const float* m2,
-                         const unsigned char* valid, int N,
+                         const unsigned char* valid, int N, int n_pairs,
                          const unsigned long long* seed, const int* samples,
                          int n_iter, int n_points, float tol, int* counts,
                          int* sets, float* H, int* ints, unsigned char* mask,
                          int* order, void* state, float* slots, cudaStream_t stream) {
-  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4)) {
+  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4) ||
+      n_pairs < 1 || n_pairs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets, order};
   const Outputs out{H, ints, mask};
   cudaError_t err;
   if (n_points == 4) {
-    err = order != nullptr ? launch<4, true>(P, n_iter, out, state, slots, stream)
-                           : launch<4, false>(P, n_iter, out, state, slots, stream);
+    err = order != nullptr ? launch<4, true>(P, n_iter, n_pairs, out, state, slots, stream)
+                           : launch<4, false>(P, n_iter, n_pairs, out, state, slots, stream);
   } else {
-    err = order != nullptr ? launch<3, true>(P, n_iter, out, state, slots, stream)
-                           : launch<3, false>(P, n_iter, out, state, slots, stream);
+    err = order != nullptr ? launch<3, true>(P, n_iter, n_pairs, out, state, slots, stream)
+                           : launch<3, false>(P, n_iter, n_pairs, out, state, slots, stream);
   }
   return static_cast<int>(err);
 }

@@ -29,6 +29,19 @@
 // mask; block 0 writes H, count, set, found, the blocks run and the
 // hypotheses evaluated. A winning count of 0 keeps the identity.
 //
+// The batch form: k adaptive fits, one a pair, in one cooperative launch
+// of (blocks a pair, k) thread blocks, the co-resident blocks split evenly
+// among the pairs. blockIdx.y is the pair; each pair has its own best[] row
+// and slots. After each barrier every thread block evaluates the stop test
+// of every pair still running (from that pair's best and n_valid, both in
+// global memory), so all blocks agree on which pairs stop; a stopped pair's
+// blocks run no more hypothesis blocks and its state stays as it was,
+// while the grid takes the barrier with the pairs still running (JAX's
+// vmap of the while loop: a finished lane is frozen). The grid leaves the
+// loop when every pair has stopped. Each pair evaluates exactly the loop
+// blocks its single fit would, and its winner and mask are that fit's.
+// The single form is the batch form with k = 1.
+//
 // What bounds it on the H100: a block of 4096 hypotheses x 1200 matches is
 // 5 M point tests, a few microseconds of issue; a fit that stops after one
 // block costs one launch, the order and staging of each thread block, one
@@ -49,9 +62,10 @@ using namespace rf_ransac;
 // thread blocks, about two an SM; a one-off sweep on the H100 read 16
 // fastest of 16, 32 and 64, at one block and to the cap (PERF.md).
 constexpr int kHyp = 16;
+constexpr int kMaxPairs = 256;  // MAX_PAIRS in kernels/ransac_adaptive.py
 
 struct Loop {
-  int n_chunks, chunk, n_iter;
+  int n_chunks, chunk, n_iter, n_pairs;
   float confidence;
 };
 
@@ -71,7 +85,7 @@ __device__ __forceinline__ bool stop_test(int best_count, int n_valid, int evalu
 template <int kNP, bool kGlobalOrder>
 __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
     Problem P, Loop L, int tile_len, Outputs out, unsigned long long* best,
-    float* slots) {
+    int* n_valid_of, float* slots) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int smem[];
   __shared__ HypBlock<kHyp> hb;
@@ -79,49 +93,69 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
   __shared__ unsigned long long warp_best[kWarps];
   __shared__ unsigned long long s_best;
   __shared__ float s_H[9];
+  __shared__ int s_stop[kMaxPairs];  // the loop block each pair stopped after, or -1
 
+  const int b = blockIdx.y;
+  at_pair(P, out, b, L.n_chunks * L.chunk, kNP);
   const Tile tile = tile_at(smem, kGlobalOrder ? 0 : P.N, tile_len);
-  if (blockIdx.x == 0) {
-    for (int c = threadIdx.x; c < L.n_chunks; c += kThreads) best[c] = 0ull;
+  if (blockIdx.x == 0 && b == 0) {
+    for (int c = threadIdx.x; c < L.n_pairs * L.n_chunks; c += kThreads) best[c] = 0ull;
   }
+  for (int p = threadIdx.x; p < L.n_pairs; p += kThreads) s_stop[p] = -1;
   const int* order;
   const int n_valid = block_order<kGlobalOrder>(P, smem, &order, warp_sum);
+  if (blockIdx.x == 0 && threadIdx.x == 0) n_valid_of[b] = n_valid;
   const bool resident = n_valid <= tile_len;
   if (resident) stage(P, order, 0, n_valid, tile);
   const int chunk_blocks = (L.chunk + kHyp - 1) / kHyp;
-  grid.sync();  // best[] is zeroed
+  unsigned long long* my_best = best + static_cast<size_t>(b) * L.n_chunks;
+  slots += static_cast<size_t>(b) * L.n_chunks * chunk_blocks * kSlotWords;
+  grid.sync();  // best[] is zeroed, every n_valid written
 
   unsigned long long running = 0ull;
-  int c = 0;
-  for (;; ++c) {
-    unsigned long long mine = running;
-    for (int j = blockIdx.x; j < chunk_blocks; j += gridDim.x) {
-      const int h0 = c * L.chunk + j * kHyp;
-      const int n_h = min(kHyp, L.chunk - j * kHyp);
-      solve<kHyp, kNP>(P, order, n_valid, h0, n_h, hb);
-      __syncthreads();
-      int cnt[Layout<kHyp>::kPer] = {};
-      score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, cnt);
-      const unsigned long long key = block_best<kHyp>(P, hb, h0, n_h, cnt, warp_best);
-      if (threadIdx.x == 0) {
-        write_slot(hb, key, h0,
-                   slots + (static_cast<size_t>(c) * chunk_blocks + j) * kSlotWords);
-        mine = max_u64(mine, key);
+  for (int c = 0;; ++c) {
+    const bool runs = s_stop[b] < 0;  // the same in every block of the pair
+    if (runs) {
+      unsigned long long mine = running;
+      for (int j = blockIdx.x; j < chunk_blocks; j += gridDim.x) {
+        const int h0 = c * L.chunk + j * kHyp;
+        const int n_h = min(kHyp, L.chunk - j * kHyp);
+        solve<kHyp, kNP>(P, order, n_valid, h0, n_h, hb);
+        __syncthreads();
+        int cnt[Layout<kHyp>::kPer] = {};
+        score_all<kHyp>(P, order, n_valid, resident, tile, tile_len, hb, cnt);
+        const unsigned long long key = block_best<kHyp>(P, hb, h0, n_h, cnt, warp_best);
+        if (threadIdx.x == 0) {
+          write_slot(hb, key, h0,
+                     slots + (static_cast<size_t>(c) * chunk_blocks + j) * kSlotWords);
+          mine = max_u64(mine, key);
+        }
+        __syncthreads();  // hb and the tile are taken again
       }
-      __syncthreads();  // hb and the tile are taken again
+      if (threadIdx.x == 0) atomicMax(my_best + c, mine);
     }
-    if (threadIdx.x == 0) atomicMax(best + c, mine);
     grid.sync();
-    if (threadIdx.x == 0) s_best = __ldcg(best + c);
-    __syncthreads();
-    running = s_best;
+    // the stop test of every pair still running, from its best over loop
+    // blocks 0 .. c: the same inputs, so the same answer, in every block
+    bool more = false;
     const int evaluated = (c + 1) * L.chunk;
-    if (c + 1 == L.n_chunks ||
-        stop_test<kNP>(static_cast<int>(running >> 32), n_valid, evaluated, L)) {
-      break;
+    for (int p = threadIdx.x; p < L.n_pairs; p += kThreads) {
+      if (s_stop[p] >= 0) continue;
+      const unsigned long long key = __ldcg(best + static_cast<size_t>(p) * L.n_chunks + c);
+      if (p == b) s_best = key;
+      if (c + 1 == L.n_chunks ||
+          stop_test<kNP>(static_cast<int>(key >> 32), __ldcg(n_valid_of + p), evaluated, L)) {
+        s_stop[p] = c;
+      } else {
+        more = true;
+      }
     }
+    more = __syncthreads_or(more);
+    if (runs) running = s_best;
+    if (!more) break;
   }
 
+  const int stop = s_stop[b];
   const unsigned h = key_index(running);
   const unsigned cw = h / L.chunk;
   const unsigned j = (h - cw * L.chunk) / kHyp;
@@ -129,8 +163,8 @@ __global__ void __launch_bounds__(kThreads) ransac_adaptive_kernel(
     take_winner(running, slots + (static_cast<size_t>(cw) * chunk_blocks + j) * kSlotWords,
                 true, n_valid, kNP, P.N, blockIdx.x == 0, out, s_H);
     if (blockIdx.x == 0) {
-      out.ints[5] = c + 1;
-      out.ints[6] = (c + 1) * L.chunk;
+      out.ints[5] = stop + 1;
+      out.ints[6] = (stop + 1) * L.chunk;
     }
   }
   __syncthreads();
@@ -146,7 +180,8 @@ struct Occupancy {
 
 template <int kNP, bool kGlobalOrder>
 cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
-                   unsigned long long* best, float* slots, cudaStream_t stream) {
+                   unsigned long long* best, int* n_valid_of, float* slots,
+                   cudaStream_t stream) {
   static Occupancy occ;  // the last query of this kernel, kept: it costs host time
   auto kernel = ransac_adaptive_kernel<kNP, kGlobalOrder>;
   int tile_len = max(1, min(P.N, kTileMax));
@@ -169,14 +204,17 @@ cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
     }
     occ = {device, smem, sms * per_sm};
   }
-  const int grid = min((L.chunk + kHyp - 1) / kHyp, occ.blocks);
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (kGlobalOrder) order_kernel<<<1, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
+  // the co-resident blocks split evenly among the pairs
+  const int per_pair = min((L.chunk + kHyp - 1) / kHyp, occ.blocks / L.n_pairs);
+  if (per_pair < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (kGlobalOrder) {
+    order_kernel<<<L.n_pairs, kOrderThreads, 0, stream>>>(P.valid, P.N, P.order);
+  }
   Problem p = P;
   Loop l = L;
   Outputs o = out;
-  void* args[] = {&p, &l, &tile_len, &o, &best, &slots};
-  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(grid),
+  void* args[] = {&p, &l, &tile_len, &o, &best, &n_valid_of, &slots};
+  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(per_pair, L.n_pairs),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -184,36 +222,38 @@ cudaError_t launch(const Problem& P, const Loop& L, const Outputs& out,
 
 }  // namespace
 
-// m1, m2: (N, 3) fp32; valid: (N,) bytes; seed: () uint64 on the device, or
-// null with samples: (n_chunks * chunk, n_points) int32 match indices in [0,
-// N); n_points: 4 (homography) or 3 (affine); counts: (n_chunks * chunk,)
-// int32 and sets: (n_chunks * chunk, n_points) int32, each optional (null),
-// written for the blocks run; H: (9,) fp32; ints: (8,) int32 (count, set,
-// blocks run, hypotheses evaluated); mask: (N + 1,) bytes (the mask, then
-// found); order: (N + 1,) int32 scratch when N > kSharedOrderMax, else null;
-// best: (n_chunks,) 64-bit scratch; slots: (n_chunks * ceil(chunk / 16),
-// 16) fp32 scratch.
+// k = n_pairs fits (1 <= k <= kMaxPairs). m1, m2: (k, N, 3) fp32; valid:
+// (k, N) bytes; seed: (k,) uint64 on the device, or null with samples: (k,
+// n_chunks * chunk, n_points) int32 match indices in [0, N); n_points: 4
+// (homography) or 3 (affine); counts: (k, n_chunks * chunk) int32 and sets:
+// (k, n_chunks * chunk, n_points) int32, each optional (null), written for
+// the blocks run; H: (k, 9) fp32; ints: (k, 8) int32 (count, set, blocks
+// run, hypotheses evaluated); mask: (k, N + 1) bytes (the mask, then
+// found); order: (k, N + 1) int32 scratch when N > kSharedOrderMax, else
+// null; best: (k, n_chunks) 64-bit scratch; n_valid_of: (k,) int32
+// scratch; slots: (k, n_chunks * ceil(chunk / 16), 16) fp32 scratch.
 RF_API int rf_ransac_adaptive(const float* m1, const float* m2,
-                              const unsigned char* valid, int N,
+                              const unsigned char* valid, int N, int n_pairs,
                               const unsigned long long* seed, const int* samples,
                               int n_chunks, int chunk, int n_iter, int n_points,
                               float tol, float confidence, int* counts, int* sets,
                               float* H, int* ints, unsigned char* mask, int* order,
-                              unsigned long long* best, float* slots,
+                              unsigned long long* best, int* n_valid_of, float* slots,
                               cudaStream_t stream) {
-  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4)) {
+  if ((N > kSharedOrderMax) != (order != nullptr) || (n_points != 3 && n_points != 4) ||
+      n_pairs < 1 || n_pairs > kMaxPairs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Problem P{m1, m2, valid, N, seed, samples, tol, counts, sets, order};
-  const Loop L{n_chunks, chunk, n_iter, confidence};
+  const Loop L{n_chunks, chunk, n_iter, n_pairs, confidence};
   const Outputs out{H, ints, mask};
   cudaError_t err;
   if (n_points == 4) {
-    err = order != nullptr ? launch<4, true>(P, L, out, best, slots, stream)
-                           : launch<4, false>(P, L, out, best, slots, stream);
+    err = order != nullptr ? launch<4, true>(P, L, out, best, n_valid_of, slots, stream)
+                           : launch<4, false>(P, L, out, best, n_valid_of, slots, stream);
   } else {
-    err = order != nullptr ? launch<3, true>(P, L, out, best, slots, stream)
-                           : launch<3, false>(P, L, out, best, slots, stream);
+    err = order != nullptr ? launch<3, true>(P, L, out, best, n_valid_of, slots, stream)
+                           : launch<3, false>(P, L, out, best, n_valid_of, slots, stream);
   }
   return static_cast<int>(err);
 }

@@ -40,6 +40,12 @@
 // and is never solved again: ptxas may contract products into FMAs
 // differently at another call site of the same source.
 //
+// The batch forms fit k problems of N matches each in one launch: matches
+// (k, N, 3), valid (k, N), k seeds (or k sets of injected rows), outputs
+// and records per pair. A thread block takes one pair's hypotheses
+// (at_pair offsets every pointer to that pair's arrays) and runs the single
+// form's code on them, so each pair's fit is its single launch's.
+//
 // The valid-first order (N ints) and one tile fit in a thread block's
 // shared memory up to kSharedOrderMax = 40960 matches; above it the order
 // lives in global memory, and the matches are staged tile by tile. The int32
@@ -100,6 +106,23 @@ struct HypBlock {
   int ids[kHyp][4];
   int ok[kHyp];
 };
+
+// Pair b's problem and outputs in the batch arrays: `rows` hypotheses a
+// pair (the injected sets and the records), kNP indices a set.
+__device__ __forceinline__ void at_pair(Problem& P, Outputs& out, int b, int rows, int kNP) {
+  const size_t n = P.N, pair = b;
+  P.m1 += pair * n * 3;
+  P.m2 += pair * n * 3;
+  P.valid += pair * n;
+  if (P.seed != nullptr) P.seed += pair;
+  if (P.samples != nullptr) P.samples += pair * rows * kNP;
+  if (P.counts != nullptr) P.counts += pair * rows;
+  if (P.sets != nullptr) P.sets += pair * rows * kNP;
+  if (P.order != nullptr) P.order += pair * (n + 1);
+  out.H += pair * 9;
+  out.ints += pair * 8;
+  out.mask += pair * (n + 1);
+}
 
 // Dynamic shared memory: the shared valid-first order, then the tile.
 inline size_t shared_bytes(int order_len, int tile_len) {
@@ -304,10 +327,13 @@ __device__ __forceinline__ int build_order(const unsigned char* __restrict__ val
 // block of kOrderThreads threads walks `valid` 4 flags a thread at a time,
 // places each valid index by a block-wide prefix sum of the counts, and
 // writes order[0 .. n_valid) and order[N] = n_valid. A stable compaction,
-// so the order is the one build_order gives. Launched once, before a fit.
+// so the order is the one build_order gives. Launched once, before a fit,
+// with one block a pair (blockIdx.x; valid (k, N), order (k, N + 1)).
 static __global__ void __launch_bounds__(kOrderThreads) order_kernel(
     const unsigned char* __restrict__ valid, int N, int* __restrict__ order) {
   __shared__ int warp_incl[kOrderThreads / 32];
+  valid += static_cast<size_t>(blockIdx.x) * N;
+  order += static_cast<size_t>(blockIdx.x) * (N + 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int base = 0;
   for (int i0 = 0; i0 < N; i0 += 4 * kOrderThreads) {

@@ -225,7 +225,7 @@ def draw_subsets(rng, n, count):
     return idx
 
 
-def find_essential_mat(x1, x2, threshold=1.0, seed=0, device="cpu"):
+def find_essential_mat(x1, x2, threshold=1.0, seed=0, *, device):
     """`cv2.findEssentialMat(x1, x2, method=cv2.RANSAC, threshold=threshold)`
     on normalized points (focal 1, principal point (0, 0), prob CONFIDENCE,
     maxIters MAX_ITERS).
@@ -386,7 +386,7 @@ def _in_front(Q, R, t):
     return ok & (X[:, 2] < DISTANCE_THRESH) & (z2 > 0) & (z2 < DISTANCE_THRESH)
 
 
-def recover_pose(E, x1, x2, mask=None, device="cpu"):
+def recover_pose(E, x1, x2, mask=None, *, device):
     """`cv2.recoverPose(E, x1, x2, mask=mask)` on normalized points: of the
     four poses (R1, t), (R2, t), (R1, -t), (R2, -t), the first with the most
     points (nonzero in `mask`) in front of both cameras and nearer than

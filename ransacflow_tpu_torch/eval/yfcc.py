@@ -263,7 +263,7 @@ def pose_error(R_gt, t_gt, R_pred, t_pred):
     return err_q, err_t
 
 
-def estimate_pose(pts1, pts2, use_ransac=True, threshold=0.0005, seed=0, device="cpu"):
+def estimate_pose(pts1, pts2, use_ransac=True, threshold=0.0005, seed=0, *, device):
     """Essential-matrix estimation and pose recovery (getResults.py:75-111)
     by `eval.pose`, in place of cv2.findEssentialMat (or findFundamentalMat
     with FM_8POINT) and cv2.recoverPose.

@@ -1,5 +1,6 @@
 """Kernel 12: the anchor mode's feature bank, every scale's resample and L2
-normalization in one launch (`csrc/anchor_resample.cu`)."""
+normalization in one launch (`csrc/anchor_resample.cu`), for one pair or a
+batch of k (`anchor_resample_bank_batch`)."""
 
 import ctypes
 
@@ -19,7 +20,7 @@ from ransacflow_tpu_torch.models.layers import l2_normalize
 
 KERNEL = Kernel("rf_anchor_resample_bank",
                 [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 MAX_CHANNELS = 2048     # 32 lanes x 16 float4s in the source
 MAX_SCALES = 16         # kMaxScales: rows of the per-scale table
 MAX_SMEM = 227 * 1024   # kMaxSmem: shared memory a block can have on the H100
@@ -60,6 +61,15 @@ def anchor_resample_bank_ref(maps, shapes, nearest, stride=16):
     C) pre-normalization map) at its grid (H // stride, W // stride)."""
     return torch.cat([anchor_resample_feats_ref(maps[i], h // stride, w // stride)
                       for (h, w), i in zip(shapes, nearest)])
+
+
+def anchor_resample_bank_batch_ref(maps, shapes, nearest, stride=16):
+    """Plain PyTorch: the (k, nA, C) banks of k pairs, maps[i] (k, h, w, C),
+    each pair's `anchor_resample_bank_ref` stacked."""
+    k = maps[nearest[0]].shape[0]
+    return torch.stack([anchor_resample_bank_ref({i: maps[i][p:p + 1] for i in set(nearest)},
+                                                 shapes, nearest, stride)
+                        for p in range(k)])
 
 
 def _spans(cs, cc):
@@ -160,6 +170,20 @@ def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
     `out`: an optional contiguous (nA, C) place for the bank. At most
     MAX_SCALES scales. Forward only. bf16 maps (the eval policy's trunk) are
     upcast and the bank rounded to bf16, the reference's dtype."""
+    return _bank(maps, shapes, nearest, out, stride, batched=False)
+
+
+def anchor_resample_bank_batch(maps, shapes, nearest, out=None, stride=16):
+    """`anchor_resample_bank` of k pairs: maps[i] (k, h, w, C), the banks
+    (k, nA, C), `out` an optional contiguous place for them. CPU maps take
+    `anchor_resample_bank_batch_ref`; CUDA ones one launch for all k banks,
+    each bit for bit its single launch's."""
+    return _bank(maps, shapes, nearest, out, stride, batched=True)
+
+
+def _bank(maps, shapes, nearest, out, stride, batched):
+    """The plain version or the launch for k banks (`batched`) or one: a
+    single bank is the kernel's k = 1, shaped without the pair axis."""
     srcs = [maps[i] for i in nearest]
     if not 1 <= len(srcs) <= MAX_SCALES or len(shapes) != len(srcs):
         raise ValueError(f"anchor_resample_bank: {len(shapes)} scales and {len(srcs)} "
@@ -167,22 +191,24 @@ def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
     forbid_grad("anchor_resample_bank", *srcs)
     if srcs[0].dtype == torch.bfloat16:
         fp32 = {i: upcast(maps[i])[0] for i in set(nearest)}
-        bank = anchor_resample_bank(fp32, shapes, nearest, stride=stride).bfloat16()
+        bank = _bank(fp32, shapes, nearest, None, stride, batched).bfloat16()
         return bank if out is None else out.copy_(bank)
     if srcs[0].device.type == "cpu":
-        bank = anchor_resample_bank_ref(maps, shapes, nearest, stride)
+        plain = anchor_resample_bank_batch_ref if batched else anchor_resample_bank_ref
+        bank = plain(maps, shapes, nearest, stride)
         return bank if out is None else out.copy_(bank)
     dev, c = srcs[0].device, srcs[0].shape[-1]
+    k = srcs[0].shape[0] if batched else 1
     for j, fmap in enumerate(srcs):
         check(fmap, f"maps[{nearest[j]}]", torch.float32, ndim=4, device=dev)
-        if fmap.shape[0] != 1 or fmap.shape[-1] != c or fmap.numel() >= 2**31:
+        if fmap.shape[0] != k or fmap.shape[-1] != c or fmap.numel() // k >= 2**31:
             raise ValueError(f"maps[{nearest[j]}]: shape {tuple(fmap.shape)}, expected "
-                             f"(1, h, w, {c}) with fewer than 2^31 elements")
+                             f"({k}, h, w, {c}) with fewer than 2^31 elements a pair")
         if ptr(fmap) % 16:
             raise ValueError(f"maps[{nearest[j]}]: must be 16-byte aligned")
-    if c % 4 or c > MAX_CHANNELS:
+    if c % 4 or c > MAX_CHANNELS or k > 65535:
         raise ValueError(f"anchor_resample_bank: C = {c}, expected a multiple of 4 "
-                         f"<= {MAX_CHANNELS}")
+                         f"<= {MAX_CHANNELS}; {k} pairs, at most 65535")
     plan = _plan(tuple(tuple(m.shape[1:3]) for m in srcs),
                  tuple((h // stride, w // stride) for h, w in shapes), dev)
     n_cells, smem = plan["n_cells"], plan["max_span"] * c * 4
@@ -191,16 +217,17 @@ def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
     if smem > MAX_SMEM:
         raise ValueError(f"anchor_resample_bank: a tile stages {plan['max_span']} input "
                          f"columns, {smem} bytes of shared memory > {MAX_SMEM}")
+    shape = ((k,) if batched else ()) + (n_cells, c)
     if out is None:
-        out = torch.empty((n_cells, c), dtype=torch.float32, device=dev)
-    check(out, "out", torch.float32, shape=(n_cells, c), device=dev)
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    check(out, "out", torch.float32, shape=shape, device=dev)
     if ptr(out) % 16:
         raise ValueError("out: must be 16-byte aligned")
     meta = plan["meta"].copy()
     meta[:, 0] = [ptr(m) for m in srcs]
     KERNEL(dev, meta.ctypes.data, len(srcs), ptr(plan["starts"]), ptr(plan["counts"]),
            ptr(plan["weights"]), ptr(plan["spans"]), ptr(plan["order"]), len(plan["order"]),
-           c, ptr(out), smem, stream(out))
+           k, c, n_cells, ptr(out), smem, stream(out))
     return out
 
 

@@ -1,5 +1,6 @@
 """Kernel 2: mutual-argmax epilogue of the matching score, exact or relaxed
-reciprocity, with the target mask folded in (`csrc/matching.cu`)."""
+reciprocity, with the target mask folded in (`csrc/matching.cu`), for one
+score or a batch of k (`mutual_argmax_batch`, one launch for all)."""
 
 import ctypes
 
@@ -15,7 +16,7 @@ from ransacflow_tpu_torch.kernels.build import (
 )
 
 KERNEL = Kernel("rf_mutual_argmax",
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6)
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6)
 MAX_SLICE = 1280     # kMaxSlice: columns of a chunk block's slice
 BLOCKS_PER_SM = 2    # chunk blocks resident on an SM (the source's launch bounds)
 ROW_WARPS = 8        # kWarps: rows a chunk block takes at a time
@@ -56,17 +57,28 @@ def mutual_argmax_ref(score, relax_cells=0, grid_w=None, valid_b=None):
             pair_score)
 
 
-def schedule(n_a, n_b, vec, n_sm):
-    """The kernel's blocks: (n_chunks, rows_per_block, n_slices, slice_w).
-    The columns split into the fewest slices of at most MAX_SLICE (a
-    multiple of 4 with 16-byte loads), the rows into chunks so that the
-    grid is about one wave of BLOCKS_PER_SM blocks an SM, each chunk at
-    least ROW_WARPS rows."""
+def mutual_argmax_batch_ref(score, relax_cells=0, grid_w=None, valid_b=None):
+    """Plain PyTorch: `mutual_argmax_ref` of each pair of a (k, nA, nB)
+    score with its (k, nB) mask, stacked: (best_src (k, nB), best_tgt (k,
+    nA), valid (k, nB), pair_score (k, nB))."""
+    outs = [mutual_argmax_ref(score[p], relax_cells, grid_w,
+                              None if valid_b is None else valid_b[p])
+            for p in range(score.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def schedule(n_a, n_b, vec, n_sm, n_pairs=1):
+    """The kernel's blocks for each of `n_pairs` scores: (n_chunks,
+    rows_per_block, n_slices, slice_w). The columns split into the fewest
+    slices of at most MAX_SLICE (a multiple of 4 with 16-byte loads), the
+    rows into chunks so that the grid of all pairs is about one wave of
+    BLOCKS_PER_SM blocks an SM, each chunk at least ROW_WARPS rows."""
     n_slices = -(-n_b // MAX_SLICE)
     slice_w = -(-n_b // n_slices)
     if vec:
         slice_w = -(-slice_w // 4) * 4
-    n_chunks = max(1, min(-(-n_a // ROW_WARPS), BLOCKS_PER_SM * n_sm // n_slices))
+    n_chunks = max(1, min(-(-n_a // ROW_WARPS),
+                          BLOCKS_PER_SM * n_sm // (n_slices * n_pairs)))
     rows_per_block = -(-n_a // n_chunks)
     return -(-n_a // rows_per_block), rows_per_block, n_slices, slice_w
 
@@ -82,31 +94,54 @@ def mutual_argmax(score, relax_cells=0, grid_w=None, valid_b=None):
     raw score is read once, `valid_b` (bool) applied per element as it is
     read; two launches, nothing read back. Forward only: raises when
     `score` requires grad under grad mode."""
+    return _epilogue(score, relax_cells, grid_w, valid_b, batched=False)
+
+
+def mutual_argmax_batch(score, relax_cells=0, grid_w=None, valid_b=None):
+    """`mutual_argmax` of k scores (k, nA, nB) with their optional (k, nB)
+    masks: `mutual_argmax_batch_ref` for a CPU tensor; for a CUDA one the
+    kernel's two launches for all k pairs, each pair's outputs bit for bit
+    its single launch's. Returns (best_src (k, nB), best_tgt (k, nA), valid
+    (k, nB), pair_score (k, nB)). The limits are per pair: fewer than 2^31
+    score elements. Forward only."""
+    return _epilogue(score, relax_cells, grid_w, valid_b, batched=True)
+
+
+def _epilogue(score, relax_cells, grid_w, valid_b, batched):
+    """The plain version or the kernel for k scores (`batched`) or one: a
+    single score is the kernel's k = 1, its outputs shaped without the pair
+    axis."""
     forbid_grad("mutual_argmax", score)
     dtype = score.dtype
     (score,) = upcast(score)  # exact: every tie stays a tie
     if score.device.type == "cpu":
-        best_src, best_tgt, valid, pair_score = mutual_argmax_ref(score, relax_cells,
-                                                                   grid_w, valid_b)
+        plain = mutual_argmax_batch_ref if batched else mutual_argmax_ref
+        best_src, best_tgt, valid, pair_score = plain(score, relax_cells, grid_w, valid_b)
         return best_src, best_tgt, valid, pair_score.to(dtype)
     _check_relax(relax_cells, grid_w)
-    check(score, "score", torch.float32, ndim=2)
-    n_a, n_b = score.shape
+    check(score, "score", torch.float32, ndim=2 + int(batched))
+    lead = tuple(score.shape[:-2])
+    n_pairs = lead[0] if lead else 1
+    n_a, n_b = score.shape[-2:]
     dev = score.device
     if valid_b is not None:
-        check(valid_b, "valid_b", torch.bool, shape=(n_b,), device=dev)
-    if score.numel() >= 2**31:
-        raise ValueError("mutual_argmax: the score must hold fewer than 2^31 elements")
+        check(valid_b, "valid_b", torch.bool, shape=lead + (n_b,), device=dev)
+    if n_a * n_b >= 2**31 or n_pairs > 65535:
+        raise ValueError("mutual_argmax: a score must hold fewer than 2^31 elements, "
+                         "and a batch at most 65535 of them")
     vec = n_b % 4 == 0 and ptr(score) % 16 == 0  # 16-byte loads of the score
     n_chunks, rows_per_block, n_slices, slice_w = schedule(n_a, n_b, vec,
-                                                           _multiprocessors(dev))
-    keys = torch.empty(n_chunks * n_b + (n_a * n_slices if n_slices > 1 else 0),
+                                                           _multiprocessors(dev), n_pairs)
+    keys = torch.empty(n_pairs * (n_chunks * n_b + (n_a * n_slices if n_slices > 1 else 0)),
                        dtype=torch.int64, device=dev)
-    idx = torch.empty(n_b + n_a, dtype=torch.int32, device=dev)
-    best_src, best_tgt = idx[:n_b], idx[n_b:]
-    valid = torch.empty(n_b, dtype=torch.bool, device=dev)
-    pair_score = torch.empty(n_b, dtype=torch.float32, device=dev)
-    KERNEL(dev, ptr(score), None if valid_b is None else ptr(valid_b), n_a, n_b,
+    idx = torch.empty(n_pairs * (n_b + n_a), dtype=torch.int32, device=dev)
+    best_src, best_tgt = idx[:n_pairs * n_b], idx[n_pairs * n_b:]
+    if lead:
+        best_src, best_tgt = best_src.view(n_pairs, n_b), best_tgt.view(n_pairs, n_a)
+    # shapes as separate ints: PyTorch parses a tuple argument more slowly
+    valid = torch.empty(*lead, n_b, dtype=torch.bool, device=dev)
+    pair_score = torch.empty(*lead, n_b, dtype=torch.float32, device=dev)
+    KERNEL(dev, ptr(score), None if valid_b is None else ptr(valid_b), n_a, n_b, n_pairs,
            n_chunks, rows_per_block, n_slices, slice_w, int(vec), int(relax_cells),
            int(grid_w or 0), ptr(keys), ptr(best_src), ptr(best_tgt), ptr(valid),
            ptr(pair_score), stream(score))

@@ -5,6 +5,8 @@ homographies or 3-point affine maps.
 The draws are Philox4x32-10 of the hypothesis index under a seed tensor
 (`draw_sets_ref` is their plain version, bit for bit the kernel's), so a
 fit needs one seed drawn from the caller's generator and nothing read back.
+`ransac_fit_batch` fits k problems of N matches each in one launch, pair p
+under seed p.
 """
 
 import ctypes
@@ -27,7 +29,7 @@ SHARED_ORDER_MAX = 40960
 # the kernels index the (N, 3) match arrays with int32: 3 N < 2^31
 MAX_MATCHES = (2 ** 31 - 1) // 3
 KERNEL = Kernel("rf_ransac_fit",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 9)
 
 _MASK32 = 0xFFFFFFFF
@@ -36,6 +38,7 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 class RansacResult(NamedTuple):
+    """One fit; a batch form's has a leading pair axis on every field."""
     H21: torch.Tensor          # (3, 3) best model (target -> source)
     num_inliers: torch.Tensor  # () int32
     inlier_mask: torch.Tensor  # (N,) bool over the padded match arrays
@@ -44,9 +47,21 @@ class RansacResult(NamedTuple):
 
 
 class Record(NamedTuple):
-    """Per hypothesis, for checks: its count and its set of match indices."""
+    """Per hypothesis, for checks: its count and its set of match indices
+    (a batch form's with a leading pair axis)."""
     counts: torch.Tensor  # (rows,) int32
     sets: torch.Tensor    # (rows, n_points) int32
+
+
+def stack_fits(fits):
+    """NamedTuples of single fits (RansacResult, Record) -> one of the same
+    type with a leading pair axis."""
+    return type(fits[0])(*(torch.stack(f) for f in zip(*fits)))
+
+
+def pair_of(batch, p):
+    """Pair p of a batch form's RansacResult or Record."""
+    return type(batch)(*(f[p] for f in batch))
 
 
 def _mulhilo(m, x):
@@ -169,58 +184,78 @@ def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=
             Record(counts, sets))
 
 
-def check_matches(match1, match2, valid):
-    """The kernels' checks of the match arrays; returns (N, device, the
-    global valid-first order's scratch (N + 1,) int32 or None)."""
-    n = match1.shape[0]
+def ransac_fit_batch_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
+                         transform="homography"):
+    """Plain PyTorch: `ransac_fit_ref` of each pair, pair p under seed[p:p +
+    1] (or samples[p]), stacked. match1, match2 (k, N, 3); valid (k, N);
+    seed (k,) int64 or samples (k, n_iter, n_points). Returns the batched
+    (RansacResult, Record)."""
+    fits = [ransac_fit_ref(match1[p], match2[p], valid[p], tolerance, n_iter,
+                           None if seed is None else seed[p:p + 1],
+                           None if samples is None else samples[p], transform)
+            for p in range(match1.shape[0])]
+    return stack_fits([f[0] for f in fits]), stack_fits([f[1] for f in fits])
+
+
+def check_matches(match1, match2, valid, batched):
+    """The kernels' checks of their match arrays: (k, N, 3), (k, N, 3) and
+    (k, N) for k fits when `batched`, else (N, 3), (N, 3) and (N,) for one.
+    Returns (lead, k, N, device, the valid-first order's scratch (k, N + 1)
+    int32 or None): `lead`, (k,) or (), leads every output's shape."""
+    lead = tuple(match1.shape[:int(batched)])
+    n = match1.shape[len(lead)] if match1.dim() > len(lead) else 0
     dev = match1.device
     if n > MAX_MATCHES:
         raise ValueError(f"{n} matches: the RANSAC kernels take at most {MAX_MATCHES} "
                          "(int32 indexing of the (N, 3) match arrays)")
-    check(match1, "match1", torch.float32, shape=(n, 3))
-    check(match2, "match2", torch.float32, shape=(n, 3), device=dev)
-    check(valid, "valid", torch.bool, shape=(n,), device=dev)
-    order = (torch.empty(n + 1, dtype=torch.int32, device=dev) if n > SHARED_ORDER_MAX
+    check(match1, "match1", torch.float32, shape=lead + (n, 3))
+    check(match2, "match2", torch.float32, shape=lead + (n, 3), device=dev)
+    check(valid, "valid", torch.bool, shape=lead + (n,), device=dev)
+    k = lead[0] if lead else 1
+    order = (torch.empty((k, n + 1), dtype=torch.int32, device=dev) if n > SHARED_ORDER_MAX
              else None)
-    return n, dev, order
+    return lead, k, n, dev, order
 
 
-def draw_source(seed, samples, n_rows, dev, n_points):
-    """Pointer of the seed or of the checked injected sets (exactly one)."""
+def draw_source(seed, samples, lead, n_rows, dev, n_points):
+    """Pointer of the seeds (one a fit) or of the checked injected sets
+    (lead + (n_rows, n_points)) (exactly one)."""
     if (seed is None) == (samples is None):
         raise ValueError("give exactly one of seed and samples")
     if samples is not None:
-        check(samples, "samples", torch.int32, shape=(n_rows, n_points), device=dev)
+        check(samples, "samples", torch.int32, shape=lead + (n_rows, n_points), device=dev)
         return None, ptr(samples)
-    check(seed, "seed", torch.int64, shape=(1,), device=dev)
+    check(seed, "seed", torch.int64, shape=(lead[0] if lead else 1,), device=dev)
     return ptr(seed), None
 
 
-def outputs(n, dev, n_points):
-    """(H (9,) fp32, ints (8,) int32, mask and found (N + 1,) bool) and the
-    RansacResult viewing them."""
-    H = torch.empty(9, dtype=torch.float32, device=dev)
-    ints = torch.empty(8, dtype=torch.int32, device=dev)
-    flags = torch.empty(n + 1, dtype=torch.bool, device=dev)
-    return H, ints, flags, RansacResult(H.view(3, 3), ints[0], flags[:n], flags[n],
-                                        ints[1:1 + n_points])
+def outputs(lead, n, dev, n_points):
+    """(H lead + (9,) fp32, ints lead + (8,) int32, mask and found lead + (N
+    + 1,) bool) and the RansacResult viewing them: a single fit's (lead ())
+    has the bytes of the batch form's at k = 1, without the pair axis."""
+    # shapes as separate ints: PyTorch parses a tuple argument more slowly
+    H = torch.empty(*lead, 9, dtype=torch.float32, device=dev)
+    ints = torch.empty(*lead, 8, dtype=torch.int32, device=dev)
+    flags = torch.empty(*lead, n + 1, dtype=torch.bool, device=dev)
+    return H, ints, flags, RansacResult(H.view(*lead, 3, 3), ints[..., 0], flags[..., :n],
+                                        flags[..., n], ints[..., 1:1 + n_points])
 
 
-def record_outputs(n_rows, dev, n_points):
-    return Record(torch.empty(n_rows, dtype=torch.int32, device=dev),
-                  torch.empty((n_rows, n_points), dtype=torch.int32, device=dev))
+def record_outputs(lead, n_rows, dev, n_points):
+    return Record(torch.empty(lead + (n_rows,), dtype=torch.int32, device=dev),
+                  torch.empty(lead + (n_rows, n_points), dtype=torch.int32, device=dev))
 
 
 _STATES = {}
 
 
-def _state(dev, raw_stream):
-    """The kernel's two-word state for a stream: zeroed once, and left
-    zeroed by every launch."""
+def _state(dev, raw_stream, k):
+    """The kernel's two words a pair for a stream: zeroed once, and left
+    zeroed by every launch; grown (zeroed anew) for a larger batch."""
     key = (dev.index, raw_stream)
     state = _STATES.get(key)
-    if state is None:
-        state = _STATES[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+    if state is None or state.numel() < 2 * k:
+        state = _STATES[key] = torch.zeros(2 * k, dtype=torch.int64, device=dev)
     return state
 
 
@@ -235,21 +270,48 @@ def ransac_fit(match1, match2, valid, tolerance, n_iter, seed=None, samples=None
     when `record`. Nothing is read back. Forward only: raises when a match
     array requires grad under grad mode."""
     forbid_grad("ransac_fit", match1, match2)
-    n_points = n_points_of(transform)
     if match1.device.type == "cpu":
         res, rec = ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed, samples,
                                   transform)
         return res, rec if record else None
-    n, dev, order = check_matches(match1, match2, valid)
-    seed_ptr, samples_ptr = draw_source(seed, samples, n_iter, dev, n_points)
-    H, ints, flags, res = outputs(n, dev, n_points)
-    rec = record_outputs(n_iter, dev, n_points) if record else None
+    return _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
+                   batched=False)
+
+
+def ransac_fit_batch(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
+                     record=False, transform="homography"):
+    """`ransac_fit` of k problems: match1, match2 (k, N, 3), valid (k, N),
+    seed (k,) int64 (pair p's draws under seed[p]) or samples (k, n_iter,
+    n_points). CPU tensors take `ransac_fit_batch_ref`; CUDA ones one launch
+    of the kernel for all k fits, each pair's count, winner and mask its
+    single fit's. Returns (RansacResult, Record or None), each field with a
+    leading pair axis. Forward only."""
+    forbid_grad("ransac_fit", match1, match2)
+    if match1.device.type == "cpu":
+        res, rec = ransac_fit_batch_ref(match1, match2, valid, tolerance, n_iter, seed,
+                                        samples, transform)
+        return res, rec if record else None
+    return _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
+                   batched=True)
+
+
+def _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
+            batched):
+    """The kernel's launch for k fits (`batched`) or one: a single fit is
+    the kernel's k = 1, its outputs shaped without the pair axis."""
+    n_points = n_points_of(transform)
+    lead, k, n, dev, order = check_matches(match1, match2, valid, batched)
+    if k > 65535:
+        raise ValueError(f"ransac_fit_batch: {k} pairs, at most 65535")
+    seed_ptr, samples_ptr = draw_source(seed, samples, lead, n_iter, dev, n_points)
+    H, ints, flags, res = outputs(lead, n, dev, n_points)
+    rec = record_outputs(lead, n_iter, dev, n_points) if record else None
     counts_ptr, sets_ptr = (ptr(rec.counts), ptr(rec.sets)) if rec else (None, None)
-    slots = torch.empty(-(-n_iter // HYP_PER_BLOCK) * SLOT_WORDS, dtype=torch.float32,
+    slots = torch.empty(k * -(-n_iter // HYP_PER_BLOCK) * SLOT_WORDS, dtype=torch.float32,
                         device=dev)
     raw_stream = stream(match1)
-    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, seed_ptr, samples_ptr, n_iter,
+    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, k, seed_ptr, samples_ptr, n_iter,
            n_points, tolerance, counts_ptr, sets_ptr, ptr(H), ptr(ints), ptr(flags),
-           None if order is None else ptr(order), ptr(_state(dev, raw_stream)), ptr(slots),
+           None if order is None else ptr(order), ptr(_state(dev, raw_stream, k)), ptr(slots),
            raw_stream)
     return res, rec

@@ -1,6 +1,7 @@
 """Kernel 4: adaptive RANSAC, hypotheses in blocks until the confidence bound
 is met, as one persistent cooperative launch (`csrc/ransac_adaptive.cu`), for
-4-point homographies or 3-point affine maps."""
+4-point homographies or 3-point affine maps; `ransac_adaptive_batch` runs k
+fits, each to its own bound, in one launch."""
 
 import ctypes
 
@@ -9,13 +10,14 @@ import torch
 from ransacflow_tpu_torch.kernels.build import Kernel, forbid_grad, ptr, stream
 from ransacflow_tpu_torch.kernels.ransac import (
     SLOT_WORDS, RansacResult, Record, check_matches, draw_sets_ref, draw_source, n_points_of,
-    outputs, ransac_score_ref, record_outputs, winner_mask)
+    outputs, ransac_score_ref, record_outputs, stack_fits, winner_mask)
 
 KERNEL = Kernel("rf_ransac_adaptive",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 10)
 EVALUATED = 6  # the kernel's ints: count, set (4), blocks run, hypotheses evaluated
 HYP_PER_BLOCK = 16  # kHyp in csrc/ransac_adaptive.cu: hypotheses a thread block takes
+MAX_PAIRS = 256  # kMaxPairs in the source: fits of one batch launch
 
 
 def _chunk_done(best_count, n_valid, evaluated, n_iter, confidence, n_points=4):
@@ -64,6 +66,23 @@ def ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter, chunk, confide
             Record(torch.cat(counts), torch.cat(sets)))
 
 
+def ransac_adaptive_batch_ref(match1, match2, valid, tolerance, n_iter, chunk, confidence,
+                              seed=None, samples=None, transform="homography"):
+    """Plain PyTorch: `ransac_adaptive_ref` of each pair, pair p under
+    seed[p:p + 1] (or samples[p]), each to its own stop. Returns the
+    batched (RansacResult, n_evaluated (k,), Record): a pair's Record rows
+    past its n_evaluated are -1 (the kernel leaves them unwritten)."""
+    fits = [ransac_adaptive_ref(match1[p], match2[p], valid[p], tolerance, n_iter, chunk,
+                                confidence, None if seed is None else seed[p:p + 1],
+                                None if samples is None else samples[p], transform)
+            for p in range(match1.shape[0])]
+    n_rows = -(-n_iter // chunk) * chunk
+    recs = [Record(*(torch.cat([x, x.new_full((n_rows - x.shape[0],) + x.shape[1:], -1)])
+                     for x in f[2])) for f in fits]
+    return (stack_fits([f[0] for f in fits]), torch.stack([f[1] for f in fits]),
+            stack_fits(recs))
+
+
 def ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk, confidence,
                     seed=None, samples=None, record=False, transform="homography"):
     """`ransac_adaptive_ref` for CPU tensors, one cooperative launch of the
@@ -77,26 +96,59 @@ def ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk, confidence,
     rows, of which the first n_evaluated are written. Forward only: raises
     when a match array requires grad under grad mode."""
     forbid_grad("ransac_adaptive", match1, match2)
-    n_points = n_points_of(transform)
     if match1.device.type == "cpu":
         res, n_eval, rec = ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter,
                                                chunk, confidence, seed, samples, transform)
         return res, n_eval, rec if record else None
+    return _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
+                   record, transform, batched=False)
+
+
+def ransac_adaptive_batch(match1, match2, valid, tolerance, n_iter, chunk, confidence,
+                          seed=None, samples=None, record=False, transform="homography"):
+    """`ransac_adaptive` of k problems: match1, match2 (k, N, 3), valid (k,
+    N), seed (k,) int64 or samples (k, rows, n_points). CPU tensors take
+    `ransac_adaptive_batch_ref`; CUDA ones one cooperative launch for all k
+    fits (at most MAX_PAIRS), the co-resident blocks split among the pairs,
+    each pair evaluating exactly the blocks its single fit would and frozen
+    once it stops. Returns (RansacResult, n_evaluated (k,), Record or None)
+    with a leading pair axis. Forward only."""
+    forbid_grad("ransac_adaptive", match1, match2)
+    if match1.device.type == "cpu":
+        res, n_eval, rec = ransac_adaptive_batch_ref(match1, match2, valid, tolerance, n_iter,
+                                                     chunk, confidence, seed, samples,
+                                                     transform)
+        return res, n_eval, rec if record else None
+    return _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
+                   record, transform, batched=True)
+
+
+def _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
+            record, transform, batched):
+    """The cooperative launch for k fits (`batched`) or one: a single fit
+    is the kernel's k = 1, its outputs shaped without the pair axis."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    n_points = n_points_of(transform)
     n_chunks = -(-n_iter // chunk)
     n_rows = n_chunks * chunk
-    n, dev, order = check_matches(match1, match2, valid)
-    seed_ptr, samples_ptr = draw_source(seed, samples, n_rows, dev, n_points)
-    H, ints, flags, res = outputs(n, dev, n_points)
-    rec = record_outputs(n_rows, dev, n_points) if record else None
+    lead, k, n, dev, order = check_matches(match1, match2, valid, batched)
+    if k > MAX_PAIRS:
+        raise ValueError(f"ransac_adaptive_batch: {k} pairs, at most {MAX_PAIRS}")
+    seed_ptr, samples_ptr = draw_source(seed, samples, lead, n_rows, dev, n_points)
+    H, ints, flags, res = outputs(lead, n, dev, n_points)
+    rec = record_outputs(lead, n_rows, dev, n_points) if record else None
     counts_ptr, sets_ptr = (ptr(rec.counts), ptr(rec.sets)) if rec else (None, None)
-    # best (n_chunks 64-bit words), then the slots of every hypothesis block
-    n_slots = n_chunks * -(-chunk // HYP_PER_BLOCK)
-    scratch = torch.empty(2 * n_chunks + n_slots * SLOT_WORDS, dtype=torch.int32, device=dev)
+    # best (k n_chunks 64-bit words), each pair's n_valid (k words, padded to
+    # 16 bytes), then the slots of every hypothesis block of every pair
+    n_slots = k * n_chunks * -(-chunk // HYP_PER_BLOCK)
+    n_valid_words = -(-k // 4) * 4
+    scratch = torch.empty(2 * k * n_chunks + n_valid_words + n_slots * SLOT_WORDS,
+                          dtype=torch.int32, device=dev)
     best = ptr(scratch)
-    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, seed_ptr, samples_ptr, n_chunks,
+    n_valid_of = best + 8 * k * n_chunks
+    KERNEL(dev, ptr(match1), ptr(match2), ptr(valid), n, k, seed_ptr, samples_ptr, n_chunks,
            chunk, n_iter, n_points, tolerance, confidence, counts_ptr, sets_ptr, ptr(H),
-           ptr(ints), ptr(flags), None if order is None else ptr(order), best,
-           best + 8 * n_chunks, stream(match1))
-    return res, ints[EVALUATED], rec
+           ptr(ints), ptr(flags), None if order is None else ptr(order), best, n_valid_of,
+           n_valid_of + 4 * n_valid_words, stream(match1))
+    return res, ints[..., EVALUATED], rec

@@ -6,17 +6,24 @@ The score GEMM is `torch.matmul`; its argmax/reciprocity epilogue is kernel 2
 the reference's `preferred_element_type=float32` does (`:53`). With exact
 reciprocity a source cell matches at most one target cell; with
 `relax_cells > 0` several target cells may keep the same source cell.
+`mutual_matching` of k pairs' banks makes their scores one `torch.bmm` and
+their epilogues one launch of kernel 2's batch form.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
+from ransacflow_tpu_torch.kernels.matching import (
+    mutual_argmax,
+    mutual_argmax_batch,
+    mutual_argmax_ref,
+)
 
 
 class MatchResult(NamedTuple):
-    """Mutual matches keyed by target cell (all (nB,))."""
+    """Mutual matches keyed by target cell (all (nB,), or (k, nB) for a
+    batch)."""
 
     src_idx: torch.Tensor  # best source cell per target cell, int32
     valid: torch.Tensor    # True where the pair is a mutual argmax
@@ -24,14 +31,16 @@ class MatchResult(NamedTuple):
 
 
 def score_gemm(featA, featB):
-    """(nA, nB) cosine score ``featA.T @ featB`` of (C, nA) and (C, nB) banks.
-    bf16 banks: bf16 products (exact in fp32) summed in fp32 to an fp32
-    score, on the card by cuBLAS's bf16 GEMM with an fp32 output."""
-    a = featA.T
+    """The cosine score ``featA^T featB``: (nA, nB) of one pair's (C, nA)
+    and (C, nB) banks, or (k, nA, nB) of k pairs' (k, C, nA) and (k, C, nB)
+    banks in one `torch.bmm`. bf16 banks: bf16 products (exact in fp32)
+    summed in fp32 to an fp32 score, on the card by cuBLAS's bf16 GEMM with
+    an fp32 output."""
+    a = featA.transpose(-2, -1)
     if featA.dtype != torch.bfloat16:
         return a @ featB
     if featA.device.type == "cuda":
-        return torch.mm(a, featB, out_dtype=torch.float32)
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, featB, out_dtype=torch.float32)
     return a.float() @ featB.float()
 
 
@@ -55,9 +64,15 @@ def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     grid of width grid_w (required then). As in the reference, a back-match
     on a masked cell (score 0, when every unmasked score of the source row
     is negative) still validates its unmasked neighbours.
+
+    k pairs at once: featA (k, C, nA), featB (k, C, nB) and a (k, nB) mask
+    give a MatchResult of (k, nB) fields, the scores one `torch.bmm` and
+    their epilogue one launch of kernel 2's batch form; pair p's matches
+    are those of its banks alone.
     """
-    best_src, _, valid, pair_score = mutual_argmax(score_gemm(featA, featB), relax_cells,
-                                                   grid_w, validB)
+    epilogue = mutual_argmax if featA.dim() == 2 else mutual_argmax_batch
+    best_src, _, valid, pair_score = epilogue(score_gemm(featA, featB), relax_cells, grid_w,
+                                              validB)
     return MatchResult(best_src, valid, pair_score)
 
 

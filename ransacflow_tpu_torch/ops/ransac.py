@@ -9,18 +9,33 @@ fit does) and hands it to its kernel: the fixed-count fit is kernel 3
 (`kernels/ransac_adaptive.py`). Each draws its minimal sets with Philox
 inside the kernel, solves, scores, picks the winner and writes its inlier
 mask in one launch. CPU tensors take the kernels' plain versions, whose
-draws are the kernels' bit for bit.
+draws are the kernels' bit for bit. The `_batch` forms fit k pairs' matches
+in one launch of the kernel's batch form, pair p under seed p.
 """
 
 import torch
 
-from ransacflow_tpu_torch.kernels.ransac import draw_sets_ref, n_points_of, ransac_fit
-from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive
+from ransacflow_tpu_torch.kernels.ransac import (
+    draw_sets_ref,
+    n_points_of,
+    ransac_fit,
+    ransac_fit_batch,
+)
+from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_batch
 
 
 def draw_seed(generator, device):
     """(1,) int64 seed of a fit's draws, in [0, 2**62), from `generator`."""
     return torch.randint(0, 2 ** 62, (1,), generator=generator, device=device)
+
+
+def draw_seeds(generator, k, device):
+    """(k,) int64 seeds of k fits: pair p's from generator[p] when
+    `generator` is a list of k generators, else from the one generator in
+    pair order, one `draw_seed` a pair (the seeds k fits drawn one after
+    another take)."""
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * k
+    return torch.cat([draw_seed(g, device) for g in gens])
 
 
 def sample_minimal_sets(valid, n_iter, generator, n_points=4):
@@ -38,15 +53,21 @@ def _check_transform(n_points, transform):
                          f"sets, got n_points={n_points}")
 
 
-def _injected(samples, match1, n_rows, n_points):
-    """Injected minimal sets, checked: (n_rows, n_points) match indices in
-    [0, N)."""
-    samples = samples.to(device=match1.device, dtype=torch.int32).contiguous()
-    if tuple(samples.shape) != (n_rows, n_points) or bool(
-            ((samples < 0) | (samples >= match1.shape[0])).any()):
-        raise ValueError(f"injected_samples must be ({n_rows}, {n_points}) "
-                         "match indices in [0, N)")
-    return samples
+def _draws(match1, generator, injected_samples, n_rows, n_points):
+    """The kernel's draws for the fit of match1 (N, 3), or for the k fits of
+    match1 (k, N, 3): {'seed': one seed a fit, `draw_seeds`' for k}, or
+    {'samples': `injected_samples` checked to be (n_rows, n_points) match
+    indices in [0, N) a fit, (k, n_rows, n_points) for k}."""
+    lead, dev = tuple(match1.shape[:-2]), match1.device
+    if injected_samples is None:
+        return {"seed": draw_seeds(generator, lead[0], dev) if lead else
+                draw_seed(generator, dev)}
+    shape = lead + (n_rows, n_points)
+    samples = injected_samples.to(device=dev, dtype=torch.int32).contiguous()
+    if tuple(samples.shape) != shape or bool(
+            ((samples < 0) | (samples >= match1.shape[-2])).any()):
+        raise ValueError(f"injected_samples must be {shape} match indices in [0, N)")
+    return {"samples": samples}
 
 
 def ransac_homography(match1, match2, valid, tolerance, n_iter=10000,
@@ -65,13 +86,23 @@ def ransac_homography(match1, match2, valid, tolerance, n_iter=10000,
     Returns `kernels.ransac.RansacResult`.
     """
     _check_transform(n_points, transform)
-    if injected_samples is None:
-        res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter,
-                            seed=draw_seed(generator, match1.device), transform=transform)
-    else:
-        res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter,
-                            samples=_injected(injected_samples, match1, n_iter, n_points),
-                            transform=transform)
+    res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter, transform=transform,
+                        **_draws(match1, generator, injected_samples, n_iter, n_points))
+    return res
+
+
+def ransac_homography_batch(match1, match2, valid, tolerance, n_iter=10000,
+                            generator=None, injected_samples=None, n_points=4,
+                            transform="homography"):
+    """`ransac_homography` of k pairs in one launch of kernel 3's batch
+    form: match1, match2 (k, N, 3), valid (k, N). generator: one generator
+    (k seeds drawn from it in pair order before the fit, as k fits one
+    after another draw them) or a list of k. injected_samples: optional (k,
+    n_iter, n_points). Returns the RansacResult with a leading pair axis;
+    pair p's fit is `ransac_homography` of its matches under its seed."""
+    _check_transform(n_points, transform)
+    res, _ = ransac_fit_batch(match1, match2, valid, tolerance, n_iter, transform=transform,
+                              **_draws(match1, generator, injected_samples, n_iter, n_points))
     return res
 
 
@@ -96,11 +127,23 @@ def ransac_homography_adaptive(match1, match2, valid, tolerance, n_iter=50000,
     of hypotheses scored, a multiple of `chunk`, as a device tensor.
     """
     _check_transform(n_points, transform)
-    if injected_samples is None:
-        draws = {"seed": draw_seed(generator, match1.device)}
-    else:
-        n_rows = -(-n_iter // chunk) * chunk
-        draws = {"samples": _injected(injected_samples, match1, n_rows, n_points)}
+    draws = _draws(match1, generator, injected_samples, -(-n_iter // chunk) * chunk, n_points)
     res, n_eval, _ = ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk,
                                      confidence, transform=transform, **draws)
+    return res, n_eval
+
+
+def ransac_homography_adaptive_batch(match1, match2, valid, tolerance, n_iter=50000,
+                                     chunk=4096, confidence=0.999, generator=None,
+                                     injected_samples=None, n_points=4,
+                                     transform="homography"):
+    """`ransac_homography_adaptive` of k pairs in one cooperative launch of
+    kernel 4's batch form, each pair stopping at its own bound: match1,
+    match2 (k, N, 3), valid (k, N); generator and injected_samples ((k,
+    ceil(n_iter / chunk) * chunk, n_points)) as `ransac_homography_batch`.
+    Returns (RansacResult, n_evaluated (k,)) with a leading pair axis."""
+    _check_transform(n_points, transform)
+    draws = _draws(match1, generator, injected_samples, -(-n_iter // chunk) * chunk, n_points)
+    res, n_eval, _ = ransac_adaptive_batch(match1, match2, valid, tolerance, n_iter, chunk,
+                                           confidence, transform=transform, **draws)
     return res, n_eval

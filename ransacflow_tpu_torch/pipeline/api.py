@@ -82,7 +82,7 @@ class RansacFlowAligner:
         return {
             "H21": H,
             "flow": out["flow"][0].cpu().numpy(),
-            "match": out["match"].cpu().numpy(),
+            "match": out["match"][0].cpu().numpy(),
             "warped_coarse": out["warped"][0].cpu().numpy(),
             "warped_fine": warp_sample(src, out["flow"].contiguous())[0].cpu().numpy(),
             "target": c.tgt_array,

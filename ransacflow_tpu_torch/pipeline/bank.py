@@ -7,7 +7,10 @@ import math
 
 import torch
 
-from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_bank
+from ransacflow_tpu_torch.kernels.anchor_resample import (
+    anchor_resample_bank,
+    anchor_resample_bank_batch,
+)
 from ransacflow_tpu_torch.models.layers import l2_normalize
 from ransacflow_tpu_torch.models.resnet50 import imagenet_preprocess, resnet50_layer3
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
@@ -24,12 +27,12 @@ def bank_coords(pyramid_shapes, device, stride=16):
 
 
 def coarse_feat_map(resnet, img):
-    """(1, H/16, W/16, 1024) pre-normalization trunk map of (1, H, W, 3)."""
+    """(k, H/16, W/16, 1024) pre-normalization trunk map of (k, H, W, 3)."""
     return resnet50_layer3(resnet, imagenet_preprocess(img))
 
 
 def coarse_features(resnet, img):
-    """(1, H/16, W/16, 1024) L2-normalized trunk features of (1, H, W, 3)."""
+    """(k, H/16, W/16, 1024) L2-normalized trunk features of (k, H, W, 3)."""
     return l2_normalize(coarse_feat_map(resnet, img))
 
 
@@ -43,13 +46,27 @@ def nearest_anchors(shapes, anchor_stride):
             for j in range(len(shapes))]
 
 
+def _anchor_maps(resnet, images, anchor_stride):
+    """The trunk maps of the anchor scales of `images`, each scale's (H, W)
+    and the index of its anchor."""
+    shapes = [tuple(im.shape[1:3]) for im in images]
+    nearest = nearest_anchors(shapes, anchor_stride)
+    return ({i: coarse_feat_map(resnet, images[i]) for i in sorted(set(nearest))}, shapes,
+            nearest)
+
+
 def anchor_bank(resnet, images, anchor_stride, stride=16):
     """The anchor mode's (nA, 1024) bank of (1, H, W, 3) `images`: the trunk
     runs on the anchor scales only, and each scale's L2-normalized rows are
     its nearest anchor's pre-normalization map resampled to the scale's grid
     (an identity for the anchors themselves), every scale in one launch of
     kernel 12."""
-    shapes = [tuple(im.shape[1:3]) for im in images]
-    nearest = nearest_anchors(shapes, anchor_stride)
-    maps = {i: coarse_feat_map(resnet, images[i]) for i in sorted(set(nearest))}
-    return anchor_resample_bank(maps, shapes, nearest, stride=stride)
+    return anchor_resample_bank(*_anchor_maps(resnet, images, anchor_stride), stride=stride)
+
+
+def anchor_bank_batch(resnet, images, anchor_stride, stride=16):
+    """`anchor_bank` of k pairs, `images` (k, H, W, 3) a scale: the trunk
+    once per anchor scale for all k, every pair's bank in one launch of
+    kernel 12's batch form. Returns (k, nA, 1024)."""
+    return anchor_resample_bank_batch(*_anchor_maps(resnet, images, anchor_stride),
+                                      stride=stride)

@@ -36,21 +36,26 @@ def pred_flow_mask(params, src, featt, flow_coarse, cycle_match=False,
     flow_down8 (1, Ht/8, Wt/8, 2), match_down8 (1, Ht/8, Wt/8, 2); (H, W)
     is out_hw, else (Ht, Wt).
     """
-    return _after_warp(params, warp_sample(src, flow_coarse), featt, flow_coarse,
-                       cycle_match, kernel_size, out_hw)
+    out = _after_warp(params, warp_sample(src, flow_coarse), featt, flow_coarse,
+                      cycle_match, kernel_size, out_hw)
+    out["match"] = out["match"][0]
+    return out
 
 
 @torch.inference_mode()
 def pred_flow_mask_homography(params, src, featt, H, out_hw, cycle_match=False,
                               kernel_size=7):
     """`pred_flow_mask` at the grid `warp_grid(H, *out_hw)`, the warp and
-    that grid from one launch of kernel 5 (`warp_homography`).
+    that grid from one launch of kernel 5 (`warp_homography`), for B pairs
+    at once (B = 1 on the single-pair paths).
 
-    H: (1, 3, 3) homography (target -> source normalized coordinates) on
-    the device of `src`; out_hw: the target's (Ht, Wt), the size of the
-    warp grid, at which the flow is also composed (not `pred_flow_mask`'s
-    optional compose size). Returns the dict of `pred_flow_mask` and
-    'warped', the warped source (1, Ht, Wt, 3).
+    src: (B, Hs, Ws, 3); featt: (B, Ht/8, Wt/8, 256); H: (B, 3, 3)
+    homographies (target -> source normalized coordinates) on the device of
+    `src`; out_hw: the target's (Ht, Wt), the size of the warp grid, at
+    which the flow is also composed (not `pred_flow_mask`'s optional
+    compose size). Returns the dict of `pred_flow_mask` with the batch axis
+    kept on every entry (match (B, Ht, Wt)) and 'warped', the warped source
+    (B, Ht, Wt, 3).
     """
     src_warp, flow_coarse = warp_homography(src, H, out_hw)
     out = _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size)
@@ -61,7 +66,8 @@ def pred_flow_mask_homography(params, src, featt, H, out_hw, cycle_match=False,
 def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
                 out_hw=None):
     """The fine stage from the warped source on (features, correlations,
-    heads, compose tail at `out_hw`, else at the grid's size)."""
+    heads, compose tail at `out_hw`, else at the grid's size), for a batch:
+    match is (B, H, W)."""
     feats = l2_normalize(feature_extractor(params["netFeatCoarse"], src_warp))
 
     # corr12 = corr(featt, feats) and corr21 = corr(feats, featt), one launch
@@ -76,7 +82,7 @@ def _after_warp(params, src_warp, featt, flow_coarse, cycle_match, kernel_size,
                                  flow_coarse, cycle_match, out_hw)
     return {
         "flow": flow12,
-        "match": match[0],
+        "match": match,
         "flow_down8": flow_down8,
         "match_down8": match_down8,
     }

@@ -59,7 +59,7 @@ def multi_homography_predict(coarse, params, max_coarse=10, mask_region_th=0.01,
             break
         out = pred_flow_mask_homography(params, src, featt, coarse.put(H)[None], (ht, wt),
                                         cycle_match=cycle_match, kernel_size=kernel_size)
-        match_fine = out["match"].float().cpu().numpy()
+        match_fine = out["match"][0].float().cpu().numpy()
         if (match_fine * (1.0 - fg_mask)).mean() > mask_region_th or nb_coarse == 0:
             hs.append(H)
             flows.append(out["flow_down8"][0].float().cpu().numpy())
@@ -147,7 +147,7 @@ def _fused_multi_homo(params, bank, featt_c, coords_a, coords_b, cached_src,
         h_used = torch.where(res.found, res.H21, eye)
         out = pred_flow_mask_homography(params, src, featt_fine, h_used[None], (ht, wt),
                                         cycle_match=cycle_match, kernel_size=kernel_size)
-        newly = out["match"] * (1.0 - fg)
+        newly = out["match"][0] * (1.0 - fg)
         accept = res.found & ((newly.mean() > mask_region_th) | (count == 0))
         c = count.long().view(1)
         hs.index_copy_(0, c, torch.where(accept, h_used, hs.index_select(0, c)[0])[None])

@@ -331,8 +331,9 @@ def test_coarse_match_fast_modes_match_jax(rng, nets, anchor_stride, relax_cells
     ref = jfused._coarse_match(jr, tuple(map(jnp.asarray, pyr)), jnp.asarray(tgt),
                                anchor_stride=anchor_stride, relax_cells=relax_cells)
     with torch.no_grad():
-        ours = fused._coarse_match(resnet, tuple(map(t, pyr)), t(tgt),
-                                   anchor_stride=anchor_stride, relax_cells=relax_cells)
+        ours = [x[0] for x in fused._coarse_match_batch(resnet, tuple(map(t, pyr)), t(tgt),
+                                                        anchor_stride=anchor_stride,
+                                                        relax_cells=relax_cells)]
     np.testing.assert_array_equal(ours[2].numpy(), np.asarray(ref[2]))
     assert ours[2].sum() > 10
     close(ours[0], ref[0], atol=0)

@@ -137,7 +137,7 @@ def test_coarse_match(rng, nets):
     pyr, tgt = _pair(rng)
     ref = jfused._coarse_match(jr, tuple(map(jnp.asarray, pyr)), jnp.asarray(tgt))
     with torch.no_grad():
-        ours = fused._coarse_match(resnet, tuple(map(t, pyr)), t(tgt))
+        ours = [x[0] for x in fused._coarse_match_batch(resnet, tuple(map(t, pyr)), t(tgt))]
     np.testing.assert_array_equal(ours[2].numpy(), np.asarray(ref[2]))
     assert ours[2].any()
     close(ours[0], ref[0], atol=0)

@@ -79,7 +79,7 @@ def test_five_point_solutions_match_cv2():
         assert len(ours) == len(ref)
         for e in ours:
             assert min(_up_to_sign(e, r) for r in ref) <= 1e-6
-        E_ours, mask_ours = pose.find_essential_mat(x1, x2, THRESHOLD)
+        E_ours, mask_ours = pose.find_essential_mat(x1, x2, THRESHOLD, device="cpu")
         if E is None:
             assert E_ours is None
         else:
@@ -90,7 +90,7 @@ def test_five_point_solutions_match_cv2():
 def test_find_essential_mat_under_five_points_finds_none():
     x1, x2, _, _ = _scene(np.random.default_rng(1), 4)
     assert cv2.findEssentialMat(x1, x2, method=cv2.RANSAC, threshold=THRESHOLD) == (None, None)
-    assert pose.find_essential_mat(x1, x2, THRESHOLD) == (None, None)
+    assert pose.find_essential_mat(x1, x2, THRESHOLD, device="cpu") == (None, None)
 
 
 @pytest.mark.parametrize("outliers", [0.0, 0.3, 0.5])
@@ -120,10 +120,10 @@ def test_recover_pose_matches_cv2(case):
         mask = (np.arange(2000) >= 600).astype(np.uint8)[:, None]
     if case == "no_mask":
         count, R_ref, t_ref, _ = cv2.recoverPose(E, x1, x2)
-        ours = pose.recover_pose(E, x1, x2)
+        ours = pose.recover_pose(E, x1, x2, device="cpu")
     else:
         count, R_ref, t_ref, _ = cv2.recoverPose(E, x1, x2, mask=mask.copy())
-        ours = pose.recover_pose(E, x1, x2, mask)
+        ours = pose.recover_pose(E, x1, x2, mask, device="cpu")
     assert ours[0] == count
     np.testing.assert_allclose(ours[1], R_ref, atol=1e-9, rtol=0)
     np.testing.assert_allclose(ours[2], t_ref, atol=1e-9, rtol=0)
@@ -160,10 +160,10 @@ def test_find_essential_mat_does_not_depend_on_the_block_size(monkeypatch, block
     """The draws are read in order and the stop rule is applied between
     hypotheses, so any block size gives the same model and mask."""
     x1, x2, _, _ = _scene(np.random.default_rng(5), 500, 2e-4, 0.5)
-    ref = pose.find_essential_mat(x1, x2, THRESHOLD, seed=9)
+    ref = pose.find_essential_mat(x1, x2, THRESHOLD, seed=9, device="cpu")
     monkeypatch.setattr(pose, "FIRST_BLOCK", blocks[0])
     monkeypatch.setattr(pose, "MAX_BLOCK", blocks[1])
-    got = pose.find_essential_mat(x1, x2, THRESHOLD, seed=9)
+    got = pose.find_essential_mat(x1, x2, THRESHOLD, seed=9, device="cpu")
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
 
@@ -187,7 +187,8 @@ def test_estimate_pose_matches_cv2_end_to_end():
     ours, ref = [], []
     for k in range(N_END_TO_END):
         x1, x2, R, t = _scene(rng, 2000, 2e-4, 0.5 * k / (N_END_TO_END - 1))
-        for out, fn in ((ours, lambda: yfcc.estimate_pose(x1, x2, threshold=THRESHOLD, seed=k)),
+        for out, fn in ((ours, lambda: yfcc.estimate_pose(x1, x2, threshold=THRESHOLD, seed=k,
+                                                           device="cpu")),
                         (ref, lambda: j_yfcc.estimate_pose(x1, x2, threshold=THRESHOLD))):
             est = fn()
             out.append(max(yfcc.pose_error(R, t, *est)) if est is not None else 180.0)
@@ -202,11 +203,24 @@ def test_estimate_pose_degenerate_inputs(use_ransac):
     collinear points and fewer than 5 points give None or a pose, and never
     raise."""
     p = np.tile(np.array([[0.1, 0.2]]), (10, 1))
-    result = yfcc.estimate_pose(p, p.copy(), use_ransac=use_ransac)
+    result = yfcc.estimate_pose(p, p.copy(), use_ransac=use_ransac, device="cpu")
     assert result is None or len(result) == 2
     t = np.linspace(0, 1, 10)
     col1 = np.stack([t, t], axis=1)
     col2 = np.stack([t + 0.1, t], axis=1)
-    result = yfcc.estimate_pose(col1, col2, use_ransac=use_ransac)
+    result = yfcc.estimate_pose(col1, col2, use_ransac=use_ransac, device="cpu")
     assert result is None or len(result) == 2
-    assert yfcc.estimate_pose(col1[:4], col2[:4], use_ransac=use_ransac) is None
+    assert yfcc.estimate_pose(col1[:4], col2[:4], use_ransac=use_ransac,
+                              device="cpu") is None
+
+
+@pytest.mark.parametrize("call", ["find_essential_mat", "recover_pose", "estimate_pose"])
+def test_pose_helpers_have_no_default_device(call):
+    """The port's entry points take their device from the caller: the pose
+    helpers raise TypeError when it is left out."""
+    x1, x2, _, _ = _scene(np.random.default_rng(8), 50)
+    calls = {"find_essential_mat": lambda: pose.find_essential_mat(x1, x2, THRESHOLD),
+             "recover_pose": lambda: pose.recover_pose(np.eye(3), x1, x2),
+             "estimate_pose": lambda: yfcc.estimate_pose(x1, x2, threshold=THRESHOLD)}
+    with pytest.raises(TypeError, match="device"):
+        calls[call]()

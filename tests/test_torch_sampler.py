@@ -122,6 +122,8 @@ def test_pred_flow_mask_homography_matches_jax(rng, nets, cycle_match):
                                cycle_match=cycle_match)
     ours = fine.pred_flow_mask_homography(align, t(src), t(featt), t(H), (64, 64),
                                           cycle_match=cycle_match)
+    assert ours["match"].shape == (1, 64, 64)  # the batch axis kept, B = 1
+    ours["match"] = ours["match"][0]
     for key in ("flow", "match", "flow_down8", "match_down8"):
         assert ours[key].shape == ref[key].shape
         close(ours[key], ref[key], ATOL_MAPS)
