@@ -4,7 +4,9 @@ the multi-homography loop, training, the opt-in fast modes through the
 public entry points, the sky mask, the eval harnesses, affine fits,
 iterative refinement, MegaDepth validation, the eval pool and the bf16
 policies with remat, data parallelism (on four cards where there are
-four), and the serving loop's batch modes.
+four), the serving loop's batch modes, and the JAX surface outside them
+(the reference-API heads, the surface ops, the synthetic demo, a profiler
+trace).
 
     python3 chip_smoke.py
 
@@ -224,7 +226,23 @@ Phases, each of which must pass:
       K3, K4 and K12 a call (K2 4 / 1 / 1 / 2 / 2 / 2 and K3 4 / 1 / 4 /
       4 / 4 / 2 for the six modes); pairs/s (CUDA events, best of 3 after
       the checked call), peak memory and the card's idle share of one
-      traced call.
+      traced call;
+  (o) the JAX surface outside the main paths: `models.heads.
+      pred_flow_coarse` and `pred_matchability` under grad at a fine
+      pass's (1, 60, 80, 49), through K7 (twice forward and twice
+      backward) against K7's plain twins on the card (values and the
+      gradient to the correlation within 1e-5 of their scale) and against
+      the CPU (values within 1e-4, the gradient within 1e-2 relative L2:
+      ReLU gates at 0 flip between the devices), their CUDA-event and
+      device times; `saliency_coef`, `fit_hough`, `fit_translation` and
+      `blur_pool_1d` on CUDA tensors against the CPU; the synthetic demo
+      (`python -m ransacflow_tpu_torch.examples.synthetic_demo --device
+      cuda`, through its `main`) twice: the planted translation within
+      0.02 normalized, its three blends, the launches of K2, K3, K5h, K6's
+      pair, K7, K8, K9 and two grid-form K5 (the target's synthesis and
+      warped_fine), wall seconds of each call; one full-width serving call
+      inside `utils.monitor.profile_trace`, whose trace file must name a
+      hand kernel.
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel's `launches` is the sum over the paths. Every fine pass of an
 alignment path warps through warp_homography, correlates through
@@ -241,7 +259,8 @@ Phase (j)'s paths are `eval_yfcc` (host-loop predict and results),
 `sharded_ransac`, and on four cards `dp_train_4_cards`,
 `sharded_serving_4_cards`, `{hpatches,yfcc}_{one_slot,four_cards}`,
 `kitti_four_cards` and `sharded_ransac_4_cards`; phase (n)'s
-`batch_<mode>[_anchor|_adaptive]_<fp32|bf16>`.
+`batch_<mode>[_anchor|_adaptive]_<fp32|bf16>`; phase (o)'s `surface_pred_heads`,
+`surface_demo` and `surface_traced_serving`.
 
 Its last three lines are the card (nvidia-smi name, power limit), a JSON
 object with the kernels' numbers, and `{"ok": true, "device": {...}}`. It
@@ -4809,6 +4828,238 @@ def phase_batch_modes(card):
     return paths, readings
 
 
+# -- (o) the JAX surface outside the main paths --------------------------------
+
+SURFACE_HEADS = (1, 60, 80, 49)  # a fine pass's correlation volume at 480x640
+SURFACE_TOL = 1e-5  # the kernels against their plain twins on the card (K7's rows)
+SURFACE_CPU_TOL = 1e-4  # the card's values against the CPU's
+# the card's gradient to the correlation against the CPU's, relative L2: a
+# ReLU whose input lies within the two devices' rounding of 0 passes the
+# gradient on one and not on the other
+SURFACE_CPU_GRAD_TOL = 1e-2
+DEMO_KERNELS = ("mutual_argmax", "ransac_score", "warp_homography", "correlation_pair",
+                "head_epilogues", "compose_tail", "blur_pool", "warp_sample")
+
+
+def _max_err(a, b):
+    return (a.detach().cpu() - b.detach().cpu()).abs().max().item()
+
+
+def _pred_heads_against_plain(align, gen):
+    """`pred_flow_coarse` (gradient magnitude and grid) and
+    `pred_matchability` under grad at a fine pass's (1, 60, 80, 49), with
+    the gradient of all three outputs to the correlation: on the card
+    through K7 and its backward, against the same networks with K7's plain
+    twins on the card (values and gradient within SURFACE_TOL of the larger
+    of 1 and the plain one's largest magnitude: the same cuDNN calls) and
+    on the CPU (values within SURFACE_CPU_TOL; the gradient by relative L2
+    error and cosine). Returns (errors, launches of the kernels' run)."""
+    import copy
+
+    from ransacflow_tpu_torch.kernels import heads as k7
+    from ransacflow_tpu_torch.models import heads
+
+    corr = torch.rand(SURFACE_HEADS, generator=gen, device="cuda")
+    grid = 2.2 * torch.rand((1, 480, 640, 2), generator=gen, device="cuda") - 1.1
+    cots = [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((1, 479, 639, 1), (1, 480, 640, 2), (1, 480, 640, 1))]
+    nets = {"cuda": (align["netFlowCoarse"], align["netMatch"]),
+            "cpu": (copy.deepcopy(align["netFlowCoarse"]).cpu(),
+                    copy.deepcopy(align["netMatch"]).cpu())}
+
+    def run(device):
+        flow_net, match_net = nets[device]
+        c = corr.to(device).requires_grad_()
+        mag, out_grid = heads.pred_flow_coarse(flow_net, c, grid.to(device))
+        outs = (mag, out_grid, heads.pred_matchability(match_net, c))
+        (d,) = torch.autograd.grad(outs, [c], [g.to(device) for g in cots])
+        return outs + (d,)
+
+    got, launches = _launches_of(lambda: run("cuda"))
+    _require_launched("surface_pred_heads", launches,
+                      exact={"head_epilogues": 2, "head_epilogues_bwd": 2})
+    kernels = heads.flow_epilogue, heads.match_epilogue
+    heads.flow_epilogue, heads.match_epilogue = k7.flow_epilogue_ref, k7.match_epilogue_ref
+    try:
+        plain = run("cuda")
+    finally:
+        heads.flow_epilogue, heads.match_epilogue = kernels
+    cpu = run("cpu")
+    names = ("flow_gradient_magnitude", "grid", "matchability", "d_corr")
+    errs = {}
+    for name, a, b, c in zip(names, got, plain, cpu):
+        require(tuple(a.shape) == tuple(b.shape) == tuple(c.shape),
+                f"pred heads {name}: shapes {a.shape}, {b.shape}, {c.shape}")
+        scale = max(1.0, b.abs().max().item())
+        errs[name] = _max_err(a, b)
+        require(errs[name] <= SURFACE_TOL * scale,
+                f"pred heads {name}: kernel vs plain max abs err {errs[name]} > "
+                f"{SURFACE_TOL} * {scale}")
+        errs[name + "_cpu"] = _max_err(a, c)
+        if name != "d_corr":
+            scale = max(1.0, c.abs().max().item())
+            require(errs[name + "_cpu"] <= SURFACE_CPU_TOL * scale,
+                    f"pred heads {name}: card vs CPU max abs err {errs[name + '_cpu']} > "
+                    f"{SURFACE_CPU_TOL} * {scale}")
+    a, c = got[3].detach().cpu().flatten(), cpu[3].detach().flatten()
+    errs["d_corr_cpu_rel_l2"] = ((a - c).norm() / c.norm()).item()
+    errs["d_corr_cpu_cosine"] = torch.nn.functional.cosine_similarity(a, c, dim=0).item()
+    require(errs["d_corr_cpu_rel_l2"] <= SURFACE_CPU_GRAD_TOL,
+            f"pred heads d_corr: card vs CPU relative L2 error {errs['d_corr_cpu_rel_l2']} > "
+            f"{SURFACE_CPU_GRAD_TOL}")
+    return errs, launches
+
+
+def _surface_ops_against_cpu(gen):
+    """`saliency_coef`, `fit_hough`, `fit_translation` and `blur_pool_1d` on
+    CUDA tensors against the CPU: saliency at the coarse stage's 30x40 cells
+    of C = 1024 (L2-normalized), the fits over 4 sets of 1,200 matches,
+    blur-pool over (2, 4096, 64). Plain torch on both (JAX uses no
+    hand-shaped op for them); fit_translation equal."""
+    from ransacflow_tpu_torch.models.layers import l2_normalize
+    from ransacflow_tpu_torch.ops.blurpool import blur_pool_1d
+    from ransacflow_tpu_torch.ops.homography import fit_hough, fit_translation
+    from ransacflow_tpu_torch.ops.saliency import saliency_coef
+
+    feat = l2_normalize(torch.randn((1, 30, 40, 1024), generator=gen, device="cuda"))
+    y = torch.cat([2 * torch.rand((4, 1200, 2), generator=gen, device="cuda") - 1,
+                   torch.ones((4, 1200, 1), device="cuda")], dim=-1)
+    x = y * torch.tensor([1.1, 0.9, 1.0], device="cuda") + torch.tensor(
+        [0.05, -0.03, 0.0], device="cuda")
+    x[..., :2] += 0.01 * torch.randn((4, 1200, 2), generator=gen, device="cuda")
+    sig = torch.randn((2, 4096, 64), generator=gen, device="cuda")
+    cases = {"saliency_coef": (saliency_coef, (feat,), 1e-5),
+             "fit_hough": (fit_hough, (x, y), 1e-4),
+             "fit_translation": (fit_translation, (x, y), 0.0),
+             "blur_pool_1d": (blur_pool_1d, (sig,), 1e-5)}
+    errs = {}
+    for name, (fn, args, tol) in cases.items():
+        a, b = fn(*args), fn(*(t.cpu() for t in args))
+        require(a.is_cuda and tuple(a.shape) == tuple(b.shape), f"{name}: {a.device} {a.shape}")
+        errs[name] = _max_err(a, b)
+        require(errs[name] <= tol, f"{name}: card vs CPU max abs err {errs[name]} > {tol}")
+    return errs
+
+
+def _demo_on_card(tmp):
+    """`python -m ransacflow_tpu_torch.examples.synthetic_demo --device
+    cuda` through its `main`, twice: the planted translation recovered
+    within 0.02 normalized (tests/test_pipeline.py's bound), three PNGs,
+    and the launches of the first call."""
+    from ransacflow_tpu_torch.examples import synthetic_demo
+
+    argv = ["--device", "cuda", "--outdir", f"{tmp}/demo"]
+    t0 = time.perf_counter()
+    (h_est, err_px), launches = _launches_of(lambda: synthetic_demo.main(argv))
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synthetic_demo.main(argv)
+    second_s = time.perf_counter() - t0
+    size = 256  # the demo's default --size
+    require(h_est is not None, "demo: no homography found")
+    require(err_px * 2 / (size - 1) < 0.02, f"demo: mean grid error {err_px} px")
+    require(all(os.path.exists(f"{tmp}/demo/{n}")
+                for n in ("before.png", "after_coarse.png", "after_fine.png")),
+            f"demo: blends missing: {os.listdir(f'{tmp}/demo')}")
+    # the target's synthesis (warp_grid + K5's grid form) and align_images'
+    # warped_fine are the two grid-form warps
+    _require_launched("surface_demo", launches, DEMO_KERNELS,
+                      {"anchor_resample": 0, "ransac_adaptive": 0, "lanczos_pyramid": 0,
+                       "compose_tail": 1, **_per_fine_pass(launches, grid_form=2)})
+    return {"err_px": err_px, "first_call_s": first_s, "second_call_s": second_s,
+            "H21": h_est.tolist()}, launches
+
+
+def _traced_serving(tmp, resnet, align):
+    """One serving call (`fused_align_batch`, one full-width pair) inside
+    `utils.monitor.profile_trace`: the trace file under its directory must
+    name a hand kernel. A spin kernel goes first and a trace without a hand
+    kernel is taken again (the profiler can miss launches, ROADMAP's watch
+    list). Returns (reading, launches of the first traced call)."""
+    from ransacflow_tpu_torch.pipeline.fused import device_pyramid, fused_align_batch
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+    from ransacflow_tpu_torch.utils.monitor import profile_trace
+
+    shapes = pyramid_shapes()
+    rng = np.random.RandomState(0)
+    source = torch.from_numpy(_blocky(rng, 1, *shapes[0])).cuda()
+    target = torch.from_numpy(_blocky(rng, 1, *TARGET_HW)).cuda()[:, None]
+
+    def serve():
+        pyramids = tuple(p[:, None] for p in device_pyramid(source, shapes))
+        out = fused_align_batch(resnet, align, pyramids, target,
+                                torch.Generator(device="cuda").manual_seed(2), n_iter=N_ITER)
+        torch.cuda.synchronize()
+        return out
+
+    serve()  # warm: the trace holds one steady call
+    launches = None
+    for attempt in range(3):
+        log_dir = f"{tmp}/trace{attempt}"
+        with profile_trace(log_dir):
+            torch.cuda._sleep(100000)
+            _, counts = _launches_of(serve)
+        launches = launches or counts
+        files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        require(len(files) == 1, f"profile_trace wrote {files}")
+        with open(f"{log_dir}/{files[0]}") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        hand = sorted(k[:60] for k in kernels if _family(k) == "hand kernels")
+        if hand:
+            break
+    require(hand, f"profile_trace: no hand kernel among {len(kernels)} traced kernels")
+    _require_launched("surface_traced_serving", launches, SERVING_KERNELS)
+    return {"trace_file": files[0], "trace_mb": os.path.getsize(f"{log_dir}/{files[0]}") / 1e6,
+            "traced_kernels": len(kernels), "hand_kernels_traced": hand,
+            "attempts": attempt + 1}, launches
+
+
+def phase_surface(card):
+    """(o) The JAX surface outside the main paths, on the card: the
+    reference-API heads under grad against the CPU (K7 and its backward),
+    the surface ops on CUDA tensors against the CPU, the synthetic demo on
+    the card, and one serving call inside `profile_trace`. Its paths are
+    `surface_pred_heads`, `surface_demo` and `surface_traced_serving`."""
+    import tempfile
+
+    from ransacflow_tpu_torch.models.heads import pred_flow_coarse, pred_matchability
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    resnet, align = _nets("cuda")
+    paths, readings = {}, {}
+    readings["pred_heads_max_abs_err"], paths["surface_pred_heads"] = \
+        _pred_heads_against_plain(align, gen)
+
+    corr = torch.rand(SURFACE_HEADS, generator=gen, device="cuda").requires_grad_()
+    grid = 2.2 * torch.rand((1, 480, 640, 2), generator=gen, device="cuda") - 1.1
+
+    def flow_step():
+        mag, out_grid = pred_flow_coarse(align["netFlowCoarse"], corr, grid)
+        torch.autograd.grad((mag.sum() + out_grid.sum(),), [corr])
+
+    def match_forward():
+        with torch.no_grad():
+            pred_matchability(align["netMatch"], corr)
+
+    readings["pred_flow_coarse_fwd_bwd"] = {"ms": cuda_ms(flow_step, 10),
+                                            "device_ms": device_ms(flow_step, 10)}
+    readings["pred_matchability_fwd"] = {"ms": cuda_ms(match_forward, 10),
+                                         "device_ms": device_ms(match_forward, 10)}
+    readings["ops_max_abs_err"] = _surface_ops_against_cpu(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        readings["demo"], paths["surface_demo"] = _demo_on_card(tmp)
+        readings["profile_trace"], paths["surface_traced_serving"] = \
+            _traced_serving(tmp, resnet, align)
+    readings["seconds"] = time.perf_counter() - t0
+    for key, val in readings.items():
+        print(f"(o) {key}: {val}", flush=True)
+    print(f"(o) launches: {paths}; phase (o) {readings['seconds']:.1f} s on {card}",
+          flush=True)
+    return paths, readings
+
+
 SOURCES = {
     "lanczos_pyramid": ("cuda", "ransacflow_tpu_torch/csrc/pyramid.cu",
                         "ransacflow_tpu/pipeline/fused.py:30"),
@@ -4867,11 +5118,12 @@ def main():
         l_paths, l_readings = phase_pool_bf16(card)
         m_paths, m_readings = phase_multicard(card, results)
         n_paths, n_readings = phase_batch_modes(card)
+        o_paths, o_readings = phase_surface(card)
     except Exception:  # the boundary: report and fail
         traceback.print_exc()
         return 1
     by_path = {"serving": serving, **multihomo, "train": train, **fast, **sky, **evals,
-               **yfcc_paths, **k_paths, **l_paths, **m_paths, **n_paths}
+               **yfcc_paths, **k_paths, **l_paths, **m_paths, **n_paths, **o_paths}
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
@@ -4884,7 +5136,7 @@ def main():
                       "eval": {**eval_readings, **yfcc_readings},
                       "affine_refine_validation": k_readings,
                       "pool_bf16_remat": l_readings, "multicard": m_readings,
-                      "batch_modes": n_readings,
+                      "batch_modes": n_readings, "surface": o_readings,
                       "kernel_details": results}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Flow and matchability heads over the local correlation volume, port of
-`ransacflow_tpu/models/heads.py:56-99` and `:123-142`.
+`ransacflow_tpu/models/heads.py:56-142`.
 
 Both heads share one trunk shape: conv3x3 k^2 -> 512 -> 256 -> 128 with BN
 and ReLU between, then conv3x3 to k^2 (flow: softmax expectation over the
@@ -8,7 +8,9 @@ on cuDNN; the epilogues after conv4 are kernel 7 (`kernels/heads.py`), whose
 backward is a kernel too. `net_flow_coarse` and `net_matchability` run a
 head with its epilogue (the training path); the fine stage runs its three
 trunks (`head_logits`) and then one launch for the three epilogues
-(`kernels/heads.head_epilogues`).
+(`kernels/heads.head_epilogues`). `pred_flow_coarse`,
+`pred_flow_coarse_no_grad` and `pred_matchability` are the reference's
+API names over the first two.
 """
 
 import torch
@@ -57,6 +59,34 @@ def net_matchability(net, corr, up8=True):
     or (B, 8H, 8W, 1) with up8."""
     m = match_epilogue(head_logits(net, corr))
     return upsample_bilinear_x8(m) if up8 else m
+
+
+def pred_flow_coarse(net, corr, grid, up8=True, kernel_size=7):
+    """The reference's ``predFlowCoarse`` (model/model.py:331-340): the flow
+    head, then (its diagonal gradient magnitude (B, H-1, W-1, 1), the
+    absolute sampling grid `flow_to_grid(flow, grid)`). Differentiable: on
+    the card the epilogue and its backward are kernel 7's.
+
+    The JAX function also returns the BatchNorm statistics of a train-mode
+    call; here they are the module's buffers, which `net.train()` updates
+    in place, so there is no third output.
+    """
+    flow = net_flow_coarse(net, corr, up8, kernel_size)
+    return flow_gradient_magnitude(flow), flow_to_grid(flow, grid)
+
+
+def pred_flow_coarse_no_grad(net, corr, grid, up8=True, kernel_size=7):
+    """The reference's ``predFlowCoarseNoGrad`` (model/model.py:342-350):
+    the absolute sampling grid alone, under `torch.no_grad()`."""
+    with torch.no_grad():
+        return flow_to_grid(net_flow_coarse(net, corr, up8, kernel_size), grid)
+
+
+def pred_matchability(net, corr, up8=True):
+    """The reference's ``predMatchability`` (model/model.py:353-357):
+    `net_matchability`. As in `pred_flow_coarse`, a train-mode call updates
+    the module's BatchNorm buffers in place of JAX's returned statistics."""
+    return net_matchability(net, corr, up8)
 
 
 def flow_gradient_magnitude(flow):

@@ -99,6 +99,12 @@ def segnet_encoder(net, x):
     return net(nchw(x)).permute(0, 2, 3, 1).contiguous()
 
 
+def segnet_decoder(net, conv5, seg_size):
+    """The `PPMDecoder` `net` on conv5 (B, H, W, 2048) -> per-class softmax
+    (B, h, w, 150) at seg_size (h, w)."""
+    return net(conv5, seg_size)
+
+
 def _round_up(x, p):
     return ((x - 1) // p + 1) * p
 

@@ -56,6 +56,16 @@ def library():
     return _LIB
 
 
+def native_available():
+    """Whether the resampler's library builds and loads here. A predicate
+    only: `lanczos_resize` still raises when it does not."""
+    try:
+        library()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def lanczos_resize(img, out_h, out_w, n_threads=4):
     """Lanczos-3 resize of a float32 (H, W, C) or (H, W) array, PIL's
     semantics. Returns (out_h, out_w, C) float32."""

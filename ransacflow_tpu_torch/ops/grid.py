@@ -26,3 +26,11 @@ def feature_cell_coords(h, w, device, dtype=torch.float32):
     y = ((rows - 0.5) * 2.0).repeat_interleave(w)
     x = ((cols - 0.5) * 2.0).repeat(h)
     return y, x
+
+
+def feature_cell_indices(h, w, device):
+    """Integer (row, col) indices of an h x w grid flattened row-major, each
+    (h*w,) int64 (the reference's ``getWHTensor_Int``)."""
+    rows = torch.arange(h, device=device).repeat_interleave(w)
+    cols = torch.arange(w, device=device).repeat(h)
+    return rows, cols

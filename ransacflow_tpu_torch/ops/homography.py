@@ -1,9 +1,10 @@
 """Homographies: application, warp grids, the 4-point solve, the affine
 least-squares fit and the reprojection error.
 
-Port of `ransacflow_tpu/ops/homography.py` (the 'projective' solve and
-`fit_affine`). The torch functions batch over leading dimensions;
-`dlt_homography_np` is the host fp64 solve of one set.
+Port of `ransacflow_tpu/ops/homography.py` (the 'projective' solve,
+`fit_affine`, `fit_hough` and `fit_translation`). The torch functions batch
+over leading dimensions; `dlt_homography_np` is the host fp64 solve of one
+set.
 """
 
 import math
@@ -124,6 +125,52 @@ def fit_affine(X, Y):
     top = (M / det[..., None, None]).transpose(-1, -2)  # (..., 2, 3)
     bottom = torch.tensor([0.0, 0.0, 1.0], dtype=X.dtype, device=X.device)
     return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 3)], dim=-2)
+
+
+def _diag_affine(sx, sy, tx, ty):
+    """(..., 3, 3) [[sx, 0, tx], [0, sy, ty], [0, 0, 1]]."""
+    zeros, ones = torch.zeros_like(sx), torch.ones_like(sx)
+    return torch.stack([
+        torch.stack([sx, zeros, tx], dim=-1),
+        torch.stack([zeros, sy, ty], dim=-1),
+        torch.stack([zeros, zeros, ones], dim=-1),
+    ], dim=-2)
+
+
+def fit_hough(X, Y):
+    """Axis-aligned scale and translation fit (port of
+    `ransacflow_tpu/ops/homography.py:236`; the reference's
+    utils/outil.py:57-66, which its main path does not call): per axis the
+    least squares [y, 1] @ [s, t] = x through the 2x2 normal equations.
+
+    X: (..., N, 2|3) source points; Y: (..., N, 2|3) target ones.
+    Returns (..., 3, 3) [[sx, 0, tx], [0, sy, ty], [0, 0, 1]].
+    """
+    def axis_fit(y, x):
+        a11 = (y * y).sum(dim=-1)
+        a12 = y.sum(dim=-1)
+        a22 = torch.ones_like(y).sum(dim=-1)
+        b1 = (y * x).sum(dim=-1)
+        b2 = x.sum(dim=-1)
+        det = a11 * a22 - a12 * a12
+        return (a22 * b1 - a12 * b2) / det, (a11 * b2 - a12 * b1) / det
+
+    sx, tx = axis_fit(Y[..., 0], X[..., 0])
+    sy, ty = axis_fit(Y[..., 1], X[..., 1])
+    return _diag_affine(sx, sy, tx, ty)
+
+
+def fit_translation(X, Y):
+    """The translation of the FIRST correspondence of each set, as the
+    reference's utils/outil.py:89-95 takes it (port of
+    `ransacflow_tpu/ops/homography.py:273`).
+
+    X, Y: (..., N, 2|3). Returns (..., 3, 3).
+    """
+    tx = X[..., 0, 0] - Y[..., 0, 0]
+    ty = X[..., 0, 1] - Y[..., 0, 1]
+    ones = torch.ones_like(tx)
+    return _diag_affine(ones, ones, tx, ty)
 
 
 def reprojection_error(match1, match2, H21):

@@ -441,7 +441,8 @@ def test_port_imports_no_jax():
             "             'cli.eval_corr', 'eval.pose', 'eval.yfcc', 'eval.aachen',\n"
             "             'cli.eval_yfcc', 'cli.generate_pairs', 'cli.resize_dataset',\n"
             "             'pipeline.refine', 'train.validation', 'native', 'eval.pooled',\n"
-            "             'utils.flops'):\n"
+            "             'utils.flops', 'ops.saliency', 'ops.ssim', 'utils.monitor',\n"
+            "             'examples.synthetic_demo'):\n"
             "    assert 'ransacflow_tpu_torch.' + name in sys.modules, name\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('ransacflow_tpu.') for k in sys.modules)\n"
