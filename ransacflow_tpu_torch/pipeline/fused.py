@@ -28,6 +28,7 @@ from ransacflow_tpu_torch.ops.ransac import (
 )
 from ransacflow_tpu_torch.pipeline.bank import anchor_bank_batch, bank_coords, coarse_features
 from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask_homography
+from ransacflow_tpu_torch.utils.monitor import span
 
 
 def _coarse_match_batch(resnet, pyramid, target, anchor_stride=0, relax_cells=0):
@@ -44,19 +45,22 @@ def _coarse_match_batch(resnet, pyramid, target, anchor_stride=0, relax_cells=0)
     target cell, invalid rows masked by valid (k, nB).
     """
     device = target.device
-    if anchor_stride:
-        bank = anchor_bank_batch(resnet, pyramid, anchor_stride)
-    else:
-        bank = torch.cat([coarse_features(resnet, img).flatten(1, 2) for img in pyramid], dim=1)
-    coords_a = bank_coords([img.shape[1:3] for img in pyramid], device)
-    ft = coarse_features(resnet, target)
-    y, x = feature_cell_coords(ft.shape[1], ft.shape[2], device)
-    coords_b = torch.stack([x, y], dim=1).expand(ft.shape[0], -1, -1)
-    m = mutual_matching(bank.transpose(1, 2), ft.flatten(1, 2).transpose(1, 2),
-                        relax_cells=relax_cells, grid_w=ft.shape[2])
-    ones = torch.ones(coords_b.shape[:2] + (1,), dtype=coords_b.dtype, device=device)
-    m1 = torch.cat([coords_a[m.src_idx.long()], ones], dim=2)
-    m2 = torch.cat([coords_b, ones], dim=2)
+    with span("rf.align.features"):
+        if anchor_stride:
+            bank = anchor_bank_batch(resnet, pyramid, anchor_stride)
+        else:
+            bank = torch.cat([coarse_features(resnet, img).flatten(1, 2) for img in pyramid],
+                             dim=1)
+        coords_a = bank_coords([img.shape[1:3] for img in pyramid], device)
+        ft = coarse_features(resnet, target)
+        y, x = feature_cell_coords(ft.shape[1], ft.shape[2], device)
+        coords_b = torch.stack([x, y], dim=1).expand(ft.shape[0], -1, -1)
+    with span("rf.align.matching"):
+        m = mutual_matching(bank.transpose(1, 2), ft.flatten(1, 2).transpose(1, 2),
+                            relax_cells=relax_cells, grid_w=ft.shape[2])
+        ones = torch.ones(coords_b.shape[:2] + (1,), dtype=coords_b.dtype, device=device)
+        m1 = torch.cat([coords_a[m.src_idx.long()], ones], dim=2)
+        m2 = torch.cat([coords_b, ones], dim=2)
     return m1, m2, m.valid
 
 
@@ -98,28 +102,30 @@ def _fine_with_gate_batch(align, pyramid, target, h21, found, num_inliers, cycle
     zeroed, and its flows become no-ops. pyramid: (k, Hi, Wi, 3) scales;
     target (k, Ht, Wt, 3); h21 (k, 3, 3), found (k,), num_inliers (k,).
     Returns `fused_align_batch`'s dict for these k pairs."""
-    ht, wt = target.shape[1:3]
-    eye = torch.eye(3, dtype=h21.dtype, device=h21.device)
-    h_used = torch.where(found[:, None, None], h21, eye)
-    src = pyramid[len(pyramid) // 2]
-    out = pred_flow_mask_homography(align, src, fine_features(align, target), h_used,
-                                    (ht, wt), cycle_match=cycle_match, kernel_size=kernel_size)
+    with span("rf.align.fine"):
+        ht, wt = target.shape[1:3]
+        eye = torch.eye(3, dtype=h21.dtype, device=h21.device)
+        h_used = torch.where(found[:, None, None], h21, eye)
+        src = pyramid[len(pyramid) // 2]
+        out = pred_flow_mask_homography(align, src, fine_features(align, target), h_used,
+                                        (ht, wt), cycle_match=cycle_match,
+                                        kernel_size=kernel_size)
 
-    def gated(x):  # zeroed where RANSAC failed, in x's own dtype
-        return x * found.to(x.dtype).view((-1,) + (1,) * (x.dim() - 1))
+        def gated(x):  # zeroed where RANSAC failed, in x's own dtype
+            return x * found.to(x.dtype).view((-1,) + (1,) * (x.dim() - 1))
 
-    return {
-        "H21": h_used,
-        "found": found,
-        "num_inliers": num_inliers,
-        # an absolute sampling grid: the identity grid is its no-op
-        "flow": torch.where(found[:, None, None, None], out["flow"],
-                            normalized_grid(ht, wt, h_used.device))[:, None],
-        "match": gated(out["match"]),
-        # the raw stride-8 residual: zeros are its no-op
-        "flow_down8": gated(out["flow_down8"])[:, None],
-        "match_down8": gated(out["match_down8"])[:, None],
-    }
+        return {
+            "H21": h_used,
+            "found": found,
+            "num_inliers": num_inliers,
+            # an absolute sampling grid: the identity grid is its no-op
+            "flow": torch.where(found[:, None, None, None], out["flow"],
+                                normalized_grid(ht, wt, h_used.device))[:, None],
+            "match": gated(out["match"]),
+            # the raw stride-8 residual: zeros are its no-op
+            "flow_down8": gated(out["flow_down8"])[:, None],
+            "match_down8": gated(out["match_down8"])[:, None],
+        }
 
 
 def _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size):
@@ -151,10 +157,13 @@ def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
     Returns dict: 'H21' (3, 3), 'found' (), 'num_inliers' (), 'flow'
     (1, Ht, Wt, 2), 'match' (Ht, Wt), 'flow_down8', 'match_down8'.
     """
-    m1, m2, valid = _coarse_match_batch(resnet, pyramid, target, anchor_stride, relax_cells)
-    res = _ransac(m1[0], m2[0], valid[0], generator, tolerance, n_iter, adaptive_chunk,
-                  injected_samples)
-    return _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size)
+    with span("rf.align"):
+        m1, m2, valid = _coarse_match_batch(resnet, pyramid, target, anchor_stride,
+                                            relax_cells)
+        with span("rf.align.fit"):
+            res = _ransac(m1[0], m2[0], valid[0], generator, tolerance, n_iter,
+                          adaptive_chunk, injected_samples)
+        return _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size)
 
 
 def parse_batch_mode(batch_mode, n_pairs):
@@ -212,18 +221,21 @@ def fused_align_batch(resnet, align, pyramids, targets, generator=None,
     draws = [None] * k_pairs if injected_samples is None else injected_samples
     fit = _ransac_batch if ransac_batched else _ransac_pairs
     outs = []
-    for c0 in range(0, k_pairs, chunk):
-        pairs = slice(c0, c0 + chunk)
-        pyr = tuple(p[pairs, 0] for p in pyramids)
-        tgt = targets[pairs, 0]
-        m1, m2, valid = _coarse_match_batch(resnet, pyr, tgt, anchor_stride, relax_cells)
-        res = fit(m1, m2, valid, gens[pairs], tolerance, n_iter, adaptive_chunk, draws[pairs])
-        if fine_batched:
-            outs.append(_fine_with_gate_batch(align, pyr, tgt, res.H21, res.found,
-                                              res.num_inliers, cycle_match, kernel_size))
-            continue
-        for p in range(m1.shape[0]):
-            outs.append(_fine_with_gate_batch(
-                align, tuple(s[p:p + 1] for s in pyr), tgt[p:p + 1], res.H21[p:p + 1],
-                res.found[p:p + 1], res.num_inliers[p:p + 1], cycle_match, kernel_size))
-    return {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
+    with span("rf.align"):
+        for c0 in range(0, k_pairs, chunk):
+            pairs = slice(c0, c0 + chunk)
+            pyr = tuple(p[pairs, 0] for p in pyramids)
+            tgt = targets[pairs, 0]
+            m1, m2, valid = _coarse_match_batch(resnet, pyr, tgt, anchor_stride, relax_cells)
+            with span("rf.align.fit"):
+                res = fit(m1, m2, valid, gens[pairs], tolerance, n_iter, adaptive_chunk,
+                          draws[pairs])
+            if fine_batched:
+                outs.append(_fine_with_gate_batch(align, pyr, tgt, res.H21, res.found,
+                                                  res.num_inliers, cycle_match, kernel_size))
+                continue
+            for p in range(m1.shape[0]):
+                outs.append(_fine_with_gate_batch(
+                    align, tuple(s[p:p + 1] for s in pyr), tgt[p:p + 1], res.H21[p:p + 1],
+                    res.found[p:p + 1], res.num_inliers[p:p + 1], cycle_match, kernel_size))
+        return {key: torch.cat([o[key] for o in outs]) for key in outs[0]}

@@ -7,6 +7,7 @@ import torch
 
 from ransacflow_tpu_torch.parallel.group import reduce_grads
 from ransacflow_tpu_torch.train.losses import TRAIN_MODULES, compute_losses
+from ransacflow_tpu_torch.utils.monitor import span
 
 
 def make_optimizer(params, lr=2e-4):
@@ -40,14 +41,16 @@ def train_grads(nets, opt, images, index_roll, grid, mask_margin, mode="flow",
     gradient of the one large batch in its trainable parameters' `.grad`.
     The trained networks' BatchNorm statistics move (global moments under
     `group`). Returns the metrics dict of `train_step`."""
-    opt.zero_grad(set_to_none=True)
-    loss, terms = compute_losses(nets, images, index_roll, grid, mask_margin,
-                                 mode=mode, mu_cycle=mu_cycle,
-                                 lambda_match=lambda_match, grad_weight=grad_weight,
-                                 kernel_size=kernel_size, compute_dtype=compute_dtype,
-                                 remat=remat, group=group)
-    loss.backward()
-    reduce_grads(split_trainable(nets, mode)[0], group)
+    with span("rf.train.forward"):
+        opt.zero_grad(set_to_none=True)
+        loss, terms = compute_losses(nets, images, index_roll, grid, mask_margin,
+                                     mode=mode, mu_cycle=mu_cycle,
+                                     lambda_match=lambda_match, grad_weight=grad_weight,
+                                     kernel_size=kernel_size, compute_dtype=compute_dtype,
+                                     remat=remat, group=group)
+    with span("rf.train.backward"):
+        loss.backward()
+        reduce_grads(split_trainable(nets, mode)[0], group)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
 
 
@@ -65,9 +68,11 @@ def train_step(nets, opt, images, index_roll, grid, mask_margin, mode="flow",
     'loss_grad'} of 0-d tensors on the batch's device (nothing is read back):
     the global batch's under `group`.
     """
-    metrics = train_grads(nets, opt, images, index_roll, grid, mask_margin, mode=mode,
-                          mu_cycle=mu_cycle, lambda_match=lambda_match,
-                          grad_weight=grad_weight, kernel_size=kernel_size,
-                          compute_dtype=compute_dtype, remat=remat, group=group)
-    opt.step()
-    return metrics
+    with span("rf.train.step"):
+        metrics = train_grads(nets, opt, images, index_roll, grid, mask_margin, mode=mode,
+                              mu_cycle=mu_cycle, lambda_match=lambda_match,
+                              grad_weight=grad_weight, kernel_size=kernel_size,
+                              compute_dtype=compute_dtype, remat=remat, group=group)
+        with span("rf.train.optimizer"):
+            opt.step()
+        return metrics

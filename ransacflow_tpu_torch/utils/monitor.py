@@ -1,7 +1,8 @@
 """Metrics logging and profiling hooks (port of
 `ransacflow_tpu/utils/monitor.py`, same file formats): a JSONL metrics
 logger with stdout summaries, monitoring images written as PNGs, per-stage
-wall timers, and a `torch.profiler` trace in place of JAX's profiler.
+wall timers, a `torch.profiler` trace in place of JAX's profiler, and the
+named spans the program records in that trace.
 """
 
 import contextlib
@@ -10,6 +11,8 @@ import os
 import time
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class MetricsLogger:
@@ -114,9 +117,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def time(self, name):
+        """Times the block under `name`; it is also the span `name` in a
+        profiler's trace (`span`)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -131,17 +137,41 @@ class StageTimer:
         return "\n".join(lines)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A named span of the host's timeline: `torch.profiler.record_function`
+    while a profiler runs, else a shared no-op context. The check is one
+    read of a flag, so a span costs nothing worth counting untraced; it
+    adds no synchronize, no read-back and no device work, and changes no
+    number. The spans land in the profiler's trace on the device's clock,
+    nested as they were opened."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir, enabled=True):
     """Trace the block with `torch.profiler` (the host's activity, and the
     card's when CUDA is there) and write it under `log_dir` through
     `tensorboard_trace_handler`: one `<host>_<pid>.<ms>.pt.trace.json`, a
     Chrome trace that TensorBoard's profiler plugin, Perfetto or
-    chrome://tracing opens. A no-op when `enabled` is false."""
+    chrome://tracing opens. A no-op when `enabled` is false.
+
+    The trace holds the program's spans (`span`): `rf.align`, a serving
+    request (`pipeline/fused.fused_align`, `fused_align_batch`), over its
+    stages `rf.align.features` (the trunk's banks and the target's
+    features), `rf.align.matching` (the score and kernel 2), `rf.align.fit`
+    (RANSAC) and `rf.align.fine` (the fine stage); `rf.train.step`
+    (`train/trainer.train_step`) over `rf.train.forward` (the losses),
+    `rf.train.backward` (the backward and the gradients' reduction) and
+    `rf.train.optimizer` (Adam); and a `StageTimer`'s stages under their
+    own names."""
     if not enabled:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
