@@ -13,7 +13,7 @@ trace).
 Phases, each of which must pass:
   (a) card: a CUDA device is present; prints its name and power limit;
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
-  (c) kernels: each hand-written kernel (K1-K13, K5 in its grid and its
+  (c) kernels: each hand-written kernel (K1-K14, K5 in its grid and its
       homography form, the backward kernels of K6, K7, K9 and K10 under
       their own names, and K2 with relax_cells 1 and with the target mask
       applied in the kernel) against its plain PyTorch version at its
@@ -32,7 +32,11 @@ Phases, each of which must pass:
       step's three calls (the stem, layer2's and layer3's downsample); K8
       also across resolutions, a 368x1232 coarse grid composed at 375x1242,
       and with a residual that sends match21's corners outside the patch
-      its blocks stage (one device kernel a call);
+      its blocks stage (one device kernel a call); K14 at the trunk's
+      layer1 and layer3 calls (with and without the shortcut, bit for bit
+      its plain version), then the frozen trunk (BatchNorm folded, K14)
+      against the unfolded one at the serving pyramid's shapes and the
+      target's (`trunk_gap_*`, 40 launches a pass);
       K11 at the step's three calls, each on a per-pixel-noise grid and an
       upsampled random flow's grid, with the share of its tiles that
       splatted through shared memory, at least 90% on the latter at C = 1
@@ -62,7 +66,8 @@ Phases, each of which must pass:
       pair, and no grid-form warp_sample), correlation_pair (K6's pair
       form: both volumes, one per pair, and no single correlation_volume),
       head_epilogues (K7: a pair's three epilogues, one launch), compose_tail
-      (K8) and blur_pool (K9); prints pairs/s;
+      (K8), blur_pool (K9) and conv_epilogue (K14, the frozen trunk); prints
+      pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
       HPatches configuration (4 related pairs, 480x640 targets, 7-scale
       pyramid from 960x1280, max_coarse 10, mask_region_th 0.01, match12
@@ -1533,6 +1538,93 @@ def check_ppm_pool(gen):
     return out
 
 
+# K14's calls at the trunk's shapes, one picture: (suffix, C, H, W, shortcut):
+# layer1's conv3 at the pyramid's 960x1280 scale (with the shortcut) and its
+# conv1 (without), layer3's conv3 at the 240x320 scale and its conv1
+K14_CALLS = (("", 256, 240, 320, True), ("_layer1_conv1", 64, 240, 320, False),
+             ("_layer3", 1024, 15, 20, True), ("_layer3_conv1", 256, 15, 20, False))
+
+
+def _trunk_fold_gaps(gen):
+    """The frozen trunk (BatchNorm folded, K14) against the unfolded one at
+    the serving pyramid's shapes and the target's, one picture each, its
+    BatchNorm off the identity: max abs gap and the gap over the largest
+    feature; K14's launches a pass."""
+    from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.models.convert import init_resnet50_layer3
+    from ransacflow_tpu_torch.models.resnet50 import resnet50_layer3
+    from ransacflow_tpu_torch.utils.image import pyramid_shapes
+
+    net = init_resnet50_layer3(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=g))
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+    out = {"trunk_gap_max_abs": 0.0, "trunk_gap_rel": 0.0}
+    for h, w in list(pyramid_shapes()) + [TARGET_HW]:
+        x = torch.rand((1, h, w, 3), generator=gen, device="cuda")
+        with torch.enable_grad():
+            want = resnet50_layer3(net, x).detach()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = resnet50_layer3(net, x)
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()["conv_epilogue"]
+        require(n == 40, f"frozen trunk at {h}x{w}: {n} conv_epilogue launches, expected 40")
+        gap = (got - want).abs().max().item()
+        out["trunk_gap_max_abs"] = max(out["trunk_gap_max_abs"], gap)
+        out["trunk_gap_rel"] = max(out["trunk_gap_rel"], gap / want.abs().max().item())
+    require(out["trunk_gap_rel"] <= 1e-5,
+            f"frozen trunk: gap {out['trunk_gap_rel']} of the largest feature > 1e-5")
+    return out
+
+
+def check_conv_epilogue(gen):
+    """K14 at the trunk's shapes (`K14_CALLS`) against its plain version bit
+    for bit, in place; bound: the output read and written once, the
+    shortcut read once. The timed calls rotate over copies that together
+    hold ~200 MB, 4x the L2 cache, so that each call reads device memory
+    (one buffer written in place call after call would stay in L2 at
+    layer1's 79 MB and below). No one PyTorch call computes it (bias, add
+    and ReLU are three). Then the frozen trunk against the unfolded one
+    (`_trunk_fold_gaps`)."""
+    import itertools
+
+    from ransacflow_tpu_torch.kernels.conv_epilogue import conv_epilogue, conv_epilogue_ref
+
+    out = {"max_abs_err": 0.0}
+    for suffix, c, h, w, shortcut in K14_CALLS:
+        x = torch.randn((1, c, h, w), generator=gen, device="cuda")
+        bias = torch.randn((c,), generator=gen, device="cuda")
+        res = torch.randn((1, c, h, w), generator=gen, device="cuda") if shortcut else None
+        got = conv_epilogue(x.clone(), bias, res)
+        want = conv_epilogue_ref(x.clone(), bias, res)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"conv_epilogue{suffix}: not the plain version's bits")
+        n_buf = max(2, -(-200_000_000 // nbytes(x)))
+        ys = [x.clone() for _ in range(n_buf)]
+        rs = [res.clone() for _ in range(n_buf)] if shortcut else [None] * n_buf
+        turn = itertools.cycle(range(n_buf))
+
+        def rotated(fn):
+            def call():
+                i = next(turn)
+                return fn(ys[i], bias, rs[i])
+            return call
+
+        out.update(paired_ms(rotated(conv_epilogue), rotated(conv_epilogue_ref),
+                             suffix=suffix))
+        out.update(bound(nbytes(x, x) + (nbytes(res) if shortcut else 0), 0, suffix))
+        out.update(library(None, suffix))
+    out.update(_trunk_fold_gaps(gen))
+    return out
+
+
 def phase_kernels():
     """Each kernel's check, its line printed as soon as it passes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1551,7 +1643,8 @@ def phase_kernels():
               (("correlation_volume_bwd",), check_correlation_bwd),
               (("head_epilogues_bwd",), check_head_epilogues_bwd),
               (("anchor_resample",), check_anchor_resample),
-              (("ppm_pool",), check_ppm_pool))
+              (("ppm_pool",), check_ppm_pool),
+              (("conv_epilogue",), check_conv_epilogue))
     results = {}
 
     def shares(r):
@@ -1697,7 +1790,7 @@ def phase_serving(card):
                                  n_iter=N_ITER)
 
     out, launches = _launches_of(serve)
-    _require_launched("serving path", launches, SERVING_KERNELS,
+    _require_launched("serving path", launches, SERVING_KERNELS + ("conv_epilogue",),
                       {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0,
                        "compose_tail": N_PAIRS, **_per_fine_pass(launches)})
     ht, wt = TARGET_HW
@@ -5099,6 +5192,8 @@ SOURCES = {
                         "ransacflow_tpu/pipeline/coarse.py:70"),
     "ppm_pool": ("cuda", "ransacflow_tpu_torch/csrc/adaptive_pool.cu",
                  "ransacflow_tpu/models/segnet.py:148"),
+    # replaces no TPU kernel: the frozen trunk's epilogue pass
+    "conv_epilogue": ("cuda", "ransacflow_tpu_torch/csrc/conv_epilogue.cu", None),
 }
 
 

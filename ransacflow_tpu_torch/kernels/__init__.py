@@ -13,6 +13,7 @@ from ransacflow_tpu_torch.kernels import (
     anchor_resample,
     blurpool,
     compose,
+    conv_epilogue,
     correlation,
     heads,
     matching,
@@ -43,6 +44,7 @@ KERNELS = {
     "grid_sample_bwd": warp_sample.KERNEL_BWD,         # K11
     "anchor_resample": anchor_resample.KERNEL,         # K12
     "ppm_pool": adaptive_pool.KERNEL,                  # K13
+    "conv_epilogue": conv_epilogue.KERNEL,             # K14
 }
 
 

@@ -104,6 +104,72 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias.view(1, c, 1, 1))
 
 
+def fold_bn(conv_module, bn):
+    """`bn(conv_module(x))` under an eval-mode BatchNorm as one convolution
+    and a bias: w' = w * s and b' = beta - mean * s per output channel, s =
+    gamma / sqrt(var + eps), computed in fp64. Returns w' contiguous in
+    fp32 and b' in fp64 (a block sums two biases before it rounds)."""
+    s = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+    w = (conv_module.weight.double() * s.view(-1, 1, 1, 1)).float().contiguous()
+    return w, bn.bias.double() - bn.running_mean.double() * s
+
+
+class FrozenBNFold(nn.Module):
+    """A module whose convolution + BatchNorm pairs fold into its forward
+    when it is frozen: in eval mode, under no grad, with fp32 parameters and
+    convolutions that compute in their own dtype (`Conv2d.compute_dtype`
+    None). Anything else (training, grad, the bf16 policies) runs the
+    unfolded forward as it is.
+
+    `frozen_fold()` gives the folded state or None. The state is derived,
+    never in `state_dict`: it is made at the first frozen forward, outside
+    inference mode (its tensors are not inference tensors), and made anew
+    when a source tensor changes in place (`load_state_dict`, an edit: its
+    version counter moves) or the module is moved or cast (`.to()`,
+    `cast_params`: `_apply`). A deep copy (`parallel.mesh.replicate`)
+    carries its own sources and folds them anew on its device.
+
+    Subclasses give `_fold_pairs()`, their (conv, bn) pairs, and
+    `_make_fold(folded)`, the forward's state from `fold_bn` of each pair.
+    """
+
+    _fold = None
+    _fold_sources = ()
+    _fold_versions = None
+    _fold_convs = ()
+
+    def frozen_fold(self):
+        if self.training or torch.is_grad_enabled():
+            return None
+        if (self._fold is not None
+                and [t._version for t in self._fold_sources] == self._fold_versions
+                and all(c.compute_dtype is None for c in self._fold_convs)):
+            return self._fold
+        pairs = self._fold_pairs()
+        convs = [c for c, _ in pairs]
+        sources = [t for c, bn in pairs for t in (c.weight, bn.weight, bn.bias,
+                                                  bn.running_mean, bn.running_var)]
+        if (any(t.dtype != torch.float32 for t in sources)
+                or any(c.compute_dtype is not None for c in convs)):
+            return None
+        with torch.inference_mode(False), torch.no_grad():
+            fold = self._make_fold([fold_bn(c, bn) for c, bn in pairs])
+        self._fold, self._fold_sources, self._fold_convs = fold, sources, convs
+        self._fold_versions = [t._version for t in sources]
+        return fold
+
+    def _drop_fold(self):
+        self._fold, self._fold_sources, self._fold_convs = None, (), ()
+
+    def _apply(self, fn, *args, **kwargs):
+        self._drop_fold()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._drop_fold()  # `assign=True` replaces the tensors
+        super()._load_from_state_dict(*args, **kwargs)
+
+
 def conv(cin, cout, kernel_size, stride=1, padding=0, dilation=1):
     return Conv2d(cin, cout, kernel_size, stride, padding, dilation, bias=False)
 

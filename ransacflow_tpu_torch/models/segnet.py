@@ -94,8 +94,9 @@ class PPMDecoder(nn.Module):
 
 def segnet_encoder(net, x):
     """(B, H, W, 3) ImageNet-normalized -> conv5 (B, H/8, W/8, 2048),
-    channels-last (the convolutions keep the input's channels-last memory,
-    so this is a view)."""
+    contiguous. The stem keeps the input's channels-last memory; frozen on
+    a card the blocks compute in NCHW (`models/resnet50.Bottleneck`), and
+    the last permute copies."""
     return net(nchw(x)).permute(0, 2, 3, 1).contiguous()
 
 
