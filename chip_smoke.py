@@ -13,7 +13,7 @@ trace).
 Phases, each of which must pass:
   (a) card: a CUDA device is present; prints its name and power limit;
   (b) build: compiles the CUDA kernels from `ransacflow_tpu_torch/csrc/`;
-  (c) kernels: each hand-written kernel (K1-K14, K5 in its grid and its
+  (c) kernels: each hand-written kernel (K1-K15, K5 in its grid and its
       homography form, the backward kernels of K6, K7, K9 and K10 under
       their own names, and K2 with relax_cells 1 and with the target mask
       applied in the kernel) against its plain PyTorch version at its
@@ -36,7 +36,12 @@ Phases, each of which must pass:
       layer1 and layer3 calls (with and without the shortcut, bit for bit
       its plain version), then the frozen trunk (BatchNorm folded, K14)
       against the unfolded one at the serving pyramid's shapes and the
-      target's (`trunk_gap_*`, 40 launches a pass);
+      target's (`trunk_gap_*`, 40 launches a pass); K15 at every fine-stage
+      convolution of the alignment cells at batch 32 and 1 (`_<name>_b<batch>`
+      keys, within 2e-5 of its plain version's largest output; `library_ms`
+      cuDNN's pick in the unfolded network's layout), then a whole fine pass
+      on the accepted weights, frozen against unfolded (`fine_gap_*`, 42
+      launches a pass);
       K11 at the step's three calls, each on a per-pixel-noise grid and an
       upsampled random flow's grid, with the share of its tiles that
       splatted through shared memory, at least 90% on the latter at C = 1
@@ -66,7 +71,8 @@ Phases, each of which must pass:
       pair, and no grid-form warp_sample), correlation_pair (K6's pair
       form: both volumes, one per pair, and no single correlation_volume),
       head_epilogues (K7: a pair's three epilogues, one launch), compose_tail
-      (K8), blur_pool (K9) and conv_epilogue (K14, the frozen trunk); prints
+      (K8), blur_pool (K9), conv_epilogue (K14, the frozen trunk) and
+      fine_conv (K15, 42 a pair: the frozen fine networks); prints
       pairs/s;
   (e) multi-homography path: `_fused_multi_homo_batch` at bench.py's
       HPatches configuration (4 related pairs, 480x640 targets, 7-scale
@@ -1625,6 +1631,154 @@ def check_conv_epilogue(gen):
     return out
 
 
+# K15's calls, the fine stage's convolutions at the alignment cells' shapes:
+# (name, Cin, Cout, kernel, stride, input H, W, epilogue), once at batch 32
+# and once at batch 1; a fine pass runs the extractor's rows over the target
+# and the warped source, the heads' over its three trunks (layer1's conv1
+# has the shape of its conv2 without the shortcut, and so on)
+K15_CALLS = (("stem", 3, 64, 3, 1, 480, 640, "relu"),
+             ("layer1", 64, 64, 3, 1, 240, 320, "shortcut"),
+             ("layer2_conv1", 64, 128, 3, 2, 240, 320, "relu"),
+             ("layer2_down", 64, 128, 1, 1, 120, 160, "none"),
+             ("layer2", 128, 128, 3, 1, 120, 160, "shortcut"),
+             ("layer3_conv1", 128, 256, 3, 2, 120, 160, "relu"),
+             ("layer3_down", 128, 256, 1, 1, 60, 80, "none"),
+             ("layer3", 256, 256, 3, 1, 60, 80, "shortcut"),
+             ("head_conv1", 49, 512, 3, 1, 60, 80, "relu"),
+             ("head_conv2", 512, 256, 3, 1, 60, 80, "relu"),
+             ("head_conv3", 256, 128, 3, 1, 60, 80, "relu"),
+             ("flow_conv4", 128, 49, 3, 1, 60, 80, "none"),
+             ("match_conv4", 128, 1, 3, 1, 60, 80, "none"))
+K15_BATCHES = (32, 1)
+K15_RTOL = 2e-5  # of the largest output: fp32 sums in another order
+
+
+def _fine_pass(align, src, tgt, h21, frozen):
+    """A fine pass (`pipeline/fine._after_warp` at the homography warp) with
+    its networks frozen (folded, kernel 15) or unfolded (cuDNN, under
+    grad, their outputs detached); the kernels between them as on the
+    path."""
+    from ransacflow_tpu_torch.kernels.compose import compose_tail
+    from ransacflow_tpu_torch.kernels.correlation import correlation_pair
+    from ransacflow_tpu_torch.kernels.heads import head_epilogues
+    from ransacflow_tpu_torch.kernels.warp_sample import warp_homography
+    from ransacflow_tpu_torch.models.feature_extractor import feature_extractor
+    from ransacflow_tpu_torch.models.heads import head_logits
+    from ransacflow_tpu_torch.models.layers import l2_normalize
+
+    def net(fn):
+        if frozen:
+            with torch.inference_mode():
+                return fn()
+        with torch.enable_grad():
+            return fn().detach()
+
+    with torch.no_grad():  # not inference tensors: the unfolded nets run under grad
+        src_warp, grid = warp_homography(src, h21, tgt.shape[1:3])
+    featt = net(lambda: l2_normalize(feature_extractor(align["netFeatCoarse"], tgt)))
+    feats = net(lambda: l2_normalize(feature_extractor(align["netFeatCoarse"], src_warp)))
+    with torch.no_grad():
+        corr12, corr21 = correlation_pair(featt, feats, 7)
+    logits = [net(lambda n=n, c=c: head_logits(align[n], c))
+              for n, c in (("netFlowCoarse", corr12), ("netMatch", corr12),
+                           ("netMatch", corr21))]
+    with torch.no_grad():
+        flow_down8, m12, m21, match_down8 = head_epilogues(*logits, 7)
+        flow, match = compose_tail(flow_down8, m12, m21, grid, False)
+    return {"featt": featt, "feats": feats, "flow": flow, "match": match,
+            "flow_down8": flow_down8, "match_down8": match_down8}
+
+
+def _fine_fold_gaps(gen):
+    """A whole fine pass, frozen against unfolded, on the alignment
+    networks of `ACCEPT_WEIGHTS` (as the benchmark's alignment cells load
+    them) at 480x640, one pair and two: each output's max abs gap (keys
+    `fine_gap_*`), and kernel 15's launches a frozen pass (42: 15 for each
+    of the two extractor passes, 4 for each of the three head trunks)."""
+    from ransacflow_tpu_torch import kernels
+    from ransacflow_tpu_torch.models.convert import alignment_params_from_tree, load_params_npz
+
+    align = alignment_params_from_tree(load_params_npz(ACCEPT_WEIGHTS), "cuda")
+    out = {}
+    ht, wt = TARGET_HW
+    for b in (1, 2):
+        src = torch.rand((b, ht, wt, 3), generator=gen, device="cuda")
+        tgt = torch.rand((b, ht, wt, 3), generator=gen, device="cuda")
+        h21 = torch.eye(3, device="cuda").repeat(b, 1, 1)
+        h21[:, 0, 2] = 0.05
+        want = _fine_pass(align, src, tgt, h21, frozen=False)
+        kernels.reset_launch_counts()
+        got = _fine_pass(align, src, tgt, h21, frozen=True)
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()["fine_conv"]
+        require(n == 42, f"frozen fine pass: {n} fine_conv launches, expected 42")
+        for key in want:
+            gap = (got[key] - want[key]).abs().max().item()
+            out[f"fine_gap_{key}"] = max(out.get(f"fine_gap_{key}", 0.0), gap)
+    require(out["fine_gap_flow"] <= 5e-6 and out["fine_gap_match_down8"] <= 1.5e-6,
+            f"frozen fine pass: {out}")
+    return out
+
+
+def check_fine_conv(gen):
+    """K15 at every fine-stage call of the alignment cells (`K15_CALLS`) at
+    batch 32 and 1 (keys `_<name>_b<batch>`) against its plain version
+    (cuDNN, TF32 off), max abs error over the largest output; bound: the
+    operations (2 M N K) or the bytes (input, weight, output, shortcut once)
+    at the card's peaks; `library_ms`: cuDNN's pick for the convolution
+    alone in the layout the unfolded network hands it (channels-last at the
+    stem and the heads, NCHW in the blocks), which the port never calls.
+    The unsuffixed keys repeat layer2's 3x3 at batch 32. Then a whole fine
+    pass, frozen against unfolded (`_fine_fold_gaps`)."""
+    import torch.nn.functional as F
+
+    from ransacflow_tpu_torch.kernels.fine_conv import fine_conv, fine_conv_ref, pack_conv
+
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for b in K15_BATCHES:
+        for name, cin, cout, k, stride, h, w, epi in K15_CALLS:
+            suffix = f"_{name}_b{b}"
+            pad = k // 2
+            ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+            x = torch.rand((b, h, w, cin), generator=gen, device="cuda")
+            wt = torch.randn((cout, cin, k, k), generator=gen, device="cuda") * (2 / (k * k * cin)) ** 0.5
+            bias = None if epi == "none" else 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+            res = (torch.randn((b, ho, wo, cout), generator=gen, device="cuda")
+                   if epi == "shortcut" else None)
+            pc = pack_conv(wt, bias, stride, pad)
+            with torch.inference_mode():
+                got = fine_conv(x, pc, res)
+                want = fine_conv_ref(x, pc, res)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["max_rel_err"] = max(out["max_rel_err"], rel)
+            out["rel_err" + suffix] = rel
+            require(rel <= K15_RTOL, f"fine_conv{suffix}: error {rel} of the largest output")
+            xl = x.permute(0, 3, 1, 2)
+            if name.startswith("layer"):
+                xl = xl.contiguous()
+            with torch.inference_mode():
+                out.update(paired_ms(lambda: fine_conv(x, pc, res),
+                                     lambda: fine_conv_ref(x, pc, res), suffix=suffix))
+                out.update(library(lambda: F.conv2d(xl, wt, None, stride, pad), suffix))
+            out.update(bound(nbytes(x, wt, got) + (nbytes(res) if res is not None else 0),
+                             2 * b * ho * wo * cout * k * k * cin, suffix))
+            print(f"(c) fine_conv{suffix}: rel_err={rel:.3g} "
+                  f"ms={out['ms' + suffix]:.4f} device_ms={out['device_ms' + suffix]} "
+                  f"library_device_ms={out['library_device_ms' + suffix]} "
+                  f"bound_ms={out['bound_ms' + suffix]:.4f}", flush=True)
+            del x, got, want, res
+    # the kernel table's unsuffixed keys: layer2's 3x3 at batch 32, the call
+    # that cuDNN took to FFT
+    out.update({key: out[key + "_layer2_b32"] for key in (
+        "ms", "plain_ms", "device_ms", "plain_device_ms", "library_ms", "library_device_ms",
+        "bound_ms", "bound_by", "bound_bytes", "bound_ops")})
+    out.update(_fine_fold_gaps(gen))
+    return out
+
+
 def phase_kernels():
     """Each kernel's check, its line printed as soon as it passes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1644,7 +1798,8 @@ def phase_kernels():
               (("head_epilogues_bwd",), check_head_epilogues_bwd),
               (("anchor_resample",), check_anchor_resample),
               (("ppm_pool",), check_ppm_pool),
-              (("conv_epilogue",), check_conv_epilogue))
+              (("conv_epilogue",), check_conv_epilogue),
+              (("fine_conv",), check_fine_conv))
     results = {}
 
     def shares(r):
@@ -1792,7 +1947,8 @@ def phase_serving(card):
     out, launches = _launches_of(serve)
     _require_launched("serving path", launches, SERVING_KERNELS + ("conv_epilogue",),
                       {"lanczos_pyramid": 1, "ransac_adaptive": 0, "anchor_resample": 0,
-                       "compose_tail": N_PAIRS, **_per_fine_pass(launches)})
+                       "compose_tail": N_PAIRS, "fine_conv": 42 * N_PAIRS,
+                       **_per_fine_pass(launches)})
     ht, wt = TARGET_HW
     require(tuple(out["H21"].shape) == (N_PAIRS, 3, 3), "H21 shape")
     require(tuple(out["flow"].shape) == (N_PAIRS, 1, ht, wt, 2), "flow shape")
@@ -5194,6 +5350,8 @@ SOURCES = {
                  "ransacflow_tpu/models/segnet.py:148"),
     # replaces no TPU kernel: the frozen trunk's epilogue pass
     "conv_epilogue": ("cuda", "ransacflow_tpu_torch/csrc/conv_epilogue.cu", None),
+    # replaces no TPU kernel: the frozen fine networks' convolutions
+    "fine_conv": ("cuda", "ransacflow_tpu_torch/csrc/fine_conv.cu", None),
 }
 
 

@@ -15,6 +15,7 @@ from ransacflow_tpu_torch.kernels import (
     compose,
     conv_epilogue,
     correlation,
+    fine_conv,
     heads,
     matching,
     pyramid,
@@ -45,6 +46,7 @@ KERNELS = {
     "anchor_resample": anchor_resample.KERNEL,         # K12
     "ppm_pool": adaptive_pool.KERNEL,                  # K13
     "conv_epilogue": conv_epilogue.KERNEL,             # K14
+    "fine_conv": fine_conv.KERNEL,                     # K15
 }
 
 

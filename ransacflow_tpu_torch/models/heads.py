@@ -4,8 +4,12 @@
 Both heads share one trunk shape: conv3x3 k^2 -> 512 -> 256 -> 128 with BN
 and ReLU between, then conv3x3 to k^2 (flow: softmax expectation over the
 offsets) or to 1 (matchability: sigmoid). All convs are bias-free and run
-on cuDNN; the epilogues after conv4 are kernel 7 (`kernels/heads.py`), whose
-backward is a kernel too. `net_flow_coarse` and `net_matchability` run a
+on cuDNN, but in a frozen head (eval mode, no grad, fp32:
+`layers.FrozenBNFold`), whose BatchNorm folds into conv1-3 and whose four
+convolutions run in NHWC as launches of kernel 15 (`kernels/fine_conv`),
+conv1-3 with bias and ReLU, conv4 a plain store. The epilogues after conv4
+are kernel 7 (`kernels/heads.py`), whose backward is a kernel too.
+`net_flow_coarse` and `net_matchability` run a
 head with its epilogue (the training path); the fine stage runs its three
 trunks (`head_logits`) and then one launch for the three epilogues
 (`kernels/heads.head_epilogues`). `pred_flow_coarse`,
@@ -17,14 +21,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ransacflow_tpu_torch.kernels.fine_conv import fine_conv, pack_folded
 from ransacflow_tpu_torch.kernels.heads import flow_epilogue, match_epilogue
-from ransacflow_tpu_torch.models.layers import BatchNorm2d, conv, nchw, nhwc
+from ransacflow_tpu_torch.models.layers import BatchNorm2d, FrozenBNFold, conv, nchw, nhwc
 from ransacflow_tpu_torch.ops.sampler import upsample_bilinear_x8
 
 TRUNK = (512, 256, 128)
 
 
-class Head(nn.Module):
+class Head(FrozenBNFold):
     def __init__(self, kernel_size, out_ch):
         super().__init__()
         widths = (kernel_size * kernel_size,) + TRUNK
@@ -33,7 +38,21 @@ class Head(nn.Module):
             setattr(self, f"bn{i + 1}", BatchNorm2d(widths[i + 1]))
         self.conv4 = conv(TRUNK[-1], out_ch, 3, 1, 1)
 
+    def _fold_pairs(self):
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3),
+                (self.conv4, None)]
+
+    def _make_fold(self, folded):
+        convs = (self.conv1, self.conv2, self.conv3, self.conv4)
+        return tuple(pack_folded(c, w, b) for c, (w, b) in zip(convs, folded))
+
     def forward(self, x):
+        fold = self.frozen_fold()
+        if fold is not None:  # NHWC in and out, as NCHW views of channels-last memory
+            x = nhwc(x)
+            for pc in fold:
+                x = fine_conv(x, pc)
+            return nchw(x)
         for i in (1, 2, 3):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
         return self.conv4(x)
@@ -41,8 +60,9 @@ class Head(nn.Module):
 
 def head_logits(net, corr):
     """(B, H, W, k^2) correlation -> conv4's (B, H, W, C) logits of a head.
-    On the card the convolutions run channels-last (`nchw` of an NHWC tensor
-    is a channels-last view), so `nhwc` of conv4's output is a view too."""
+    The convolutions run channels-last (`nchw` of an NHWC tensor is a
+    channels-last view; a frozen head computes in NHWC), so `nhwc` of
+    conv4's output is a view too."""
     return nhwc(net(nchw(corr)))
 
 

@@ -108,7 +108,11 @@ def fold_bn(conv_module, bn):
     """`bn(conv_module(x))` under an eval-mode BatchNorm as one convolution
     and a bias: w' = w * s and b' = beta - mean * s per output channel, s =
     gamma / sqrt(var + eps), computed in fp64. Returns w' contiguous in
-    fp32 and b' in fp64 (a block sums two biases before it rounds)."""
+    fp32 and b' in fp64 (a block sums two biases before it rounds). With
+    `bn` None (a convolution that no BatchNorm follows): its own weight,
+    contiguous, and no bias."""
+    if bn is None:
+        return conv_module.weight.contiguous(), None
     s = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
     w = (conv_module.weight.double() * s.view(-1, 1, 1, 1)).float().contiguous()
     return w, bn.bias.double() - bn.running_mean.double() * s
@@ -129,8 +133,9 @@ class FrozenBNFold(nn.Module):
     `cast_params`: `_apply`). A deep copy (`parallel.mesh.replicate`)
     carries its own sources and folds them anew on its device.
 
-    Subclasses give `_fold_pairs()`, their (conv, bn) pairs, and
-    `_make_fold(folded)`, the forward's state from `fold_bn` of each pair.
+    Subclasses give `_fold_pairs()`, their (conv, bn) pairs (bn None for a
+    convolution that no BatchNorm follows), and `_make_fold(folded)`, the
+    forward's state from `fold_bn` of each pair.
     """
 
     _fold = None
@@ -147,8 +152,8 @@ class FrozenBNFold(nn.Module):
             return self._fold
         pairs = self._fold_pairs()
         convs = [c for c, _ in pairs]
-        sources = [t for c, bn in pairs for t in (c.weight, bn.weight, bn.bias,
-                                                  bn.running_mean, bn.running_var)]
+        sources = [t for c, bn in pairs for t in (c.weight,) + (
+            () if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var))]
         if (any(t.dtype != torch.float32 for t in sources)
                 or any(c.compute_dtype is not None for c in convs)):
             return None

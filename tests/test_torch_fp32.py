@@ -143,15 +143,18 @@ def test_aligner_calls_run_without_tf32_and_restore_the_callers_flags(
         tf32_on, monkeypatch, rng, caller):
     """Every convolution of an `align_images` call (the coarse trunk and the
     fine stage) sees both flags off; the caller's flags, PyTorch's defaults
-    (cuDNN on, matmul off) among them, are restored after the call."""
+    (cuDNN on, matmul off) among them, are restored after the call. The
+    frozen networks call `F.conv2d` with their folded weights (on the card
+    the fine networks' go to kernel 15 instead), so every convolution is
+    recorded there."""
     seen = []
-    conv_forward = torch.nn.Conv2d.forward
+    conv2d = torch.nn.functional.conv2d
 
-    def recording(self, x):
+    def recording(*args, **kwargs):
         seen.append(tf32_flags())
-        return conv_forward(self, x)
+        return conv2d(*args, **kwargs)
 
-    monkeypatch.setattr(torch.nn.Conv2d, "forward", recording)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
     aligner = RansacFlowAligner(
         convert.init_alignment_params(torch.Generator().manual_seed(0), "cpu"),
         convert.init_resnet50_layer3(torch.Generator().manual_seed(0), "cpu"), "cpu",
