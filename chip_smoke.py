@@ -55,14 +55,14 @@ Phases, each of which must pass:
       versions on the same seed, at 10k and 50k hypotheses (K3) and one
       block and 13 (K4), timed as the ops a path calls (the seed draw and
       one launch) and as the kernel alone (`kernel_device_ms`); K4 runs
-      under sync-debug 'error'; then the batch forms (`BATCH_CHECKS`) at
-      k = 2 and 4 pairs, each against its plain twin and bit for bit
-      against its single launch on each pair, with `singles_ms` the k
-      single launches: K2 exact, relaxed and masked at k serving scores
-      (`_batch<k>` keys), K12 at k 7-scale stride-3 banks
-      (`_bank_batch<k>`), K3 at 10k hypotheses (`_batch<k>`), K4 to the
-      cap and with stops that differ by pair, under sync-debug 'error'
-      (`_to_cap_batch4`, `_stops_batch<k>`), and K5h at B = 4 (`_b4`);
+      under sync-debug 'error'; then each wrapper on k = 2 and 4 pairs at
+      once (`BATCH_CHECKS`), against its plain twin and bit for bit against
+      each pair's own launch, with `singles_ms` the k one-pair launches:
+      K2 exact, relaxed and masked at k serving scores (`_batch<k>` keys),
+      K12 at k 7-scale stride-3 banks (`_bank_batch<k>`), K3 at 10k
+      hypotheses (`_batch<k>`), K4 to the cap and with stops that differ by
+      pair, under sync-debug 'error' (`_to_cap_batch4`, `_stops_batch<k>`),
+      and K5h at B = 4 (`_b4`);
   (d) serving path: `fused_align_batch` over 4 pairs at full width (480x640
       targets, 7-scale pyramid from 960x1280, 10k RANSAC hypotheses, fp32,
       seeded weights), checked for finite outputs, against the plain CPU path
@@ -1243,7 +1243,7 @@ def check_anchor_resample(gen):
         sub = [shapes[j] for j in scales]
         order = list(range(len(scales)))
         grids = [(h // 16, w // 16) for h, w in sub]
-        bank = torch.empty((sum(h * w for h, w in grids), N_CHANNELS), device="cuda")
+        bank = torch.empty((1, sum(h * w for h, w in grids), N_CHANNELS), device="cuda")
         kernel = lambda: anchor_resample_bank(maps, sub, order, out=bank)  # noqa: E731
         plain = lambda: anchor_resample_bank_ref(maps, sub, order)  # noqa: E731
         err = (kernel() - plain()).abs().max().item()
@@ -1280,13 +1280,12 @@ def _batch_singles(name, batch_outs, single_outs):
 
 
 def check_matching_batch(gen):
-    """K2's batch form at k serving scores (13065 x 1200 each, fresh
-    features a pair), exact (`_batch<k>`), relax_cells 1 on the 30 x 40 grid
+    """K2 on k serving scores at once (13065 x 1200 each, fresh features a
+    pair), exact (`_batch<k>`), relax_cells 1 on the 30 x 40 grid
     (`_relaxed_batch<k>`) and with a (k, 1200) mask (`_masked_batch<k>`):
-    every output bit for bit its plain twin's and the single launch's on
-    each pair; `singles_ms` the k single launches."""
-    from ransacflow_tpu_torch.kernels.matching import (
-        mutual_argmax, mutual_argmax_batch, mutual_argmax_batch_ref)
+    every output bit for bit its plain twin's and each pair's own launch's;
+    `singles_ms` the k launches of one pair each."""
+    from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 
     out = {}
     for k in BATCH_KS:
@@ -1297,8 +1296,8 @@ def check_matching_batch(gen):
         for case, args in (("", (score, 0, None, None)), ("_relaxed", (score, 1, 40, None)),
                            ("_masked", (score, 0, None, valid_b))):
             suffix = f"{case}_batch{k}"
-            got = mutual_argmax_batch(*args)
-            want = mutual_argmax_batch_ref(*args)
+            got = mutual_argmax(*args)
+            want = mutual_argmax_ref(*args)
             torch.cuda.synchronize()
             for name, g, w in zip(("best_src", "best_tgt", "valid", "pair_score"), got, want):
                 require(_same_bits(g, w), f"matching{suffix}: {name} differs from the twin")
@@ -1307,8 +1306,8 @@ def check_matching_batch(gen):
                 for p in range(k)])
             out["max_abs_err" + suffix] = (got[3] - want[3]).abs().max().item()
             out["n_valid" + suffix] = int(got[2].sum())
-            out.update(paired_ms(lambda: mutual_argmax_batch(*args),
-                                 lambda: mutual_argmax_batch_ref(*args), suffix=suffix,
+            out.update(paired_ms(lambda: mutual_argmax(*args),
+                                 lambda: mutual_argmax_ref(*args), suffix=suffix,
                                  plain_reps=5))
             out["singles_ms" + suffix] = cuda_ms(lambda: [
                 mutual_argmax(score[p], *args[1:3], None if args[3] is None else args[3][p])
@@ -1319,11 +1318,11 @@ def check_matching_batch(gen):
 
 
 def check_anchor_resample_batch(gen):
-    """K12's batch form: k serving pairs' 7-scale banks at anchor stride 3 in
-    one launch (`_bank_batch<k>`), within 1e-5 of the plain twin and each
-    bank bit for bit its single launch's."""
+    """K12 on k serving pairs' 7-scale banks at anchor stride 3 in one launch
+    (`_bank_batch<k>`), within 1e-5 of the plain twin and each bank bit for
+    bit its own pair's launch's."""
     from ransacflow_tpu_torch.kernels.anchor_resample import (
-        anchor_resample_bank, anchor_resample_bank_batch, anchor_resample_bank_batch_ref)
+        anchor_resample_bank, anchor_resample_bank_ref)
     from ransacflow_tpu_torch.pipeline.bank import nearest_anchors
     from ransacflow_tpu_torch.utils.image import pyramid_shapes
 
@@ -1336,8 +1335,8 @@ def check_anchor_resample_batch(gen):
         maps = {i: 3 * torch.randn((k, h // 16, w // 16, N_CHANNELS), generator=gen,
                                    device="cuda")
                 for i, (h, w) in enumerate(shapes) if i in nearest}
-        bank = anchor_resample_bank_batch(maps, shapes, nearest)
-        err = (bank - anchor_resample_bank_batch_ref(maps, shapes, nearest)).abs().max().item()
+        bank = anchor_resample_bank(maps, shapes, nearest)
+        err = (bank - anchor_resample_bank_ref(maps, shapes, nearest)).abs().max().item()
         torch.cuda.synchronize()
         require(err <= 1e-5, f"anchor_resample{suffix}: max abs err {err} > 1e-5")
 
@@ -1345,11 +1344,11 @@ def check_anchor_resample_batch(gen):
             return [anchor_resample_bank({i: m[p:p + 1] for i, m in maps.items()}, shapes,
                                          nearest) for p in range(k)]
 
-        _batch_singles(f"anchor_resample{suffix}", (bank,), [(b,) for b in singles()])
+        _batch_singles(f"anchor_resample{suffix}", (bank,), [(b[0],) for b in singles()])
         pairs = [(tuple(maps[i].shape[1:3]), grid) for i, grid in zip(nearest, grids)]
         out.update({"max_abs_err" + suffix: err,
-                    **paired_ms(lambda: anchor_resample_bank_batch(maps, shapes, nearest),
-                                lambda: anchor_resample_bank_batch_ref(maps, shapes, nearest),
+                    **paired_ms(lambda: anchor_resample_bank(maps, shapes, nearest),
+                                lambda: anchor_resample_bank_ref(maps, shapes, nearest),
                                 suffix=suffix, plain_reps=3),
                     "singles_ms" + suffix: cuda_ms(singles),
                     **bound(nbytes(*maps.values(), bank), k * _resample_ops(pairs), suffix)})
@@ -1375,9 +1374,9 @@ def _ransac_batch_bound(m1, m2, valid, seeds, n_hyps, suffix):
 
 
 def _ransac_batch_against(name, fit, rec, ref, rec_ref, singles, m1, m2, valid, rows=None):
-    """Each pair of a RANSAC batch form's fit against its plain twin's
+    """Each pair of k RANSAC fits in one launch against its plain twin's
     (`_ransac_against_plain`, on the rows the pair evaluated) and bit for
-    bit against the single launch's fit and record."""
+    bit against its own launch's fit and record."""
     from ransacflow_tpu_torch.kernels.ransac import Record, pair_of
 
     err, agree = 0.0, 1.0
@@ -1398,27 +1397,26 @@ def _ransac_batch_against(name, fit, rec, ref, rec_ref, singles, m1, m2, valid, 
 
 
 def check_ransac_batch(gen):
-    """K3's batch form: k serving fits (1200 matches, 10k hypotheses, 60%
-    inliers, a seed each) in one launch (`_batch<k>`), each pair against
-    the plain twin as K3 is, and bit for bit its single launch's."""
-    from ransacflow_tpu_torch.kernels.ransac import (
-        ransac_fit, ransac_fit_batch, ransac_fit_batch_ref)
+    """K3 on k serving fits (1200 matches, 10k hypotheses, 60% inliers, a
+    seed each) in one launch (`_batch<k>`), each pair against the plain twin
+    as K3 is, and bit for bit its own launch's."""
+    from ransacflow_tpu_torch.kernels.ransac import ransac_fit, ransac_fit_ref
 
     out = {}
     for k in BATCH_KS:
         suffix = f"_batch{k}"
         m1, m2, valid, seeds = _ransac_batch_problems(gen, [0.6] * k)
         args = (m1, m2, valid, 0.05, N_ITER)
-        fit, rec = ransac_fit_batch(*args, seed=seeds, record=True)
-        ref, rec_ref = ransac_fit_batch_ref(*args, seed=seeds)
+        fit, rec = ransac_fit(*args, seed=seeds, record=True)
+        ref, rec_ref = ransac_fit_ref(*args, seed=seeds)
         singles = [ransac_fit(m1[p], m2[p], valid[p], 0.05, N_ITER, seed=seeds[p:p + 1],
                               record=True) for p in range(k)]
         torch.cuda.synchronize()
         err, agree = _ransac_batch_against(f"ransac{suffix}", fit, rec, ref, rec_ref, singles,
                                            m1, m2, valid)
         out.update({"max_abs_err" + suffix: err, "counts_agree" + suffix: agree,
-                    **paired_ms(lambda: ransac_fit_batch(*args, seed=seeds),
-                                lambda: ransac_fit_batch_ref(*args, seed=seeds), suffix=suffix,
+                    **paired_ms(lambda: ransac_fit(*args, seed=seeds),
+                                lambda: ransac_fit_ref(*args, seed=seeds), suffix=suffix,
                                 plain_reps=2),
                     "singles_ms" + suffix: cuda_ms(lambda: [
                         ransac_fit(m1[p], m2[p], valid[p], 0.05, N_ITER, seed=seeds[p:p + 1])
@@ -1427,15 +1425,15 @@ def check_ransac_batch(gen):
     return out
 
 
-def check_ransac_adaptive_batch(gen):
-    """K4's batch form in one cooperative launch, under sync-debug 'error':
+def check_adaptive_batch(gen):
+    """K4 on k fits in one cooperative launch, under sync-debug 'error':
     k fits of 1200 matches in blocks of 4096 to the 50k cap, all
     structureless (every pair to the cap, `_to_cap_batch4`) and with inlier
     fractions that stop the pairs after different blocks (`_stops_batch2`,
     `_stops_batch4`); each pair evaluates the blocks its plain twin does,
-    agrees with it as K4 does and is bit for bit its single launch."""
+    agrees with it as K4 does and is bit for bit its own launch."""
     from ransacflow_tpu_torch.kernels.ransac_adaptive import (
-        ransac_adaptive, ransac_adaptive_batch, ransac_adaptive_batch_ref)
+        ransac_adaptive, ransac_adaptive_ref)
 
     out = {}
     # w = 0.6 stops after one block, 0.15 and 0.12 after about 4 and 9 (n_req =
@@ -1449,13 +1447,13 @@ def check_ransac_adaptive_batch(gen):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            fit, n_eval, rec = ransac_adaptive_batch(*args, seed=seeds, record=True)
+            fit, n_eval, rec = ransac_adaptive(*args, seed=seeds, record=True)
             singles = [ransac_adaptive(m1[p], m2[p], valid[p], *args[3:],
                                        seed=seeds[p:p + 1], record=True)
                        for p in range(k)]
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        ref, n_eval_r, rec_ref = ransac_adaptive_batch_ref(*args, seed=seeds)
+        ref, n_eval_r, rec_ref = ransac_adaptive_ref(*args, seed=seeds)
         require(torch.equal(n_eval.cpu(), n_eval_r.cpu())
                 and all(int(s[1]) == int(n) for s, n in zip(singles, n_eval)),
                 f"ransac_adaptive{suffix}: evaluated {n_eval.tolist()}, plain "
@@ -1474,8 +1472,8 @@ def check_ransac_adaptive_batch(gen):
             [(s[0], s[2]) for s in singles], m1, m2, valid, rows)
         out.update({"max_abs_err" + suffix: err, "counts_agree" + suffix: agree,
                     "evaluated" + suffix: rows,
-                    **paired_ms(lambda: ransac_adaptive_batch(*args, seed=seeds),
-                                lambda: ransac_adaptive_batch_ref(*args, seed=seeds),
+                    **paired_ms(lambda: ransac_adaptive(*args, seed=seeds),
+                                lambda: ransac_adaptive_ref(*args, seed=seeds),
                                 reps=5, suffix=suffix, plain_reps=1),
                     "singles_ms" + suffix: cuda_ms(lambda: [
                         ransac_adaptive(m1[p], m2[p], valid[p], *args[3:],
@@ -1507,7 +1505,7 @@ def check_warp_homography_batch(gen):
 
 
 BATCH_CHECKS = (("mutual_argmax", check_matching_batch), ("ransac_score", check_ransac_batch),
-                ("ransac_adaptive", check_ransac_adaptive_batch),
+                ("ransac_adaptive", check_adaptive_batch),
                 ("anchor_resample", check_anchor_resample_batch),
                 ("warp_homography", check_warp_homography_batch))
 
@@ -4864,28 +4862,25 @@ def phase_multicard(card, results):
 
 # -- (n) the batch modes of the serving loop -----------------------------------
 BATCH_MODES = ("scan", "vmap", "hybrid", "chunk2", "chunkf2", "chunkv2")
-# K2 and K3 launches of one call at N_PAIRS = 4 pairs, per mode
-BATCH_MODE_LAUNCHES = {"scan": (4, 4), "vmap": (1, 1), "hybrid": (1, 4), "chunk2": (2, 4),
-                       "chunkf2": (2, 4), "chunkv2": (2, 2)}
 # bench.py's fast-mode series (chunk2 at anchor stride 3, relax 1) and vmap
-# with adaptive RANSAC, each beside a mode of the same coarse step that fits
-# the other way (chunkv2: batched fits; hybrid: fits pair by pair), all held
-# to scan in their configuration: (options, {mode: the launches of one call})
-BATCH_EXTRAS = {
-    "anchor": (ANCHOR, {
-        "scan": {"mutual_argmax": 4, "ransac_score": 4, "ransac_adaptive": 0,
-                 "anchor_resample": 4},
-        "chunk2": {"mutual_argmax": 2, "ransac_score": 4, "ransac_adaptive": 0,
-                   "anchor_resample": 2},
-        "chunkv2": {"mutual_argmax": 2, "ransac_score": 2, "ransac_adaptive": 0,
-                    "anchor_resample": 2}}),
-    "adaptive": ({"adaptive_chunk": MH_CHUNK}, {
-        "scan": {"mutual_argmax": 4, "ransac_score": 0, "ransac_adaptive": 4,
-                 "anchor_resample": 0},
-        "vmap": {"mutual_argmax": 1, "ransac_score": 0, "ransac_adaptive": 1,
-                 "anchor_resample": 0},
-        "hybrid": {"mutual_argmax": 1, "ransac_score": 0, "ransac_adaptive": 4,
-                   "anchor_resample": 0}})}
+# with adaptive RANSAC, each held to scan in its configuration: (options,
+# modes)
+BATCH_EXTRAS = {"anchor": (ANCHOR, ("scan", "chunk2")),
+                "adaptive": ({"adaptive_chunk": MH_CHUNK}, ("scan", "vmap"))}
+
+
+def _mode_launches(mode, adaptive_chunk=0, anchor_stride=0, **_):
+    """The launches of one call at N_PAIRS pairs in a batch mode: a chunk
+    launches K2 once, K3 (or K4) once, K12 once in the anchor mode, and runs
+    one fine pass (one compose_tail launch)."""
+    from ransacflow_tpu_torch.pipeline.fused import parse_batch_mode
+
+    n = N_PAIRS // parse_batch_mode(mode, N_PAIRS)
+    return {"mutual_argmax": n, "ransac_score": 0 if adaptive_chunk else n,
+            "ransac_adaptive": n if adaptive_chunk else 0,
+            "anchor_resample": n if anchor_stride else 0, "compose_tail": n}
+
+
 # a differing coarse match must be a near tie in scan's own score: the gap
 # between the two best scores of its column, or of its source's row (fp32:
 # trunk maps that differ in their last bits; bf16: maps whose every layer
@@ -4899,7 +4894,7 @@ def _mode_matches(resnet, pyramids, targets, mode, anchor_stride=0, relax_cells=
     from ransacflow_tpu_torch.pipeline.fused import _coarse_match_batch, parse_batch_mode
 
     kw = dict(anchor_stride=anchor_stride, relax_cells=relax_cells)
-    c = parse_batch_mode(mode, targets.shape[0])[0]
+    c = parse_batch_mode(mode, targets.shape[0])
     with torch.inference_mode():
         got = [_coarse_match_batch(resnet, tuple(p[c0:c0 + c, 0] for p in pyramids),
                                    targets[c0:c0 + c, 0], **kw)
@@ -4915,7 +4910,7 @@ def _tie_gaps(resnet, pyramid, target, cells, anchor_stride=0, relax_cells=0, **
     from ransacflow_tpu_torch.pipeline.bank import anchor_bank, coarse_features
 
     with torch.inference_mode():
-        bank = (anchor_bank(resnet, pyramid, anchor_stride) if anchor_stride else
+        bank = (anchor_bank(resnet, pyramid, anchor_stride)[0] if anchor_stride else
                 torch.cat([coarse_features(resnet, im).flatten(0, 2) for im in pyramid]))
         featt = coarse_features(resnet, target).flatten(0, 2)
         score = score_gemm(bank.T, featt.T).float()
@@ -4986,10 +4981,10 @@ def phase_batch_modes(card):
     match, seeded weights), fp32 (TF32 off) and bf16 (the eval policy);
     then chunk2 at anchor stride 3 with relax_cells 1 (bench.py's fast-mode
     series) and vmap with adaptive RANSAC (blocks of 4096), each beside
-    scan in its configuration and beside a mode of the same coarse step
-    that fits the other way (chunkv2; hybrid). Per run: agreement with scan
-    (`_agreement`) and with the first mode of the same coarse step, the
-    launches of K2, K3, K4 and K12 in one call, pairs/s
+    scan in its configuration. Per run: agreement with scan (`_agreement`)
+    and with the first mode of the same chunk size, the launches of K2,
+    K3, K4 and K12 and the fine passes in one call (`_mode_launches`: one
+    each a chunk), pairs/s
     (CUDA events, best of 3 after the checked call), peak memory and the
     card's idle share of one traced call."""
     from ransacflow_tpu_torch.cli.common import cast_for_dtype
@@ -5008,12 +5003,10 @@ def phase_batch_modes(card):
     pyramids = tuple(p[:, None] for p in device_pyramid(sources, shapes))
     # (name, mode, options, launches, timed): the extras' scan runs are
     # references only
-    runs = [(f"{mode}", mode, {}, dict(zip(("mutual_argmax", "ransac_score"), n),
-                                       ransac_adaptive=0, anchor_resample=0), True)
-            for mode, n in BATCH_MODE_LAUNCHES.items()]
+    runs = [(mode, mode, {}, _mode_launches(mode), True) for mode in BATCH_MODES]
     for extra, (kw, modes) in BATCH_EXTRAS.items():
-        runs += [(f"{mode}_{extra}", mode, kw, want, mode != "scan")
-                 for mode, want in modes.items()]
+        runs += [(f"{mode}_{extra}", mode, kw, _mode_launches(mode, **kw), mode != "scan")
+                 for mode in modes]
     paths, readings = {}, {}
     for key in nets:
         r, a = nets[key]
@@ -5044,11 +5037,11 @@ def phase_batch_modes(card):
                 ref, ref_matches = refs[name[len(mode):]]
                 reading["agreement"] = _agreement(key, path, r, pyramids, targets, out, ref,
                                                   matches, ref_matches, kw)
-                # a mode whose coarse step is another's (vmap and hybrid; chunk2,
-                # chunkf2 and chunkv2) has its matches: held to that mode's run,
+                # a mode of another's chunk size (vmap and hybrid; chunk2,
+                # chunkf2 and chunkv2) runs its path: held to that mode's run,
                 # which checks RANSAC and the fine stage where bf16's roundings
                 # leave no pair equal to scan's
-                group = (name[len(mode):], parse_batch_mode(mode, N_PAIRS)[0])
+                group = (name[len(mode):], parse_batch_mode(mode, N_PAIRS))
                 if group in siblings:
                     sib, sib_out, sib_matches = siblings[group]
                     reading["agreement_with_" + sib] = _agreement(
@@ -5057,8 +5050,7 @@ def phase_batch_modes(card):
                             f"{path}: coarse matches differ from {sib}'s")
                 else:
                     siblings[group] = (mode, out, matches)
-            reading["launches"] = {k: launches[k] for k in ("mutual_argmax", "ransac_score",
-                                                            "ransac_adaptive", "anchor_resample")}
+            reading["launches"] = {k: launches[k] for k in want}
             reading.update(peak_gb=peak / 1e9, peak_over_resident_gb=(peak - base) / 1e9)
             paths[path], readings[path] = launches, reading
             if not timed:

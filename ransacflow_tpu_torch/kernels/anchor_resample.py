@@ -1,6 +1,6 @@
 """Kernel 12: the anchor mode's feature bank, every scale's resample and L2
-normalization in one launch (`csrc/anchor_resample.cu`), for one pair or a
-batch of k (`anchor_resample_bank_batch`)."""
+normalization in one launch (`csrc/anchor_resample.cu`), for the k pairs of
+the maps' leading axis (k = 1 for one pair)."""
 
 import ctypes
 
@@ -56,19 +56,14 @@ def anchor_resample_feats_ref(fmap, fh, fw):
 
 
 def anchor_resample_bank_ref(maps, shapes, nearest, stride=16):
-    """Plain PyTorch: the (nA, C) bank of `shapes` ((H, W) per scale), scale
-    j's rows `anchor_resample_feats_ref` of `maps[nearest[j]]` (a (1, h, w,
-    C) pre-normalization map) at its grid (H // stride, W // stride)."""
-    return torch.cat([anchor_resample_feats_ref(maps[i], h // stride, w // stride)
-                      for (h, w), i in zip(shapes, nearest)])
-
-
-def anchor_resample_bank_batch_ref(maps, shapes, nearest, stride=16):
-    """Plain PyTorch: the (k, nA, C) banks of k pairs, maps[i] (k, h, w, C),
-    each pair's `anchor_resample_bank_ref` stacked."""
+    """Plain PyTorch: the (k, nA, C) banks of `shapes` ((H, W) per scale)
+    for the k pairs of maps[i] (k, h, w, C), pair p's scale j rows
+    `anchor_resample_feats_ref` of `maps[nearest[j]][p]` (a pre-normalization
+    map) at its grid (H // stride, W // stride)."""
     k = maps[nearest[0]].shape[0]
-    return torch.stack([anchor_resample_bank_ref({i: maps[i][p:p + 1] for i in set(nearest)},
-                                                 shapes, nearest, stride)
+    return torch.stack([torch.cat([anchor_resample_feats_ref(maps[i][p:p + 1], h // stride,
+                                                             w // stride)
+                                   for (h, w), i in zip(shapes, nearest)])
                         for p in range(k)])
 
 
@@ -163,27 +158,15 @@ def _plan(in_sizes, grids, device):
 
 def anchor_resample_bank(maps, shapes, nearest, out=None, stride=16):
     """`anchor_resample_bank_ref` for CPU maps; for CUDA ones, the kernel
-    writes every scale's rows, identity ones included, in one launch.
-    maps: indexable by the anchor indices of `nearest` (a dict or a list),
-    each a contiguous (1, h, w, C) fp32 map; shapes: (H, W) per scale;
-    nearest: the anchor index per scale (`pipeline.bank.nearest_anchors`).
-    `out`: an optional contiguous (nA, C) place for the bank. At most
-    MAX_SCALES scales. Forward only. bf16 maps (the eval policy's trunk) are
-    upcast and the bank rounded to bf16, the reference's dtype."""
-    return _bank(maps, shapes, nearest, out, stride, batched=False)
-
-
-def anchor_resample_bank_batch(maps, shapes, nearest, out=None, stride=16):
-    """`anchor_resample_bank` of k pairs: maps[i] (k, h, w, C), the banks
-    (k, nA, C), `out` an optional contiguous place for them. CPU maps take
-    `anchor_resample_bank_batch_ref`; CUDA ones one launch for all k banks,
-    each bit for bit its single launch's."""
-    return _bank(maps, shapes, nearest, out, stride, batched=True)
-
-
-def _bank(maps, shapes, nearest, out, stride, batched):
-    """The plain version or the launch for k banks (`batched`) or one: a
-    single bank is the kernel's k = 1, shaped without the pair axis."""
+    writes every pair's rows of every scale, identity ones included, in one
+    launch, each pair's bank bit for bit its own launch's. maps: indexable
+    by the anchor indices of `nearest` (a dict or a list), each a
+    contiguous (k, h, w, C) fp32 map of k pairs (k = 1 for one); shapes:
+    (H, W) per scale; nearest: the anchor index per scale
+    (`pipeline.bank.nearest_anchors`). Returns the (k, nA, C) banks; `out`:
+    an optional contiguous place for them. At most MAX_SCALES scales.
+    Forward only. bf16 maps (the eval policy's trunk) are upcast and the
+    banks rounded to bf16, the reference's dtype."""
     srcs = [maps[i] for i in nearest]
     if not 1 <= len(srcs) <= MAX_SCALES or len(shapes) != len(srcs):
         raise ValueError(f"anchor_resample_bank: {len(shapes)} scales and {len(srcs)} "
@@ -191,14 +174,13 @@ def _bank(maps, shapes, nearest, out, stride, batched):
     forbid_grad("anchor_resample_bank", *srcs)
     if srcs[0].dtype == torch.bfloat16:
         fp32 = {i: upcast(maps[i])[0] for i in set(nearest)}
-        bank = _bank(fp32, shapes, nearest, None, stride, batched).bfloat16()
+        bank = anchor_resample_bank(fp32, shapes, nearest, None, stride).bfloat16()
         return bank if out is None else out.copy_(bank)
     if srcs[0].device.type == "cpu":
-        plain = anchor_resample_bank_batch_ref if batched else anchor_resample_bank_ref
-        bank = plain(maps, shapes, nearest, stride)
+        bank = anchor_resample_bank_ref(maps, shapes, nearest, stride)
         return bank if out is None else out.copy_(bank)
     dev, c = srcs[0].device, srcs[0].shape[-1]
-    k = srcs[0].shape[0] if batched else 1
+    k = srcs[0].shape[0]
     for j, fmap in enumerate(srcs):
         check(fmap, f"maps[{nearest[j]}]", torch.float32, ndim=4, device=dev)
         if fmap.shape[0] != k or fmap.shape[-1] != c or fmap.numel() // k >= 2**31:
@@ -217,7 +199,7 @@ def _bank(maps, shapes, nearest, out, stride, batched):
     if smem > MAX_SMEM:
         raise ValueError(f"anchor_resample_bank: a tile stages {plan['max_span']} input "
                          f"columns, {smem} bytes of shared memory > {MAX_SMEM}")
-    shape = ((k,) if batched else ()) + (n_cells, c)
+    shape = (k, n_cells, c)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     check(out, "out", torch.float32, shape=shape, device=dev)
@@ -232,6 +214,8 @@ def _bank(maps, shapes, nearest, out, stride, batched):
 
 
 def anchor_resample_feats(fmap, fh, fw, out=None):
-    """One map's rows: `anchor_resample_bank` of one (fh, fw) scale.
-    `out`: an optional contiguous (fh * fw, C) place for the rows."""
-    return anchor_resample_bank([fmap], [(fh, fw)], [0], out, stride=1)
+    """One map's rows: `anchor_resample_bank` of one (fh, fw) scale of one
+    (1, h, w, C) map, (fh * fw, C). `out`: an optional contiguous (fh * fw,
+    C) place for the rows."""
+    return anchor_resample_bank([fmap], [(fh, fw)], [0], None if out is None else out[None],
+                                stride=1)[0]

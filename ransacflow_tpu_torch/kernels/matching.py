@@ -1,6 +1,7 @@
 """Kernel 2: mutual-argmax epilogue of the matching score, exact or relaxed
-reciprocity, with the target mask folded in (`csrc/matching.cu`), for one
-score or a batch of k (`mutual_argmax_batch`, one launch for all)."""
+reciprocity, with the target mask folded in (`csrc/matching.cu`). One
+wrapper takes one score (nA, nB) or k scores (k, nA, nB), the pair axis read
+from the score's rank; k scores are one launch."""
 
 import ctypes
 
@@ -34,18 +35,20 @@ def mutual_argmax_ref(score, relax_cells=0, grid_w=None, valid_b=None):
     """Plain PyTorch. score (nA, nB) and an optional (nB,) mask `valid_b`
     (the score taken as score * valid_b, as the reference takes it) ->
     (best_src (nB,) int32, best_tgt (nA,) int32, valid (nB,) bool,
-    pair_score (nB,)); argmax ties go to the lowest index, valid =
-    reciprocal and nonzero. Reciprocal: the back-match best_tgt[best_src[j]]
-    is j, or, with relax_cells > 0, lies within that Chebyshev radius of j in
-    cells of the row-major target grid of width grid_w."""
+    pair_score (nB,)); a (k, nA, nB) score with a (k, nB) mask gives each
+    output a leading pair axis, pair p's those of its own score. Argmax ties
+    go to the lowest index, valid = reciprocal and nonzero. Reciprocal: the
+    back-match best_tgt[best_src[j]] is j, or, with relax_cells > 0, lies
+    within that Chebyshev radius of j in cells of the row-major target grid
+    of width grid_w."""
     _check_relax(relax_cells, grid_w)
     if valid_b is not None:
-        score = score * valid_b.to(score.dtype)[None, :]
-    best_src = torch.argmax(score, dim=0)
-    best_tgt = torch.argmax(score, dim=1)
-    cols = torch.arange(score.shape[1], device=score.device)
-    pair_score = score[best_src, cols]
-    back = best_tgt[best_src]
+        score = score * valid_b.to(score.dtype).unsqueeze(-2)
+    best_src = torch.argmax(score, dim=-2)
+    best_tgt = torch.argmax(score, dim=-1)
+    cols = torch.arange(score.shape[-1], device=score.device)
+    pair_score = score.gather(-2, best_src.unsqueeze(-2)).squeeze(-2)
+    back = best_tgt.gather(-1, best_src)
     if relax_cells:
         d_row = (back // grid_w - cols // grid_w).abs()
         d_col = (back % grid_w - cols % grid_w).abs()
@@ -55,16 +58,6 @@ def mutual_argmax_ref(score, relax_cells=0, grid_w=None, valid_b=None):
     valid = mutual & (pair_score != 0.0)
     return (best_src.to(torch.int32), best_tgt.to(torch.int32), valid,
             pair_score)
-
-
-def mutual_argmax_batch_ref(score, relax_cells=0, grid_w=None, valid_b=None):
-    """Plain PyTorch: `mutual_argmax_ref` of each pair of a (k, nA, nB)
-    score with its (k, nB) mask, stacked: (best_src (k, nB), best_tgt (k,
-    nA), valid (k, nB), pair_score (k, nB))."""
-    outs = [mutual_argmax_ref(score[p], relax_cells, grid_w,
-                              None if valid_b is None else valid_b[p])
-            for p in range(score.shape[0])]
-    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def schedule(n_a, n_b, vec, n_sm, n_pairs=1):
@@ -92,34 +85,24 @@ def _multiprocessors(device):
 def mutual_argmax(score, relax_cells=0, grid_w=None, valid_b=None):
     """`mutual_argmax_ref` for a CPU tensor, the kernel for a CUDA one: the
     raw score is read once, `valid_b` (bool) applied per element as it is
-    read; two launches, nothing read back. Forward only: raises when
+    read; two launches, nothing read back. k scores (k, nA, nB) with their
+    optional (k, nB) masks take the kernel's two launches for all k pairs,
+    each pair's outputs bit for bit its own call's; one score is the
+    kernel's k = 1, its outputs shaped without the pair axis. The limits are
+    per pair: fewer than 2^31 score elements. Forward only: raises when
     `score` requires grad under grad mode."""
-    return _epilogue(score, relax_cells, grid_w, valid_b, batched=False)
-
-
-def mutual_argmax_batch(score, relax_cells=0, grid_w=None, valid_b=None):
-    """`mutual_argmax` of k scores (k, nA, nB) with their optional (k, nB)
-    masks: `mutual_argmax_batch_ref` for a CPU tensor; for a CUDA one the
-    kernel's two launches for all k pairs, each pair's outputs bit for bit
-    its single launch's. Returns (best_src (k, nB), best_tgt (k, nA), valid
-    (k, nB), pair_score (k, nB)). The limits are per pair: fewer than 2^31
-    score elements. Forward only."""
-    return _epilogue(score, relax_cells, grid_w, valid_b, batched=True)
-
-
-def _epilogue(score, relax_cells, grid_w, valid_b, batched):
-    """The plain version or the kernel for k scores (`batched`) or one: a
-    single score is the kernel's k = 1, its outputs shaped without the pair
-    axis."""
     forbid_grad("mutual_argmax", score)
+    if score.dim() not in (2, 3):
+        raise ValueError(f"mutual_argmax: score of shape {tuple(score.shape)}, expected "
+                         "(nA, nB) or (k, nA, nB)")
     dtype = score.dtype
     (score,) = upcast(score)  # exact: every tie stays a tie
     if score.device.type == "cpu":
-        plain = mutual_argmax_batch_ref if batched else mutual_argmax_ref
-        best_src, best_tgt, valid, pair_score = plain(score, relax_cells, grid_w, valid_b)
+        best_src, best_tgt, valid, pair_score = mutual_argmax_ref(score, relax_cells, grid_w,
+                                                                  valid_b)
         return best_src, best_tgt, valid, pair_score.to(dtype)
     _check_relax(relax_cells, grid_w)
-    check(score, "score", torch.float32, ndim=2 + int(batched))
+    check(score, "score", torch.float32)
     lead = tuple(score.shape[:-2])
     n_pairs = lead[0] if lead else 1
     n_a, n_b = score.shape[-2:]

@@ -5,8 +5,8 @@ homographies or 3-point affine maps.
 The draws are Philox4x32-10 of the hypothesis index under a seed tensor
 (`draw_sets_ref` is their plain version, bit for bit the kernel's), so a
 fit needs one seed drawn from the caller's generator and nothing read back.
-`ransac_fit_batch` fits k problems of N matches each in one launch, pair p
-under seed p.
+`ransac_fit` takes one problem of N matches, or k of them under a leading
+pair axis of the inputs, fitted in one launch, pair p under seed p.
 """
 
 import ctypes
@@ -38,7 +38,7 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 class RansacResult(NamedTuple):
-    """One fit; a batch form's has a leading pair axis on every field."""
+    """One fit; k fits' has a leading pair axis on every field."""
     H21: torch.Tensor          # (3, 3) best model (target -> source)
     num_inliers: torch.Tensor  # () int32
     inlier_mask: torch.Tensor  # (N,) bool over the padded match arrays
@@ -48,7 +48,7 @@ class RansacResult(NamedTuple):
 
 class Record(NamedTuple):
     """Per hypothesis, for checks: its count and its set of match indices
-    (a batch form's with a leading pair axis)."""
+    (k fits' with a leading pair axis)."""
     counts: torch.Tensor  # (rows,) int32
     sets: torch.Tensor    # (rows, n_points) int32
 
@@ -60,7 +60,7 @@ def stack_fits(fits):
 
 
 def pair_of(batch, p):
-    """Pair p of a batch form's RansacResult or Record."""
+    """Pair p of k fits' RansacResult or Record."""
     return type(batch)(*(f[p] for f in batch))
 
 
@@ -170,7 +170,16 @@ def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=
                    transform="homography"):
     """Plain PyTorch: the sets drawn under `seed` (or `samples`, (n_iter,
     n_points) int32), scored, the argmax (first index on ties) and the
-    winner's mask. Returns (RansacResult, Record)."""
+    winner's mask. Returns (RansacResult, Record). k problems (match1,
+    match2 (k, N, 3), valid (k, N), seed (k,) or samples (k, n_iter,
+    n_points)) are fitted pair by pair, pair p under seed[p:p + 1] (or
+    samples[p]), and stacked."""
+    if match1.dim() == 3:
+        fits = [ransac_fit_ref(match1[p], match2[p], valid[p], tolerance, n_iter,
+                               None if seed is None else seed[p:p + 1],
+                               None if samples is None else samples[p], transform)
+                for p in range(match1.shape[0])]
+        return stack_fits([f[0] for f in fits]), stack_fits([f[1] for f in fits])
     n_points = n_points_of(transform)
     sets = draw_sets_ref(valid, seed, n_iter, n_points=n_points) if samples is None else samples
     H, counts = ransac_score_ref(match1, match2, valid, sets, tolerance, transform)
@@ -184,25 +193,13 @@ def ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=
             Record(counts, sets))
 
 
-def ransac_fit_batch_ref(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
-                         transform="homography"):
-    """Plain PyTorch: `ransac_fit_ref` of each pair, pair p under seed[p:p +
-    1] (or samples[p]), stacked. match1, match2 (k, N, 3); valid (k, N);
-    seed (k,) int64 or samples (k, n_iter, n_points). Returns the batched
-    (RansacResult, Record)."""
-    fits = [ransac_fit_ref(match1[p], match2[p], valid[p], tolerance, n_iter,
-                           None if seed is None else seed[p:p + 1],
-                           None if samples is None else samples[p], transform)
-            for p in range(match1.shape[0])]
-    return stack_fits([f[0] for f in fits]), stack_fits([f[1] for f in fits])
-
-
-def check_matches(match1, match2, valid, batched):
-    """The kernels' checks of their match arrays: (k, N, 3), (k, N, 3) and
-    (k, N) for k fits when `batched`, else (N, 3), (N, 3) and (N,) for one.
-    Returns (lead, k, N, device, the valid-first order's scratch (k, N + 1)
-    int32 or None): `lead`, (k,) or (), leads every output's shape."""
-    lead = tuple(match1.shape[:int(batched)])
+def check_matches(match1, match2, valid):
+    """The kernels' checks of their match arrays: (N, 3), (N, 3) and (N,)
+    for one fit, or (k, N, 3), (k, N, 3) and (k, N) for k, told apart by
+    match1's rank. Returns (lead, k, N, device, the valid-first order's
+    scratch (k, N + 1) int32 or None): `lead`, (k,) or (), leads every
+    output's shape."""
+    lead = tuple(match1.shape[:1]) if match1.dim() == 3 else ()
     n = match1.shape[len(lead)] if match1.dim() > len(lead) else 0
     dev = match1.device
     if n > MAX_MATCHES:
@@ -232,7 +229,7 @@ def draw_source(seed, samples, lead, n_rows, dev, n_points):
 def outputs(lead, n, dev, n_points):
     """(H lead + (9,) fp32, ints lead + (8,) int32, mask and found lead + (N
     + 1,) bool) and the RansacResult viewing them: a single fit's (lead ())
-    has the bytes of the batch form's at k = 1, without the pair axis."""
+    has the bytes of k = 1 fits', without the pair axis."""
     # shapes as separate ints: PyTorch parses a tuple argument more slowly
     H = torch.empty(*lead, 9, dtype=torch.float32, device=dev)
     ints = torch.empty(*lead, 8, dtype=torch.int32, device=dev)
@@ -265,44 +262,23 @@ def ransac_fit(match1, match2, valid, tolerance, n_iter, seed=None, samples=None
     ones (above SHARED_ORDER_MAX matches, a scan kernel before it writes the
     valid-first order): the sets drawn under `seed` ((1,) int64 on the
     device) or read from `samples` ((n_iter, n_points) int32 in [0, N)).
-    transform: 'homography' (4-point sets) or 'affine' (3-point sets).
-    Returns (RansacResult, Record or None): the Record of every hypothesis
-    when `record`. Nothing is read back. Forward only: raises when a match
-    array requires grad under grad mode."""
+    k problems under a leading pair axis (match1, match2 (k, N, 3), valid
+    (k, N), seed (k,) or samples (k, n_iter, n_points)) are one launch for
+    all k fits, at most 65535, each pair's count, winner and mask those of
+    its own fit; one problem is the kernel's k = 1, its outputs shaped
+    without the pair axis. transform: 'homography' (4-point sets) or
+    'affine' (3-point sets). Returns (RansacResult, Record or None): the
+    Record of every hypothesis when `record`. Nothing is read back. Forward
+    only: raises when a match array requires grad under grad mode."""
     forbid_grad("ransac_fit", match1, match2)
     if match1.device.type == "cpu":
         res, rec = ransac_fit_ref(match1, match2, valid, tolerance, n_iter, seed, samples,
                                   transform)
         return res, rec if record else None
-    return _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
-                   batched=False)
-
-
-def ransac_fit_batch(match1, match2, valid, tolerance, n_iter, seed=None, samples=None,
-                     record=False, transform="homography"):
-    """`ransac_fit` of k problems: match1, match2 (k, N, 3), valid (k, N),
-    seed (k,) int64 (pair p's draws under seed[p]) or samples (k, n_iter,
-    n_points). CPU tensors take `ransac_fit_batch_ref`; CUDA ones one launch
-    of the kernel for all k fits, each pair's count, winner and mask its
-    single fit's. Returns (RansacResult, Record or None), each field with a
-    leading pair axis. Forward only."""
-    forbid_grad("ransac_fit", match1, match2)
-    if match1.device.type == "cpu":
-        res, rec = ransac_fit_batch_ref(match1, match2, valid, tolerance, n_iter, seed,
-                                        samples, transform)
-        return res, rec if record else None
-    return _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
-                   batched=True)
-
-
-def _launch(match1, match2, valid, tolerance, n_iter, seed, samples, record, transform,
-            batched):
-    """The kernel's launch for k fits (`batched`) or one: a single fit is
-    the kernel's k = 1, its outputs shaped without the pair axis."""
     n_points = n_points_of(transform)
-    lead, k, n, dev, order = check_matches(match1, match2, valid, batched)
+    lead, k, n, dev, order = check_matches(match1, match2, valid)
     if k > 65535:
-        raise ValueError(f"ransac_fit_batch: {k} pairs, at most 65535")
+        raise ValueError(f"ransac_fit: {k} pairs, at most 65535")
     seed_ptr, samples_ptr = draw_source(seed, samples, lead, n_iter, dev, n_points)
     H, ints, flags, res = outputs(lead, n, dev, n_points)
     rec = record_outputs(lead, n_iter, dev, n_points) if record else None

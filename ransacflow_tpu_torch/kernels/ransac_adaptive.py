@@ -1,7 +1,7 @@
 """Kernel 4: adaptive RANSAC, hypotheses in blocks until the confidence bound
 is met, as one persistent cooperative launch (`csrc/ransac_adaptive.cu`), for
-4-point homographies or 3-point affine maps; `ransac_adaptive_batch` runs k
-fits, each to its own bound, in one launch."""
+4-point homographies or 3-point affine maps. k fits under a leading pair
+axis of the inputs run in one launch, each to its own bound."""
 
 import ctypes
 
@@ -40,7 +40,21 @@ def ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter, chunk, confide
     strictly larger block maximum (first index on ties), and the loop stops
     once (blocks run) * chunk >= min(n_req, n_iter). The stop test is read
     back once a block. Returns (RansacResult, n_evaluated () int32, Record
-    of the hypotheses evaluated)."""
+    of the hypotheses evaluated). k problems under a leading pair axis (seed
+    (k,) or samples (k, rows, n_points)) are fitted pair by pair, pair p
+    under seed[p:p + 1] (or samples[p]), each to its own stop, and stacked:
+    n_evaluated (k,), and a pair's Record rows past its n_evaluated -1 (the
+    kernel leaves them unwritten)."""
+    if match1.dim() == 3:
+        fits = [ransac_adaptive_ref(match1[p], match2[p], valid[p], tolerance, n_iter, chunk,
+                                    confidence, None if seed is None else seed[p:p + 1],
+                                    None if samples is None else samples[p], transform)
+                for p in range(match1.shape[0])]
+        n_rows = -(-n_iter // chunk) * chunk
+        recs = [Record(*(torch.cat([x, x.new_full((n_rows - x.shape[0],) + x.shape[1:], -1)])
+                         for x in f[2])) for f in fits]
+        return (stack_fits([f[0] for f in fits]), torch.stack([f[1] for f in fits]),
+                stack_fits(recs))
     dev = match1.device
     n_points = n_points_of(transform)
     n_valid = valid.sum(dtype=torch.int32)
@@ -66,23 +80,6 @@ def ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter, chunk, confide
             Record(torch.cat(counts), torch.cat(sets)))
 
 
-def ransac_adaptive_batch_ref(match1, match2, valid, tolerance, n_iter, chunk, confidence,
-                              seed=None, samples=None, transform="homography"):
-    """Plain PyTorch: `ransac_adaptive_ref` of each pair, pair p under
-    seed[p:p + 1] (or samples[p]), each to its own stop. Returns the
-    batched (RansacResult, n_evaluated (k,), Record): a pair's Record rows
-    past its n_evaluated are -1 (the kernel leaves them unwritten)."""
-    fits = [ransac_adaptive_ref(match1[p], match2[p], valid[p], tolerance, n_iter, chunk,
-                                confidence, None if seed is None else seed[p:p + 1],
-                                None if samples is None else samples[p], transform)
-            for p in range(match1.shape[0])]
-    n_rows = -(-n_iter // chunk) * chunk
-    recs = [Record(*(torch.cat([x, x.new_full((n_rows - x.shape[0],) + x.shape[1:], -1)])
-                     for x in f[2])) for f in fits]
-    return (stack_fits([f[0] for f in fits]), torch.stack([f[1] for f in fits]),
-            stack_fits(recs))
-
-
 def ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk, confidence,
                     seed=None, samples=None, record=False, transform="homography"):
     """`ransac_adaptive_ref` for CPU tensors, one cooperative launch of the
@@ -91,50 +88,29 @@ def ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk, confidence,
     stop test and the winner's mask on the device: nothing is read back,
     and blocks after the stop are never run. seed: (1,) int64 on the
     device; samples: the injected sets instead; transform: 'homography' or
-    'affine'. Returns (RansacResult, n_evaluated, Record or
-    None): the Record, when `record`, holds ceil(n_iter / chunk) * chunk
-    rows, of which the first n_evaluated are written. Forward only: raises
-    when a match array requires grad under grad mode."""
+    'affine'. k problems under a leading pair axis (match1, match2 (k, N,
+    3), valid (k, N), seed (k,) or samples (k, rows, n_points)) are one
+    launch for all k fits (at most MAX_PAIRS), the co-resident blocks split
+    among the pairs, each pair evaluating exactly the blocks its own fit
+    would and frozen once it stops; one problem is the kernel's k = 1, its
+    outputs shaped without the pair axis. Returns (RansacResult,
+    n_evaluated () or (k,), Record or None): the Record, when `record`,
+    holds ceil(n_iter / chunk) * chunk rows a fit, of which the first
+    n_evaluated are written. Forward only: raises when a match array
+    requires grad under grad mode."""
     forbid_grad("ransac_adaptive", match1, match2)
     if match1.device.type == "cpu":
         res, n_eval, rec = ransac_adaptive_ref(match1, match2, valid, tolerance, n_iter,
                                                chunk, confidence, seed, samples, transform)
         return res, n_eval, rec if record else None
-    return _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
-                   record, transform, batched=False)
-
-
-def ransac_adaptive_batch(match1, match2, valid, tolerance, n_iter, chunk, confidence,
-                          seed=None, samples=None, record=False, transform="homography"):
-    """`ransac_adaptive` of k problems: match1, match2 (k, N, 3), valid (k,
-    N), seed (k,) int64 or samples (k, rows, n_points). CPU tensors take
-    `ransac_adaptive_batch_ref`; CUDA ones one cooperative launch for all k
-    fits (at most MAX_PAIRS), the co-resident blocks split among the pairs,
-    each pair evaluating exactly the blocks its single fit would and frozen
-    once it stops. Returns (RansacResult, n_evaluated (k,), Record or None)
-    with a leading pair axis. Forward only."""
-    forbid_grad("ransac_adaptive", match1, match2)
-    if match1.device.type == "cpu":
-        res, n_eval, rec = ransac_adaptive_batch_ref(match1, match2, valid, tolerance, n_iter,
-                                                     chunk, confidence, seed, samples,
-                                                     transform)
-        return res, n_eval, rec if record else None
-    return _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
-                   record, transform, batched=True)
-
-
-def _launch(match1, match2, valid, tolerance, n_iter, chunk, confidence, seed, samples,
-            record, transform, batched):
-    """The cooperative launch for k fits (`batched`) or one: a single fit
-    is the kernel's k = 1, its outputs shaped without the pair axis."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     n_points = n_points_of(transform)
     n_chunks = -(-n_iter // chunk)
     n_rows = n_chunks * chunk
-    lead, k, n, dev, order = check_matches(match1, match2, valid, batched)
+    lead, k, n, dev, order = check_matches(match1, match2, valid)
     if k > MAX_PAIRS:
-        raise ValueError(f"ransac_adaptive_batch: {k} pairs, at most {MAX_PAIRS}")
+        raise ValueError(f"ransac_adaptive: {k} pairs, at most {MAX_PAIRS}")
     seed_ptr, samples_ptr = draw_source(seed, samples, lead, n_rows, dev, n_points)
     H, ints, flags, res = outputs(lead, n, dev, n_points)
     rec = record_outputs(lead, n_rows, dev, n_points) if record else None

@@ -7,18 +7,14 @@ the reference's `preferred_element_type=float32` does (`:53`). With exact
 reciprocity a source cell matches at most one target cell; with
 `relax_cells > 0` several target cells may keep the same source cell.
 `mutual_matching` of k pairs' banks makes their scores one `torch.bmm` and
-their epilogues one launch of kernel 2's batch form.
+their epilogues one launch of kernel 2.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from ransacflow_tpu_torch.kernels.matching import (
-    mutual_argmax,
-    mutual_argmax_batch,
-    mutual_argmax_ref,
-)
+from ransacflow_tpu_torch.kernels.matching import mutual_argmax, mutual_argmax_ref
 
 
 class MatchResult(NamedTuple):
@@ -44,13 +40,6 @@ def score_gemm(featA, featB):
     return a.float() @ featB.float()
 
 
-def _score(featA, featB, validB):
-    score = score_gemm(featA, featB)  # (nA, nB)
-    if validB is not None:
-        score = score * validB.to(score.dtype)[None, :]
-    return score
-
-
 def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
     """Mutual NN matching between L2-normalized banks featA (C, nA) and
     featB (C, nB). A pair (i, j) is kept iff i is the argmax of column j, j
@@ -67,18 +56,17 @@ def mutual_matching(featA, featB, validB=None, relax_cells=0, grid_w=None):
 
     k pairs at once: featA (k, C, nA), featB (k, C, nB) and a (k, nB) mask
     give a MatchResult of (k, nB) fields, the scores one `torch.bmm` and
-    their epilogue one launch of kernel 2's batch form; pair p's matches
-    are those of its banks alone.
+    their epilogue one launch of kernel 2; pair p's matches are those of
+    its banks alone.
     """
-    epilogue = mutual_argmax if featA.dim() == 2 else mutual_argmax_batch
-    best_src, _, valid, pair_score = epilogue(score_gemm(featA, featB), relax_cells, grid_w,
-                                              validB)
+    best_src, _, valid, pair_score = mutual_argmax(score_gemm(featA, featB), relax_cells,
+                                                   grid_w, validB)
     return MatchResult(best_src, valid, pair_score)
 
 
 def mutual_matching_ref(featA, featB, validB=None, relax_cells=0, grid_w=None):
     """`mutual_matching` through the plain epilogue, on any device, the
     score multiplied by the mask first."""
-    best_src, _, valid, pair_score = mutual_argmax_ref(_score(featA, featB, validB),
-                                                       relax_cells, grid_w)
+    best_src, _, valid, pair_score = mutual_argmax_ref(score_gemm(featA, featB), relax_cells,
+                                                       grid_w, validB)
     return MatchResult(best_src, valid, pair_score)

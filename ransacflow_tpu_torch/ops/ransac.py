@@ -9,19 +9,14 @@ fit does) and hands it to its kernel: the fixed-count fit is kernel 3
 (`kernels/ransac_adaptive.py`). Each draws its minimal sets with Philox
 inside the kernel, solves, scores, picks the winner and writes its inlier
 mask in one launch. CPU tensors take the kernels' plain versions, whose
-draws are the kernels' bit for bit. The `_batch` forms fit k pairs' matches
-in one launch of the kernel's batch form, pair p under seed p.
+draws are the kernels' bit for bit. Matches with a leading pair axis are k
+pairs' fits in one launch, pair p under seed p.
 """
 
 import torch
 
-from ransacflow_tpu_torch.kernels.ransac import (
-    draw_sets_ref,
-    n_points_of,
-    ransac_fit,
-    ransac_fit_batch,
-)
-from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive, ransac_adaptive_batch
+from ransacflow_tpu_torch.kernels.ransac import draw_sets_ref, n_points_of, ransac_fit
+from ransacflow_tpu_torch.kernels.ransac_adaptive import ransac_adaptive
 
 
 def draw_seed(generator, device):
@@ -73,36 +68,26 @@ def _draws(match1, generator, injected_samples, n_rows, n_points):
 def ransac_homography(match1, match2, valid, tolerance, n_iter=10000,
                       generator=None, injected_samples=None, n_points=4,
                       transform="homography"):
-    """RANSAC over match1, match2 (N, 3) homogeneous points and valid (N,).
+    """RANSAC over match1, match2 (N, 3) homogeneous points and valid (N,),
+    or over k pairs' (k, N, 3) and (k, N) in one launch.
 
     tolerance: inlier threshold in normalized [-1, 1] units.
     generator: the `torch.Generator` the seed of the draws comes from (on
-      the matches' device).
+      the matches' device); for k pairs, k seeds drawn from it in pair order
+      before the fit, as k fits one after another draw them, or a list of k
+      generators, pair p's seed from the p-th.
     injected_samples: optional (n_iter, n_points) int32 match indices used
-      instead of drawing, so that a test can feed the reference's draws.
+      instead of drawing ((k, n_iter, n_points) for k pairs), so that a test
+      can feed the reference's draws.
     n_points / transform: 4 and 'homography' (the 4-point solve), or 3 and
       'affine' (the 3-point least-squares fit).
 
-    Returns `kernels.ransac.RansacResult`.
+    Returns `kernels.ransac.RansacResult`, with a leading pair axis for k
+    pairs; pair p's fit is that of its matches alone under its seed.
     """
     _check_transform(n_points, transform)
     res, _ = ransac_fit(match1, match2, valid, tolerance, n_iter, transform=transform,
                         **_draws(match1, generator, injected_samples, n_iter, n_points))
-    return res
-
-
-def ransac_homography_batch(match1, match2, valid, tolerance, n_iter=10000,
-                            generator=None, injected_samples=None, n_points=4,
-                            transform="homography"):
-    """`ransac_homography` of k pairs in one launch of kernel 3's batch
-    form: match1, match2 (k, N, 3), valid (k, N). generator: one generator
-    (k seeds drawn from it in pair order before the fit, as k fits one
-    after another draw them) or a list of k. injected_samples: optional (k,
-    n_iter, n_points). Returns the RansacResult with a leading pair axis;
-    pair p's fit is `ransac_homography` of its matches under its seed."""
-    _check_transform(n_points, transform)
-    res, _ = ransac_fit_batch(match1, match2, valid, tolerance, n_iter, transform=transform,
-                              **_draws(match1, generator, injected_samples, n_iter, n_points))
     return res
 
 
@@ -118,32 +103,20 @@ def ransac_homography_adaptive(match1, match2, valid, tolerance, n_iter=50000,
     Hypothesis h of the loop takes the set that hypothesis h of the
     fixed-count fit takes from the same generator state, so the sets do not
     depend on where the loop stops; the stop test never leaves the device.
+    Matches, valid and generator as `ransac_homography`: k pairs' fits are
+    one cooperative launch, each pair stopping at its own bound.
     injected_samples: optional (ceil(n_iter / chunk) * chunk, n_points)
-      int32 match indices used instead of drawing, block after block, so
-      that a test can feed the reference's per-block draws.
+      int32 match indices (with a leading pair axis for k pairs) used
+      instead of drawing, block after block, so that a test can feed the
+      reference's per-block draws.
     n_points / transform: as `ransac_homography`.
 
-    Returns (RansacResult, n_evaluated): n_evaluated () int32 is the number
-    of hypotheses scored, a multiple of `chunk`, as a device tensor.
+    Returns (RansacResult, n_evaluated): n_evaluated () int32, (k,) for k
+    pairs, is the number of hypotheses scored, a multiple of `chunk`, as a
+    device tensor.
     """
     _check_transform(n_points, transform)
     draws = _draws(match1, generator, injected_samples, -(-n_iter // chunk) * chunk, n_points)
     res, n_eval, _ = ransac_adaptive(match1, match2, valid, tolerance, n_iter, chunk,
                                      confidence, transform=transform, **draws)
-    return res, n_eval
-
-
-def ransac_homography_adaptive_batch(match1, match2, valid, tolerance, n_iter=50000,
-                                     chunk=4096, confidence=0.999, generator=None,
-                                     injected_samples=None, n_points=4,
-                                     transform="homography"):
-    """`ransac_homography_adaptive` of k pairs in one cooperative launch of
-    kernel 4's batch form, each pair stopping at its own bound: match1,
-    match2 (k, N, 3), valid (k, N); generator and injected_samples ((k,
-    ceil(n_iter / chunk) * chunk, n_points)) as `ransac_homography_batch`.
-    Returns (RansacResult, n_evaluated (k,)) with a leading pair axis."""
-    _check_transform(n_points, transform)
-    draws = _draws(match1, generator, injected_samples, -(-n_iter // chunk) * chunk, n_points)
-    res, n_eval, _ = ransac_adaptive_batch(match1, match2, valid, tolerance, n_iter, chunk,
-                                           confidence, transform=transform, **draws)
     return res, n_eval

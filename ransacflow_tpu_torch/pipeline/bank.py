@@ -7,10 +7,7 @@ import math
 
 import torch
 
-from ransacflow_tpu_torch.kernels.anchor_resample import (
-    anchor_resample_bank,
-    anchor_resample_bank_batch,
-)
+from ransacflow_tpu_torch.kernels.anchor_resample import anchor_resample_bank
 from ransacflow_tpu_torch.models.layers import l2_normalize
 from ransacflow_tpu_torch.models.resnet50 import imagenet_preprocess, resnet50_layer3
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords
@@ -56,17 +53,9 @@ def _anchor_maps(resnet, images, anchor_stride):
 
 
 def anchor_bank(resnet, images, anchor_stride, stride=16):
-    """The anchor mode's (nA, 1024) bank of (1, H, W, 3) `images`: the trunk
-    runs on the anchor scales only, and each scale's L2-normalized rows are
-    its nearest anchor's pre-normalization map resampled to the scale's grid
-    (an identity for the anchors themselves), every scale in one launch of
-    kernel 12."""
+    """The anchor mode's (k, nA, 1024) banks of k pairs, `images` (k, H, W,
+    3) a scale: the trunk runs once per anchor scale for all k, and each
+    scale's L2-normalized rows are its nearest anchor's pre-normalization
+    map resampled to the scale's grid (an identity for the anchors
+    themselves), every pair's every scale in one launch of kernel 12."""
     return anchor_resample_bank(*_anchor_maps(resnet, images, anchor_stride), stride=stride)
-
-
-def anchor_bank_batch(resnet, images, anchor_stride, stride=16):
-    """`anchor_bank` of k pairs, `images` (k, H, W, 3) a scale: the trunk
-    once per anchor scale for all k, every pair's bank in one launch of
-    kernel 12's batch form. Returns (k, nA, 1024)."""
-    return anchor_resample_bank_batch(*_anchor_maps(resnet, images, anchor_stride),
-                                      stride=stride)

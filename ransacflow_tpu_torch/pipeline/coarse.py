@@ -157,7 +157,7 @@ class CoarseAligner:
         arrs = [to_array(im) for im in imgs]
         if self.anchor_stride:
             self._bank = anchor_bank(self.resnet, [self.put(a)[None] for a in arrs],
-                                     self.anchor_stride, STRIDE_NET)
+                                     self.anchor_stride, STRIDE_NET)[0]
         else:
             self._bank = torch.cat([_coarse_feats(self.resnet, self.put(a)[None])
                                     for a in arrs])  # (nA, 1024)

@@ -2,31 +2,28 @@
 (port of `ransacflow_tpu/pipeline/fused.py`).
 
 Multi-scale coarse features -> mutual matching -> RANSAC -> homography warp
--> fine stage. `fused_align_batch` runs K pairs in one of the reference's
-batch modes: 'scan' (pair after pair), 'vmap' and 'hybrid' (the stages
-batched across all K pairs, RANSAC pair by pair in 'hybrid'), and
-'chunk<k>', 'chunkf<k>', 'chunkv<k>' (batched in chunks of k pairs). The
-pyramid is kernel 1 (`kernels/pyramid.device_pyramid`, re-exported here).
-The opt-in fast modes: `anchor_stride` (the trunk at every k-th scale
-only, the other scales' bank rows resampled from the nearest anchor by
-kernel 12), `relax_cells` (relaxed reciprocity in kernel 2) and
-`adaptive_chunk` (adaptive RANSAC, kernel 4). Their defaults are the
-reference's exact mode.
+-> fine stage. `fused_align_batch` runs K pairs in chunks, each chunk's
+coarse step, fit and fine stage one batched call each; the reference's batch
+modes name the chunk size: 'scan' one pair, 'vmap' all K, 'chunkv<k>' k
+pairs, and 'hybrid', 'chunk<k>' and 'chunkf<k>' are the reference's names
+for 'vmap' and 'chunkv<k>' (the reference's own paths for them give the
+same outputs, with fewer of the stages batched). `fused_align` is
+`fused_align_batch` of one pair. The pyramid is kernel 1
+(`kernels/pyramid.device_pyramid`, re-exported here). The opt-in fast
+modes: `anchor_stride` (the trunk at every k-th scale only, the other
+scales' bank rows resampled from the nearest anchor by kernel 12),
+`relax_cells` (relaxed reciprocity in kernel 2) and `adaptive_chunk`
+(adaptive RANSAC, kernel 4). Their defaults are the reference's exact
+mode.
 """
 
 import torch
 
 from ransacflow_tpu_torch.kernels.pyramid import device_pyramid  # noqa: F401  (K1)
-from ransacflow_tpu_torch.kernels.ransac import stack_fits
 from ransacflow_tpu_torch.ops.grid import feature_cell_coords, normalized_grid
 from ransacflow_tpu_torch.ops.matching import mutual_matching
-from ransacflow_tpu_torch.ops.ransac import (
-    ransac_homography,
-    ransac_homography_adaptive,
-    ransac_homography_adaptive_batch,
-    ransac_homography_batch,
-)
-from ransacflow_tpu_torch.pipeline.bank import anchor_bank_batch, bank_coords, coarse_features
+from ransacflow_tpu_torch.ops.ransac import ransac_homography, ransac_homography_adaptive
+from ransacflow_tpu_torch.pipeline.bank import anchor_bank, bank_coords, coarse_features
 from ransacflow_tpu_torch.pipeline.fine import fine_features, pred_flow_mask_homography
 from ransacflow_tpu_torch.utils.monitor import span
 
@@ -38,7 +35,7 @@ def _coarse_match_batch(resnet, pyramid, target, anchor_stride=0, relax_cells=0)
     epilogue one launch of kernel 2.
 
     anchor_stride > 0: the anchor-pyramid banks (one launch of kernel 12,
-    `pipeline.bank.anchor_bank_batch`); relax_cells > 0: relaxed
+    `pipeline.bank.anchor_bank`); relax_cells > 0: relaxed
     reciprocity over the target grid.
 
     Returns (m1, m2, valid): homogeneous (k, nB, 3) match arrays keyed by
@@ -47,7 +44,7 @@ def _coarse_match_batch(resnet, pyramid, target, anchor_stride=0, relax_cells=0)
     device = target.device
     with span("rf.align.features"):
         if anchor_stride:
-            bank = anchor_bank_batch(resnet, pyramid, anchor_stride)
+            bank = anchor_bank(resnet, pyramid, anchor_stride)
         else:
             bank = torch.cat([coarse_features(resnet, img).flatten(1, 2) for img in pyramid],
                              dim=1)
@@ -64,35 +61,18 @@ def _coarse_match_batch(resnet, pyramid, target, anchor_stride=0, relax_cells=0)
     return m1, m2, m.valid
 
 
-def _ransac(m1, m2, valid, generator, tolerance, n_iter, adaptive_chunk, injected_samples):
-    """One pair's fit: fixed-count (kernel 3), or adaptive in blocks of
-    adaptive_chunk with n_iter the cap (kernel 4)."""
-    if adaptive_chunk:
-        res, _ = ransac_homography_adaptive(m1, m2, valid, tolerance, n_iter=n_iter,
-                                            chunk=adaptive_chunk, generator=generator,
-                                            injected_samples=injected_samples)
-        return res
-    return ransac_homography(m1, m2, valid, tolerance, n_iter=n_iter, generator=generator,
-                             injected_samples=injected_samples)
-
-
-def _ransac_pairs(m1, m2, valid, gens, tolerance, n_iter, adaptive_chunk, draws):
-    """k pairs' fits one after another (k launches), stacked."""
-    return stack_fits([_ransac(m1[p], m2[p], valid[p], gens[p], tolerance, n_iter,
-                               adaptive_chunk, draws[p]) for p in range(m1.shape[0])])
-
-
 def _ransac_batch(m1, m2, valid, gens, tolerance, n_iter, adaptive_chunk, draws):
-    """k pairs' fits in one launch of kernel 3's (or kernel 4's) batch form,
-    pair p under gens[p] or draws[p]."""
+    """k pairs' fits in one launch: fixed-count (kernel 3), or adaptive in
+    blocks of adaptive_chunk with n_iter the cap (kernel 4); pair p under
+    gens[p] or draws[p]."""
     injected = None if draws[0] is None else torch.stack(list(draws))
     if adaptive_chunk:
-        res, _ = ransac_homography_adaptive_batch(m1, m2, valid, tolerance, n_iter=n_iter,
-                                                  chunk=adaptive_chunk, generator=list(gens),
-                                                  injected_samples=injected)
+        res, _ = ransac_homography_adaptive(m1, m2, valid, tolerance, n_iter=n_iter,
+                                            chunk=adaptive_chunk, generator=list(gens),
+                                            injected_samples=injected)
         return res
-    return ransac_homography_batch(m1, m2, valid, tolerance, n_iter=n_iter,
-                                   generator=list(gens), injected_samples=injected)
+    return ransac_homography(m1, m2, valid, tolerance, n_iter=n_iter, generator=list(gens),
+                             injected_samples=injected)
 
 
 def _fine_with_gate_batch(align, pyramid, target, h21, found, num_inliers, cycle_match,
@@ -128,14 +108,6 @@ def _fine_with_gate_batch(align, pyramid, target, h21, found, num_inliers, cycle
         }
 
 
-def _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size):
-    """`_fine_with_gate_batch` of one pair: pyramid (1, Hi, Wi, 3) scales,
-    target (1, Ht, Wt, 3), res one fit's H21, found and num_inliers."""
-    out = _fine_with_gate_batch(align, pyramid, target, res.H21[None], res.found[None],
-                                res.num_inliers[None], cycle_match, kernel_size)
-    return {key: v[0] for key, v in out.items()}
-
-
 @torch.inference_mode()
 def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
                 n_iter=10000, kernel_size=7, cycle_match=True,
@@ -155,40 +127,35 @@ def fused_align(resnet, align, pyramid, target, generator=None, tolerance=0.05,
       cap. anchor_stride, relax_cells: see `_coarse_match_batch`.
 
     Returns dict: 'H21' (3, 3), 'found' (), 'num_inliers' (), 'flow'
-    (1, Ht, Wt, 2), 'match' (Ht, Wt), 'flow_down8', 'match_down8'.
+    (1, Ht, Wt, 2), 'match' (Ht, Wt), 'flow_down8', 'match_down8': those of
+    `fused_align_batch` of this one pair.
     """
-    with span("rf.align"):
-        m1, m2, valid = _coarse_match_batch(resnet, pyramid, target, anchor_stride,
-                                            relax_cells)
-        with span("rf.align.fit"):
-            res = _ransac(m1[0], m2[0], valid[0], generator, tolerance, n_iter,
-                          adaptive_chunk, injected_samples)
-        return _fine_with_gate(align, pyramid, target, res, cycle_match, kernel_size)
+    out = fused_align_batch(
+        resnet, align, tuple(p[None] for p in pyramid), target[None], [generator],
+        tolerance=tolerance, n_iter=n_iter, kernel_size=kernel_size, cycle_match=cycle_match,
+        adaptive_chunk=adaptive_chunk, anchor_stride=anchor_stride, relax_cells=relax_cells,
+        injected_samples=None if injected_samples is None else injected_samples[None])
+    return {key: v[0] for key, v in out.items()}
 
 
 def parse_batch_mode(batch_mode, n_pairs):
-    """(chunk size, RANSAC batched, fine stage batched) of a batch mode for
-    K = n_pairs pairs: 'scan' (1, yes, yes: a batch of one pair is that
-    pair's single fit and fine pass), 'vmap' (K, yes, yes), 'hybrid' (K,
-    no, yes), 'chunk<k>' (k, no, no), 'chunkf<k>' (k, no, yes), 'chunkv<k>'
-    (k, yes, yes). Raises ValueError on an unknown mode and when K is not
-    divisible by the chunk size, as the reference does."""
+    """The chunk size of a batch mode for K = n_pairs pairs: 'scan' 1,
+    'vmap' and 'hybrid' K, 'chunk<k>', 'chunkf<k>' and 'chunkv<k>' k.
+    Raises ValueError on an unknown mode and when K is not divisible by the
+    chunk size, as the reference does."""
     if batch_mode == "scan":
-        return 1, True, True
-    if batch_mode == "vmap":
-        return n_pairs, True, True
-    if batch_mode == "hybrid":
-        return n_pairs, False, True
+        return 1
+    if batch_mode in ("vmap", "hybrid"):
+        return n_pairs
     if batch_mode.startswith("chunk"):
         spec = batch_mode[5:]
-        full, fine = spec.startswith("v"), spec.startswith("f")
-        digits = spec[1:] if (full or fine) else spec
+        digits = spec[1:] if spec[:1] in ("v", "f") else spec
         if digits.isdigit() and int(digits) > 0:
             c = int(digits)
             if n_pairs % c:
                 raise ValueError(f"batch_mode {batch_mode!r} needs the pair count ({n_pairs}) "
                                  f"divisible by the chunk size ({c})")
-            return c, full, full or fine
+            return c
     raise ValueError(f"unknown batch_mode: {batch_mode!r}")
 
 
@@ -205,21 +172,19 @@ def fused_align_batch(resnet, align, pyramids, targets, generator=None,
     generators, or takes injected_samples[k] ((K, rows, 4): `fused_align`'s
     per pair); the trunk and the fine stage draw nothing, so every mode
     gives each pair the draws it has under 'scan'.
-    batch_mode: 'scan' runs the pairs one after another (chunks of one
-      pair); 'vmap' runs the coarse features and matching, RANSAC (kernel
-      3's or 4's batch form) and the fine stage each once for all K pairs;
-      'hybrid' does so but fits pair by pair; 'chunk<k>' batches the coarse features and
-      matching in chunks of k pairs, fits and runs the fine stage pair by
-      pair; 'chunkf<k>' also batches the fine stage over the chunk;
-      'chunkv<k>' batches the whole chunk. Every mode returns what 'scan'
-      returns, pair by pair.
+    batch_mode: the chunk size (`parse_batch_mode`). Each chunk runs the
+      coarse features and matching (`_coarse_match_batch`), RANSAC (one
+      launch of kernel 3 or 4, `_ransac_batch`) and the fine stage
+      (`_fine_with_gate_batch`) once for its pairs: 'scan' runs the pairs
+      one after another, 'vmap' and 'hybrid' all K at once, 'chunk<k>',
+      'chunkf<k>' and 'chunkv<k>' k at a time. Every mode returns what
+      'scan' returns, pair by pair.
     Returns the dict of `fused_align` with a leading K axis.
     """
     k_pairs = targets.shape[0]
-    chunk, ransac_batched, fine_batched = parse_batch_mode(batch_mode, k_pairs)
+    chunk = parse_batch_mode(batch_mode, k_pairs)
     gens = generator if isinstance(generator, (list, tuple)) else [generator] * k_pairs
     draws = [None] * k_pairs if injected_samples is None else injected_samples
-    fit = _ransac_batch if ransac_batched else _ransac_pairs
     outs = []
     with span("rf.align"):
         for c0 in range(0, k_pairs, chunk):
@@ -228,14 +193,8 @@ def fused_align_batch(resnet, align, pyramids, targets, generator=None,
             tgt = targets[pairs, 0]
             m1, m2, valid = _coarse_match_batch(resnet, pyr, tgt, anchor_stride, relax_cells)
             with span("rf.align.fit"):
-                res = fit(m1, m2, valid, gens[pairs], tolerance, n_iter, adaptive_chunk,
-                          draws[pairs])
-            if fine_batched:
-                outs.append(_fine_with_gate_batch(align, pyr, tgt, res.H21, res.found,
-                                                  res.num_inliers, cycle_match, kernel_size))
-                continue
-            for p in range(m1.shape[0]):
-                outs.append(_fine_with_gate_batch(
-                    align, tuple(s[p:p + 1] for s in pyr), tgt[p:p + 1], res.H21[p:p + 1],
-                    res.found[p:p + 1], res.num_inliers[p:p + 1], cycle_match, kernel_size))
+                res = _ransac_batch(m1, m2, valid, gens[pairs], tolerance, n_iter,
+                                    adaptive_chunk, draws[pairs])
+            outs.append(_fine_with_gate_batch(align, pyr, tgt, res.H21, res.found,
+                                              res.num_inliers, cycle_match, kernel_size))
         return {key: torch.cat([o[key] for o in outs]) for key in outs[0]}

@@ -7,9 +7,9 @@ K = 4 pairs of tests/test_fused.py's shape (64x64 targets, two scales),
 order) and held to JAX's `fused_align_batch` in the same mode; once more
 with adaptive RANSAC and once in the anchor + relaxed mode on a three-scale
 pyramid. Each mode is also held to the port's own 'scan' under one shared
-generator (the draws' contract: one seed a pair, in pair order), and the
-batch forms of kernels 2, 3, 4 and 12 on CPU tensors to their single forms
-pair by pair.
+generator (the draws' contract: one seed a pair, in pair order); every
+mode runs one fit and one fine call a chunk; and the wrappers of kernels 2,
+3, 4 and 12, given CPU tensors with a pair axis, to their calls on each pair.
 """
 
 import numpy as np
@@ -190,49 +190,47 @@ def _equal(a, b):
 
 @pytest.mark.parametrize("kernel", ["mutual_argmax", "anchor_resample", "ransac_fit",
                                     "ransac_adaptive"])
-def test_batch_twins_are_loops_of_single_twins(rng, kernel):
-    """Each batch form's wrapper on CPU tensors gives, pair by pair, its
-    single form's result on that pair (the two wrappers route to their
-    twins separately), takes bf16 at its boundary as the single form does,
-    and raises under grad; the adaptive twin stops each pair after its own
-    blocks and leaves -1 in the rows of its record past the stop."""
+def test_batched_call_is_a_loop_of_single_calls(rng, kernel):
+    """Each wrapper on CPU tensors with a leading pair axis gives, pair by
+    pair, its call on that pair alone (no pair axis for K2, K3 and K4; k = 1
+    for K12, whose maps always carry the axis), bit for bit, takes bf16 at
+    its boundary as that call does, and raises under grad; the adaptive fit
+    stops each pair after its own blocks and leaves -1 in the rows of its
+    record past the stop."""
     if kernel == "mutual_argmax":
         score = t(rng.randn(K, 40, 24).astype(np.float32))
         score[1, 3, :] = score[1, 7, :]  # tied rows: the lowest index wins
         valid_b = t(rng.rand(K, 24) > 0.2)
         for s, relax, grid_w, mask in ((score, 0, None, None), (score, 1, 6, valid_b),
                                        (score.bfloat16(), 0, None, valid_b)):
-            batch = matching.mutual_argmax_batch(s, relax, grid_w, mask)
+            batch = matching.mutual_argmax(s, relax, grid_w, mask)
             assert batch[3].dtype == s.dtype
             for p in range(K):
                 _equal([b[p] for b in batch], matching.mutual_argmax(
                     s[p], relax, grid_w, None if mask is None else mask[p]))
-        call = lambda x: matching.mutual_argmax_batch(x)  # noqa: E731
+        call = lambda x: matching.mutual_argmax(x)  # noqa: E731
         needs_grad = score.requires_grad_()
     elif kernel == "anchor_resample":
         shapes, nearest = [(64, 64), (48, 48), (32, 32)], [0, 0, 2]
         maps = {0: t(rng.randn(K, 4, 4, 8).astype(np.float32)),
                 2: t(rng.randn(K, 2, 2, 8).astype(np.float32))}
         for m in (maps, {i: x.bfloat16() for i, x in maps.items()}):
-            batch = anchor_resample.anchor_resample_bank_batch(m, shapes, nearest)
-            assert batch.dtype == m[0].dtype
+            batch = anchor_resample.anchor_resample_bank(m, shapes, nearest)
+            assert batch.dtype == m[0].dtype and batch.shape[0] == K
             for p in range(K):
-                assert torch.equal(batch[p], anchor_resample.anchor_resample_bank(
+                assert torch.equal(batch[p:p + 1], anchor_resample.anchor_resample_bank(
                     {i: x[p:p + 1] for i, x in m.items()}, shapes, nearest))
-        call = lambda x: anchor_resample.anchor_resample_bank_batch(  # noqa: E731
+        call = lambda x: anchor_resample.anchor_resample_bank(  # noqa: E731
             {0: x, 2: maps[2]}, shapes, nearest)
         needs_grad = maps[0].requires_grad_()
     else:
         m1, m2, valid, seeds = _ransac_problems(rng)
         if kernel == "ransac_fit":
-            args = (0.05, 200)
-            batch_fn, single_fn = ransac.ransac_fit_batch, ransac.ransac_fit
+            args, fn = (0.05, 200), ransac.ransac_fit
         else:
-            args = (0.05, 1000, 64, 0.99)
-            batch_fn, single_fn = (ransac_adaptive.ransac_adaptive_batch,
-                                   ransac_adaptive.ransac_adaptive)
-        batch = batch_fn(m1, m2, valid, *args, seed=seeds, record=True)
-        singles = [single_fn(m1[p], m2[p], valid[p], *args, seed=seeds[p:p + 1], record=True)
+            args, fn = (0.05, 1000, 64, 0.99), ransac_adaptive.ransac_adaptive
+        batch = fn(m1, m2, valid, *args, seed=seeds, record=True)
+        singles = [fn(m1[p], m2[p], valid[p], *args, seed=seeds[p:p + 1], record=True)
                    for p in range(K)]
         for p, one in enumerate(singles):
             _equal(ransac.pair_of(batch[0], p), one[0])
@@ -240,14 +238,50 @@ def test_batch_twins_are_loops_of_single_twins(rng, kernel):
             _equal([x[:n] for x in ransac.pair_of(batch[-1], p)], [x[:n] for x in one[-1]])
         if kernel == "ransac_adaptive":
             n_eval = batch[1]
+            assert n_eval.shape == (K,) and singles[0][1].shape == ()
             assert len(set(n_eval.tolist())) > 1  # the pairs stop after different blocks
             for p, one in enumerate(singles):
                 assert int(n_eval[p]) == int(one[1])
                 assert (batch[2].counts[p, int(one[1]):] == -1).all()  # no rows past the stop
-        call = lambda x: batch_fn(x, m2, valid, *args, seed=seeds)  # noqa: E731
+        call = lambda x: fn(x, m2, valid, *args, seed=seeds)  # noqa: E731
         needs_grad = m1.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         call(needs_grad)
+
+
+@pytest.mark.parametrize("batch_mode", MODES + ("fused_align",))
+def test_every_mode_runs_one_fit_and_one_fine_call_a_chunk(nets, monkeypatch, batch_mode):
+    """Every batch mode runs each chunk through `fused._ransac_batch` and
+    `fused._fine_with_gate_batch` once, looked up by name at call time (the
+    names a caller patches to stand in for a stage), and `fused_align` is
+    one chunk of one pair."""
+    _, _, resnet, align = nets
+    pyramids, targets, _ = _batch()
+    calls = {"fit": [], "fine": []}
+    fit, fine = fused._ransac_batch, fused._fine_with_gate_batch
+
+    def counted_fit(m1, *args):
+        calls["fit"].append(m1.shape[0])
+        return fit(m1, *args)
+
+    def counted_fine(align_nets, pyramid, target, *args):
+        calls["fine"].append(target.shape[0])
+        return fine(align_nets, pyramid, target, *args)
+
+    monkeypatch.setattr(fused, "_ransac_batch", counted_fit)
+    monkeypatch.setattr(fused, "_fine_with_gate_batch", counted_fine)
+    gen = torch.Generator().manual_seed(0)
+    if batch_mode == "fused_align":
+        out = fused.fused_align(resnet, align, tuple(t(p[0]) for p in pyramids), t(targets[0]),
+                                gen, n_iter=8)
+        assert out["H21"].shape == (3, 3) and out["flow"].shape == (1, 64, 64, 2)
+        chunks = [1]
+    else:
+        fused.fused_align_batch(resnet, align, tuple(map(t, pyramids)), t(targets), gen,
+                                n_iter=8, batch_mode=batch_mode)
+        chunk = fused.parse_batch_mode(batch_mode, K)
+        chunks = [chunk] * (K // chunk)
+    assert calls == {"fit": chunks, "fine": chunks}
 
 
 @pytest.mark.parametrize("batch_mode,match", [("chunk3", "divisible by the chunk size"),
@@ -275,8 +309,8 @@ def test_batch_modes_raise_where_jax_does(nets):
                                      batch_mode=batch_mode)
 
 
-def test_mutual_argmax_batch_schedule_is_one_wave():
-    """The batch form's schedule splits about one wave of blocks among the
+def test_mutual_argmax_schedule_of_k_pairs_is_one_wave():
+    """The schedule of k scores splits about one wave of blocks among the
     pairs, each pair's chunks covering its rows."""
     for n_pairs in (1, 2, 4, 32):
         n_chunks, rows, n_slices, _ = matching.schedule(13065, 1200, True, 132, n_pairs)

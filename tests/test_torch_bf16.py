@@ -213,7 +213,6 @@ def test_mutual_argmax_on_a_bf16_score_keeps_the_tie_rules(rng):
 # (kernel, caller module, wrapper name): where each path calls the wrappers
 _BOUNDARIES = (
     ("K2 mutual_argmax", "ransacflow_tpu_torch.ops.matching", "mutual_argmax"),
-    ("K2 mutual_argmax", "ransacflow_tpu_torch.ops.matching", "mutual_argmax_batch"),
     ("K3 ransac", "ransacflow_tpu_torch.ops.ransac", "ransac_fit"),
     ("K5h warp_homography", "ransacflow_tpu_torch.pipeline.fine", "warp_homography"),
     ("K6 correlation_pair", "ransacflow_tpu_torch.pipeline.fine", "correlation_pair"),
@@ -221,7 +220,6 @@ _BOUNDARIES = (
     ("K8 compose_tail", "ransacflow_tpu_torch.pipeline.fine", "compose_tail"),
     ("K9 blur_pool", "ransacflow_tpu_torch.ops.blurpool", "blur_pool"),
     ("K12 anchor_resample", "ransacflow_tpu_torch.pipeline.bank", "anchor_resample_bank"),
-    ("K12 anchor_resample", "ransacflow_tpu_torch.pipeline.bank", "anchor_resample_bank_batch"),
     ("K5 warp_sample", "ransacflow_tpu_torch.train.losses", "grid_sample"),
     ("K6 correlation_volume", "ransacflow_tpu_torch.train.losses", "correlation_volume"),
     ("K7 flow_epilogue", "ransacflow_tpu_torch.models.heads", "flow_epilogue"),

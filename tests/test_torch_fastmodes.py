@@ -139,8 +139,8 @@ def test_anchor_resample_bank_ref_matches_jax(rng, stride):
     tmaps = {i: t(m) for i, m in maps.items()}
     for fn in (anchor_resample_bank_ref, anchor_resample_bank):
         ours = fn(tmaps, shapes, nearest)
-        assert ours.shape == ref.shape
-        close(ours, ref, atol=1e-5)
+        assert ours.shape == (1,) + ref.shape  # the maps' pair axis, k = 1
+        close(ours[0], ref, atol=1e-5)
     assert nearest == bank.nearest_anchors(shapes, stride)
 
 
@@ -198,7 +198,7 @@ def test_anchor_bank_plan_walked_as_the_kernel(rng, stride):
     grids = [(h // 16, w // 16) for h, w in shapes]
     plan = anchor_resample.bank_plan([tuple(m.shape[1:3]) for m in srcs], grids)
     ours = _walk_bank_plan(plan, srcs, 8)
-    ref = anchor_resample_bank_ref({i: t(m) for i, m in maps.items()}, shapes, nearest)
+    ref = anchor_resample_bank_ref({i: t(m) for i, m in maps.items()}, shapes, nearest)[0]
     torch.testing.assert_close(ours, ref, atol=1e-6, rtol=0)
     identity = plan["meta"][:, anchor_resample.META.index("identity")]
     kinds = [int(identity[job >> 24]) for job in plan["order"].tolist()]
@@ -217,7 +217,7 @@ def test_anchor_resample_bank_caps_its_scales(rng):
     with pytest.raises(ValueError, match="scales"):
         anchor_resample_bank({0: fmap}, [(64, 80)] * 2, [0])
     assert anchor_resample_bank({0: fmap}, [(64, 80)] * (n - 1), [0] * (n - 1)).shape == \
-        ((n - 1) * 20, 8)
+        (1, (n - 1) * 20, 8)
 
 
 # -- kernel 2: relaxed reciprocity --------------------------------------------

@@ -186,12 +186,12 @@ def test_fused_align_gates_a_failed_ransac(rng, nets):
     """No valid match: identity H21, zero matchability, identity flow."""
     _, _, resnet, align = nets
     pyr, tgt = _pair(rng)
-    out = fused._fine_with_gate(
-        align, tuple(map(t, pyr)), t(tgt),
-        fused.ransac_homography(torch.zeros(16, 3), torch.zeros(16, 3),
-                                torch.zeros(16, dtype=torch.bool), 0.05, n_iter=8,
-                                generator=torch.Generator().manual_seed(0)),
-        cycle_match=True, kernel_size=7)
+    res = fused.ransac_homography(torch.zeros(1, 16, 3), torch.zeros(1, 16, 3),
+                                  torch.zeros(1, 16, dtype=torch.bool), 0.05, n_iter=8,
+                                  generator=torch.Generator().manual_seed(0))
+    out = {key: v[0] for key, v in fused._fine_with_gate_batch(
+        align, tuple(map(t, pyr)), t(tgt), res.H21, res.found, res.num_inliers,
+        cycle_match=True, kernel_size=7).items()}
     assert not bool(out["found"])
     torch.testing.assert_close(out["H21"], torch.eye(3))
     assert (out["match"] == 0).all() and (out["flow_down8"] == 0).all()

@@ -9,7 +9,6 @@ against the plain versions and skip without a card.
 """
 
 import ctypes
-from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -131,7 +130,7 @@ def test_pred_flow_mask_homography_matches_jax(rng, nets, cycle_match):
 
 
 def test_fine_gate_warps_once_by_homography(rng, monkeypatch):
-    """`fused._fine_with_gate` runs the fine stage through one
+    """`fused._fine_with_gate_batch` runs the fine stage through one
     `warp_homography` call and no grid-form warp; a failed RANSAC warps by
     the identity and hands back the identity grid."""
     from ransacflow_tpu_torch.pipeline import init_alignment_params
@@ -152,12 +151,11 @@ def test_fine_gate_warps_once_by_homography(rng, monkeypatch):
     tgt = t(rng.rand(1, 48, 64, 3).astype(np.float32))
     H = t((np.eye(3) + 0.05 * rng.randn(3, 3)).astype(np.float32))
     for found in (True, False):
-        res = SimpleNamespace(H21=H, found=torch.tensor(found),
-                              num_inliers=torch.tensor(7))
-        out = fused._fine_with_gate(align, (src,), tgt, res, True, 7)
+        out = fused._fine_with_gate_batch(align, (src,), tgt, H[None], torch.tensor([found]),
+                                          torch.tensor([7]), True, 7)
         torch.testing.assert_close(calls[-1][0], H if found else torch.eye(3))
         if not found:
-            assert torch.equal(out["flow"], normalized_grid(48, 64, "cpu")[None])
+            assert torch.equal(out["flow"][0], normalized_grid(48, 64, "cpu")[None])
             assert (out["match"] == 0).all()
     assert len(calls) == 2
 
